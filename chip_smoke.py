@@ -34,8 +34,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: NVIDIA H100 SXM published peaks (data sheet; the on-chip-measurement
-#: table): HBM3 bandwidth and float32 outside the tensor cores.
+#: NVIDIA H100 SXM published peaks (data sheet): HBM3 bandwidth and
+#: float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
