@@ -17,7 +17,16 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    through ``FCMServeEngine`` with the launch counts set to 0 just
    before and read just after, hold labels and iteration counts against
    a CPU engine, check each class's DSC, the cache, and serve the
-   paper's largest Table 3 image (1000 KB) at batch 1.
+   paper's largest Table 3 image (1000 KB) at batch 1;
+5. paper path: hold the membership, center-partials and fused-partials
+   kernels against their plain versions at the 1000 KB image and at
+   ragged and degenerate shapes; ``solve`` one image with the auto,
+   fused and staged backends (and the whole-solve on its histogram) on
+   the card and on the CPU, with the launch counts set to 0 just before
+   and read just after; check iterations, centers, labels and DSC; time
+   the paper's Table 3 ladder (sequential numpy on the host, staged,
+   fused, histogram whole-solve) and profile one fused and one staged
+   solve.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -48,6 +57,16 @@ RTOL, ATOL = 1e-5, 1e-4
 VOLUME = (181, 217, 181)
 #: the paper's largest Table 3 image, 1000 KB at one byte a pixel
 BIG_BYTES = 1000 * 1024
+#: the paper's Table 3 image sizes (KB) and the fixed iteration count its
+#: ladder times each solve at
+TABLE3_KB = (20, 40, 60, 80, 100, 200, 300, 500, 700, 1000)
+TABLE3_ITERS = 10
+#: memberships against the plain version: the same float32 operations,
+#: the c-term normalizing sum perhaps in another order, and for m != 2
+#: two pow implementations
+U_RTOL, U_ATOL = 1e-6, 1e-7
+#: partial sums over up to a million pixels, summed in other orders
+SUM_RTOL = 1e-5
 
 
 def fail(msg):
@@ -307,6 +326,340 @@ def profile_flush(eng, imgs, card):
               f"({dev_us / count:8.2f} us each) {key[:60]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the paper's per-iteration path
+# ---------------------------------------------------------------------------
+
+def paper_kernel_cases(big, dev):
+    """(name, x, w, v, m) cases at the 1000 KB image and at ragged and
+    degenerate shapes. Realistic centers sit between pixel values; the
+    'on a pixel' centers are integers that occur in the image (exact zero
+    distances), as happens whenever a center lands on an intensity."""
+    x = torch.from_numpy(big.astype(np.float32)).to(dev)
+    v4 = torch.tensor([0.6, 51.3, 105.4, 167.6], device=dev)
+    v_on = torch.tensor([0.0, 51.0, 105.0, 168.0], device=dev)
+    v8 = torch.linspace(3.3, 250.1, 8, device=dev)
+    flat = torch.full((8193,), 77.0, device=dev)
+    hist = torch.bincount(x.to(torch.int64), minlength=256).to(torch.float32)
+    vals = torch.arange(256, dtype=torch.float32, device=dev)
+    return [
+        ("1000 KB, c=4, m=2", x, None, v4, 2.0),
+        ("1000 KB, centers on pixels", x, None, v_on, 2.0),
+        ("1000 KB, m=2.5", x, None, v4, 2.5),
+        ("1000 KB, c=8", x, None, v8, 2.0),
+        ("N=1", x[:1].contiguous(), None, v4, 2.0),
+        ("N=127", x[:127].contiguous(), None, v_on, 2.0),
+        ("N=8193", x[:8193].contiguous(), None, v4, 2.5),
+        ("all-equal image", flat, None,
+         torch.tensor([77.0, 77.0, 100.0, 150.0], device=dev), 2.0),
+        ("256 histogram rows, counts", vals, hist, v4, 2.0),
+    ]
+
+
+def check_membership(KM, cases):
+    worst = 0.0
+    for name, x, _, v, m in cases:
+        got = KM.membership(x, v, m)
+        torch.cuda.synchronize()
+        want = KM.membership_plain(x, v, m)
+        g, p = got.cpu().numpy(), want.cpu().numpy()
+        np.testing.assert_allclose(g, p, rtol=U_RTOL, atol=U_ATOL,
+                                   err_msg=f"membership {name}")
+        err = float(np.abs(g - p).max())
+        worst = max(worst, err)
+        print(f"  membership {name}: max |du| {err:.3g}")
+    name, x, _, v, m = cases[0]
+    n, c = x.shape[0], v.shape[0]
+    ms = time_ms(lambda: KM.membership(x, v, m))
+    plain_ms = time_ms(lambda: KM.membership_plain(x, v, m))
+    # per pixel and center: subtract, square, compare, floor, reciprocal,
+    # sum, divide
+    bnd, by = bound_ms(4 * (n + c + c * n), 7 * n * c)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
+
+
+def _close_sums(got, want, what):
+    """Hold (num, den) against the plain version's; returns (max abs
+    error, max error relative to the largest sum)."""
+    for g, p, part in zip(got, want, ("num", "den")):
+        np.testing.assert_allclose(g.cpu().numpy(), p.cpu().numpy(),
+                                   rtol=SUM_RTOL, err_msg=f"{what} {part}")
+    errs = [(float((g - p).abs().max()), float(p.abs().max()))
+            for g, p in zip(got, want)]
+    return (max(e for e, _ in errs),
+            max(e / max(top, 1e-30) for e, top in errs))
+
+
+def check_center_partials(KC, KM, cases):
+    worst = 0.0
+    for name, x, w, v, m in cases:
+        u = KM.membership_plain(x, v, m).contiguous()
+        got = KC.center_partials(x, u, m, w)
+        torch.cuda.synchronize()
+        again = KC.center_partials(x, u, m, w)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"center_partials does not repeat bit for bit on {name}")
+        err, rel = _close_sums(got, KC.center_partials_plain(x, u, m, w),
+                               f"center_partials {name}")
+        worst = max(worst, err)
+        print(f"  center_partials {name}: max abs err {err:.3g} (relative "
+              f"{rel:.3g}), repeats bit for bit")
+    name, x, w, v, m = cases[0]
+    u = KM.membership(x, v, m)
+    n, c = x.shape[0], v.shape[0]
+    ms = time_ms(lambda: KC.center_partials(x, u, m))
+    plain_ms = time_ms(lambda: KC.center_partials_plain(x, u, m))
+    # per pixel and center: u*u, times x, two adds
+    bnd, by = bound_ms(4 * (n + c * n + 2 * c), 4 * n * c)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
+
+
+def check_fused_partials(KC, cases):
+    worst = 0.0
+    for name, x, w, v, m in cases:
+        got = KC.fused_partials(x, w, v, m)
+        torch.cuda.synchronize()
+        again = KC.fused_partials(x, w, v, m)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"fused_partials does not repeat bit for bit on {name}")
+        err, rel = _close_sums(got, KC.fused_partials_plain(x, w, v, m),
+                               f"fused_partials {name}")
+        worst = max(worst, err)
+        print(f"  fused_partials {name}: max abs err {err:.3g} (relative "
+              f"{rel:.3g}), repeats bit for bit")
+    name, x, w, v, m = cases[0]
+    n, c = x.shape[0], v.shape[0]
+    ms = time_ms(lambda: KC.fused_partials(x, None, v, m))
+    plain_ms = time_ms(lambda: KC.fused_partials_plain(x, None, v, m))
+    # per pixel and center: the membership's 7, then u*u, times x, two adds
+    bnd, by = bound_ms(4 * (n + 3 * c), 11 * n * c)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
+
+
+def _counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def check_paper_solves(SV, phantom, counters, images, dev):
+    """Each image through solve() on the card (auto with no device
+    argument, fused, staged with seed 0, and the histogram problem's
+    auto) and on the CPU: iterations, centers, labels, DSC, and each
+    run's launches against its iteration count. Returns the launches of
+    the whole phase."""
+    expect = {
+        "auto": lambda it: {"fcm_fused_partials": it, "labels": 1},
+        "fused": lambda it: {"fcm_fused_partials": it, "labels": 1},
+        "staged": lambda it: {"fcm_center_partials": it,
+                              "fcm_membership": it},
+        "histogram auto": lambda it: {"histogram_bin": 1,
+                                      "fcm_resident_solve": 1, "labels": 1},
+    }
+    runs = {
+        "auto": (lambda x, d: SV.pixel_problem(x, device=d), {}),
+        "fused": (lambda x, d: SV.pixel_problem(x, device=d),
+                  {"backend": "fused"}),
+        "staged": (lambda x, d: SV.pixel_problem(x, device=d),
+                   {"backend": "staged", "seed": 0}),
+        "histogram auto": (lambda x, d: SV.histogram_problem(x, device=d),
+                           {}),
+    }
+    for fn in counters.values():
+        fn.launches = 0
+    for img_name, (x, gt) in images.items():
+        for run, (make, kw) in runs.items():
+            before = _counts(counters)
+            # auto with no device argument: the entry point's own default
+            card = SV.solve(make(x, None if run.endswith("auto") else dev),
+                            **kw)
+            torch.cuda.synchronize()
+            after = _counts(counters)
+            host = SV.solve(make(x, "cpu"), **kw)
+            it = card.n_iters
+            if it != host.n_iters:
+                stop = 5e-3 if run == "staged" else SV._single_init(
+                    make(x, "cpu"), 5e-3, None)[1]
+                fail(f"{img_name} {run}: n_iters {it} on the card, "
+                     f"{host.n_iters} on the CPU; delta - tol: card "
+                     f"{card.final_delta - stop!r}, CPU "
+                     f"{host.final_delta - stop!r}")
+            np.testing.assert_allclose(card.centers.cpu().numpy(),
+                                       host.centers.numpy(), rtol=RTOL,
+                                       atol=ATOL,
+                                       err_msg=f"{img_name} {run}")
+            require(torch.equal(card.labels.cpu(), host.labels),
+                    f"{img_name} {run}: labels differ from the CPU's")
+            lab = card.labels.cpu().numpy()
+            if run == "histogram auto":
+                lab = lab[x.astype(np.int64)]       # per bin -> per pixel
+            dsc = phantom.dice_per_class(
+                phantom.match_labels_to_classes(lab, card.centers.cpu()),
+                gt)
+            require(min(dsc) >= 0.95, f"{img_name} {run}: DSC {dsc}")
+            used = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            require(used == expect[run](it),
+                    f"{img_name} {run}: launches {used} for {it} "
+                    f"iterations, expected {expect[run](it)}")
+            print(f"  solve {img_name} {run}: {it} iterations on both, "
+                  f"max |dv| "
+                  f"{float((card.centers.cpu() - host.centers).abs().max()):.3g}"
+                  f", labels equal, DSC {[round(float(d), 4) for d in dsc]}"
+                  f", launches {used}")
+    launches = _counts(counters)
+
+    # keep_membership on the card: the membership kernel, once
+    x = images["217x181"][0]
+    before = counters["fcm_membership"].launches
+    card = SV.solve(SV.pixel_problem(x, device=dev), keep_membership=True)
+    host = SV.solve(SV.pixel_problem(x, device="cpu"), keep_membership=True)
+    require(counters["fcm_membership"].launches == before + 1,
+            "keep_membership did not launch the membership kernel once")
+    np.testing.assert_allclose(card.membership.cpu().numpy(),
+                               host.membership.numpy(), rtol=U_RTOL,
+                               atol=10 * U_ATOL)
+    print("  keep_membership on the card: one membership launch, agrees "
+          "with the CPU's")
+    return launches
+
+
+def host_ms(fn, reps):
+    """Median host-clock time (ms) of ``fn`` ending in a synchronize,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def table3_ladder(SV, phantom, dev, card):
+    """Paper Table 3: ms per solve of TABLE3_ITERS iterations from a host
+    uint8 image (problem construction, the copy to the card and the
+    labels included), for each size."""
+    it = TABLE3_ITERS
+    print(f"  Table 3 ladder, ms per solve of {it} iterations "
+          f"(median; sequential on the host) [{card}]")
+    print("     KB      pixels   sequential     staged      fused  "
+          "hist-resident  x staged  x fused  x hist")
+    rows = []
+    for kb in TABLE3_KB:
+        x = phantom.phantom_of_bytes(kb * 1024)[0]
+        seq = host_ms(lambda: SV.solve(SV.pixel_problem(x, device="cpu"),
+                                       backend="sequential", eps=-1.0,
+                                       max_iters=it),
+                      reps=1 if kb >= 300 else 2)
+        staged = host_ms(lambda: SV.solve(SV.pixel_problem(x, device=dev),
+                                          backend="staged", eps=-1.0,
+                                          max_iters=it), reps=5)
+        fused = host_ms(lambda: SV.solve(SV.pixel_problem(x, device=dev),
+                                         backend="fused", tol=-1.0,
+                                         max_iters=it), reps=5)
+        hist = host_ms(lambda: SV.solve(SV.histogram_problem(x, device=dev),
+                                        backend="resident", tol=-1.0,
+                                        max_iters=it), reps=5)
+        rows.append((kb, x.size, seq, staged, fused, hist))
+        print(f"  {kb:5d} {x.size:11d} {seq:12.3f} {staged:10.3f} "
+              f"{fused:10.3f} {hist:14.3f} {seq / staged:9.1f} "
+              f"{seq / fused:8.1f} {seq / hist:7.1f}")
+    return rows
+
+
+def profile_call(fn, card, label):
+    """One call of ``fn`` under torch.profiler: device time by kernel and
+    the device's busy share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("Activity Buffer")):
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    if not rows:
+        print(f"  profile {label}: the profiler saw no device time; busy "
+              f"share not measured")
+        return
+    busy = sum(r[0] for r in rows) * 1e-6
+    print(f"  profile {label}: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %) [{card}]")
+    for dev_us, count, key in rows[:8]:
+        print(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} "
+              f"({dev_us / count:8.2f} us each) {key[:60]}")
+
+
+def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
+    """Phase 5; returns the three kernels' entries (launches from the
+    solves' run) without route/source keys."""
+    big, big_gt = phantom.phantom_of_bytes(BIG_BYTES)
+    cases = paper_kernel_cases(big, dev)
+    print("[paper] membership")
+    k_mem = check_membership(KM, cases)
+    print("[paper] center partials")
+    k_cen = check_center_partials(KC, KM, cases)
+    print("[paper] fused partials")
+    k_fus = check_fused_partials(KC, cases)
+    for name, k in (("fcm_membership", k_mem),
+                    ("fcm_center_partials", k_cen),
+                    ("fcm_fused_partials", k_fus)):
+        print(f"  {name}: kernel {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.4f} ms, library -, bound "
+              f"{k['bound_ms']:.5f} ms ({k['bound_by']}) at 1000 KB, c=4 "
+              f"[{card}]")
+
+    print("[paper] solve on the card vs the CPU")
+    sl, sl_gt = phantom.phantom_slice(217, 181, slice_pos=0.5, seed=0)
+    images = {f"{BIG_BYTES // 1024} KB": (big, big_gt),
+              "217x181": (sl.ravel(), sl_gt.ravel())}
+    launches = check_paper_solves(SV, phantom, counters, images, dev)
+    print(f"  launches over the phase's solves: {launches}")
+
+    print("[paper] Table 3")
+    table3_ladder(SV, phantom, dev, card)
+    for backend in ("fused", "staged"):
+        def one():
+            return SV.solve(SV.pixel_problem(big, device=dev),
+                            backend=backend)
+        r = one()
+        ms = host_ms(one, reps=5)
+        print(f"  {backend} solve of the {BIG_BYTES // 1024} KB image at "
+              f"eps=5e-3: {r.n_iters} iterations, {ms:.3f} ms "
+              f"({ms / r.n_iters:.3f} ms an iteration) [{card}]")
+        profile_call(one, card, f"{backend} {BIG_BYTES // 1024} KB")
+    # the fixed costs inside those solves, timed alone
+    n = big.size
+    build = host_ms(lambda: SV.pixel_problem(big, device=dev), reps=5)
+    init = host_ms(lambda: SV._single_init(
+        SV.pixel_problem(big, device=dev), 5e-3, None), reps=5)
+    draw = host_ms(lambda: F.random_membership(
+        torch.Generator().manual_seed(0), 4, n, dev), reps=5)
+    print(f"  fixed costs at {BIG_BYTES // 1024} KB: pixel_problem from the "
+          f"host image {build:.3f} ms; with the center init and tolerance "
+          f"{init:.3f} ms; the staged path's random (4, {n}) membership "
+          f"drawn on the host and copied {draw:.3f} ms [{card}]")
+    return {"fcm_membership": dict(launches=launches["fcm_membership"],
+                                   **k_mem),
+            "fcm_center_partials": dict(
+                launches=launches["fcm_center_partials"], **k_cen),
+            "fcm_fused_partials": dict(
+                launches=launches["fcm_fused_partials"], **k_fus)}
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -321,10 +674,13 @@ def main(dev=None):
           f"{torch.cuda.get_device_name(0)}")
 
     from repro_torch.configs import fcm_brainweb
+    from repro_torch.core import fcm as F
     from repro_torch.core import solver as SV
     from repro_torch.data import phantom
     from repro_torch.kernels import _build
     from repro_torch.kernels import defuzzify as KD
+    from repro_torch.kernels import fcm_centers as KC
+    from repro_torch.kernels import fcm_membership as KM
     from repro_torch.kernels import fcm_resident as KR
     from repro_torch.kernels import histogram_bin as KB
     from repro_torch.serving import FCMServeEngine
@@ -341,6 +697,9 @@ def main(dev=None):
             print("  " + line.strip())
     require(lib.fcm_resident_max_rows() == KR.MAX_ROWS,
             "the kernel's row bound disagrees with fcm_resident.MAX_ROWS")
+    require(lib.fcm_max_c() == KM.MAX_C == KC.MAX_C,
+            "the per-iteration kernels' cluster bound disagrees with "
+            "fcm_membership.MAX_C")
 
     # -- 3. kernels against their plain versions ----------------------------
     job = fcm_brainweb.make_config()
@@ -443,6 +802,14 @@ def main(dev=None):
     print(f"  {BIG_BYTES // 1024} KB image {big.shape} at B=1: {1 / p50b:.1f} images/s, "
           f"p50 flush {p50b * 1e3:.3f} ms [{card}]")
 
+    # -- 5. the paper's per-iteration path -------------------------------
+    counters = {"histogram_bin": KB.histogram_bin,
+                "fcm_resident_solve": KR.resident_solve,
+                "labels": KD.labels, "fcm_membership": KM.membership,
+                "fcm_center_partials": KC.center_partials,
+                "fcm_fused_partials": KC.fused_partials}
+    paper = paper_path(SV, F, phantom, KM, KC, counters, dev, card)
+
     kernels = [
         dict(name="histogram_bin", route="cuda",
              source="src/repro_torch/csrc/histogram_bin.cu",
@@ -456,6 +823,18 @@ def main(dev=None):
              source="src/repro_torch/csrc/defuzzify.cu",
              replaces="src/repro/kernels/defuzzify.py:27",
              launches=launches["labels"], **k_labels),
+        dict(name="fcm_membership", route="cuda",
+             source="src/repro_torch/csrc/fcm_membership.cu",
+             replaces="src/repro/kernels/fcm_membership.py:43",
+             **paper["fcm_membership"]),
+        dict(name="fcm_center_partials", route="cuda",
+             source="src/repro_torch/csrc/fcm_centers.cu",
+             replaces="src/repro/kernels/fcm_centers.py:70",
+             **paper["fcm_center_partials"]),
+        dict(name="fcm_fused_partials", route="cuda",
+             source="src/repro_torch/csrc/fcm_centers.cu",
+             replaces="src/repro/kernels/fcm_centers.py:98",
+             **paper["fcm_fused_partials"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Carry the JAX package's state across to the port, as numpy.
 
 FCM has no weights: its state is the configuration, the problem arrays
-(rows, weights, init centers) and the serving engine's histogram LRU.
-These helpers take and give plain numpy and Python values, so neither
-side imports the other.
+(rows, weights, init centers), the staged path's initial membership,
+the serving engine's histogram LRU, and a solve's result. These helpers
+take and give plain numpy and Python values, so neither side imports
+the other.
 """
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from .core.fcm import FCMConfig
+import torch
+
+from . import _device as DV
+from .core.fcm import FCMConfig, FCMResult
 from .core.solver import FCMProblem
 
 #: one LRU entry: (exact histogram key bytes, centers (c,), normalized
@@ -42,6 +46,26 @@ def problem_from_numpy(features, weights=None, init=None, c: int = 4,
                       else np.asarray(weights),
                       init=None if init is None else np.asarray(init),
                       c=int(c), m=float(m), device=device)
+
+
+def membership_from_numpy(u0, device=None) -> torch.Tensor:
+    """A ``(c, N)`` membership (the staged path's ``u0``, e.g. one
+    ``np.asarray`` of a JAX ``random_membership`` draw) as float32 on
+    ``device`` (``None`` = the card)."""
+    u = np.asarray(u0)
+    if u.ndim != 2:
+        raise ValueError(f"a membership is (c, N), got {u.shape}")
+    return DV.as_f32(u, DV.resolve_device(device))
+
+
+def result_to_numpy(result: FCMResult) -> Dict[str, Optional[np.ndarray]]:
+    """A solve's ``centers``, ``labels`` and ``membership`` (``None``
+    unless kept) as numpy arrays; its other fields are Python values
+    already."""
+    return {name: None if t is None else t.detach().cpu().numpy()
+            for name, t in (("centers", result.centers),
+                            ("labels", result.labels),
+                            ("membership", result.membership))}
 
 
 def cache_from_numpy(entries: Iterable[CacheEntry], engine=None

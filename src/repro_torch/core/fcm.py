@@ -78,6 +78,26 @@ def update_centers(x: torch.Tensor, u: torch.Tensor,
     return v[:, 0] if x.dim() == 1 else v
 
 
+def center_terms(x: torch.Tensor, u: torch.Tensor, m: float):
+    """Per-pixel numerator/denominator terms of Eq. 3 (the paper's first
+    CUDA kernel), not yet summed: ``(num_terms (c, N, F), den_terms (c,
+    N))``."""
+    um = u ** m
+    return um[:, :, None] * _as_2d(x)[None, :, :], um
+
+
+def objective(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              m: float) -> torch.Tensor:
+    """Eq. 1: J = sum_ij u_ji^m d_ji^2."""
+    return ((u ** m) * pairwise_d2(x, v)).sum()
+
+
+def defuzzify(u: torch.Tensor) -> torch.Tensor:
+    """Maximal-membership hard assignment, ``(N,)`` int32; ties go to
+    the lowest index (``torch.argmax`` returns the first maximum)."""
+    return torch.argmax(u, dim=0).to(torch.int32)
+
+
 def labels_from_centers(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """argmin distance == argmax membership for any m > 1; ties go to
     the lowest index (``torch.argmin`` returns the first minimum)."""
@@ -92,6 +112,47 @@ def linspace_centers(x: torch.Tensor, c: int) -> torch.Tensor:
     frac = (torch.arange(c, dtype=x2.dtype, device=x2.device) + 0.5) / c
     v = lo[None, :] + frac[:, None] * (hi - lo)[None, :]
     return v[:, 0] if x.dim() == 1 else v
+
+
+def random_membership(generator: torch.Generator, c: int, n: int,
+                      device=None) -> torch.Tensor:
+    """Paper Step 2: random memberships in [1e-3, 1), each pixel's
+    column normalized to sum to 1; ``(c, n)`` float32. Drawn from
+    ``generator``, a CPU :class:`torch.Generator`, on the CPU and then
+    moved to ``device``, so a run on the card and one on the CPU with
+    the same seed start from the same ``u``. (``jax.random``'s bits
+    differ; to start both packages alike, pass one ``u0`` to both.)"""
+    u = torch.empty((c, n), dtype=torch.float32).uniform_(
+        1e-3, 1.0, generator=generator)
+    u = u / u.sum(dim=0, keepdim=True)
+    return u if device is None else u.to(device)
+
+
+# --- the paper's staged pipeline, one plain PyTorch op per paper kernel -----
+
+def _stage_terms(x, u, m):
+    # CUDA kernel #1: heavy per-pixel math, results materialized.
+    return center_terms(x, u, m)
+
+
+def _stage_reduce_num(num_terms):
+    # CUDA kernel #2: tree-reduce the numerator (per cluster).
+    return num_terms.sum(dim=1)
+
+
+def _stage_reduce_den(den_terms):
+    # CUDA kernel #3: tree-reduce the denominator (per cluster).
+    return den_terms.sum(dim=1)
+
+
+def _stage_combine(num, den):
+    # CUDA kernel #4 (one thread in the paper): the final division.
+    return num / torch.clamp(den[:, None], min=_D2_FLOOR)
+
+
+def _stage_membership(x, v, m):
+    # The one-kernel membership phase (paper section 4.3).
+    return update_membership(x, v, m)
 
 
 @dataclasses.dataclass

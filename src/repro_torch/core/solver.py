@@ -7,12 +7,24 @@ counts. :class:`FCMProblem` names the rows, :func:`solve` runs one
 problem and :func:`solve_batched` a stacked batch, each lane stopping at
 its own convergence point.
 
-Backends: ``"auto"`` (the registry's pick: the whole-solve kernel on the
-card, the plain loop on the CPU), ``"reference"`` (the plain loop, on
-whichever device the problem lives) and ``"resident"`` (the whole-solve
-kernel; on the CPU its plain version). Stencil (FCM_S) problems, the
-staged and sequential backends, the HBM-streamed whole-solve and
-per-lane salvage are not ported yet.
+Backends:
+
+- ``"auto"``: the registry's pick. On the card the whole-solve kernel
+  when the problem fits it (<= 1024 rows), else the fused kernel for
+  scalar rows; the plain loop on the CPU.
+- ``"reference"``: the plain loop, on whichever device the problem
+  lives.
+- ``"resident"``: the whole-solve kernel (on the CPU its plain version).
+- ``"fused"``: the fused-partials kernel once an iteration, the host
+  loop testing center movement (the JAX package's ``"pallas"``).
+- ``"staged"``: the paper's pipeline, center-partials kernel then
+  membership kernel each iteration, ``max|u' - u| < eps`` read on the
+  host (:func:`solve_staged`).
+- ``"sequential"``: the paper's single-core numpy comparator on the
+  host (:mod:`repro_torch.core.sequential`).
+
+Stencil (FCM_S) problems, the HBM-streamed whole-solve and per-lane
+salvage are not ported yet.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; with no card and no device named, it raises.
@@ -33,7 +45,8 @@ from . import histogram as H
 _D2_FLOOR = 1e-12
 _BIG = 3.4e38
 
-BACKENDS = ("auto", "reference", "resident")
+BACKENDS = ("auto", "reference", "resident", "fused", "staged",
+            "sequential")
 
 
 def _record_telemetry(kind: str, impl: str, n_iters: int,
@@ -333,13 +346,15 @@ def flat_batched_solve(feats, w, c, m, eps, max_iters,
 # solve / solve_batched
 # ---------------------------------------------------------------------------
 
-def _resolve(cfg, eps, max_iters):
+def _resolve(cfg, eps, max_iters, seed=0):
     if eps is None:
         eps = cfg.eps if cfg is not None else F.FCMConfig.eps
     if max_iters is None:
         max_iters = cfg.max_iters if cfg is not None \
             else F.FCMConfig.max_iters
-    return float(eps), int(max_iters)
+    if seed is None:
+        seed = cfg.seed if cfg is not None else F.FCMConfig.seed
+    return float(eps), int(max_iters), int(seed)
 
 
 def _on_device(problem: FCMProblem, device) -> FCMProblem:
@@ -352,7 +367,7 @@ def _select_impl(problem: FCMProblem, backend: str,
                  batch: bool = False) -> str:
     """Registry dispatch on the problem's device and shape."""
     prefer = {"auto": None, "reference": "reference",
-              "resident": "resident"}[backend]
+              "resident": "resident", "fused": "fused"}[backend]
     return kops.select_step(
         "flat", prefer=prefer, platform=problem.device.type,
         n_feat=problem.n_feat, batched=batch, n_rows=problem.n_rows,
@@ -362,11 +377,15 @@ def _select_impl(problem: FCMProblem, backend: str,
 def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
           eps: Optional[float] = None, max_iters: Optional[int] = None,
           tol: Optional[float] = None, backend: str = "auto",
-          keep_membership: bool = False, device=None) -> F.FCMResult:
+          keep_membership: bool = False, u0=None,
+          seed: Optional[int] = None, device=None) -> F.FCMResult:
     """Solve one :class:`FCMProblem` to convergence on the problem's
     device (or ``device``). The center-movement tolerance is ``eps *
-    feature-range * 0.1`` unless an absolute ``tol`` is given. Labels
-    come back per row."""
+    feature-range * 0.1`` unless an absolute ``tol`` is given (``tol=-1``
+    forces exactly ``max_iters`` iterations). ``seed`` and ``u0`` (a
+    ``(c, N)`` initial membership) only matter for the
+    membership-initialized ``staged`` and ``sequential`` backends, which
+    stop on ``max|u' - u| < eps``. Labels come back per row."""
     if problem.batch:
         raise ValueError("solve() takes a single problem; use "
                          "solve_batched() for batch=True problems")
@@ -374,7 +393,20 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
         raise ValueError(f"unknown backend {backend!r}; the port has "
                          f"{BACKENDS}")
     problem = _on_device(problem, device)
-    eps, max_iters = _resolve(cfg, eps, max_iters)
+    eps, max_iters, seed = _resolve(cfg, eps, max_iters, seed)
+
+    if backend == "sequential":
+        res = _solve_sequential(problem, eps, max_iters, seed, u0)
+        _record_telemetry("flat", "sequential", res.n_iters,
+                          res.final_delta)
+        return res
+    if backend == "staged":
+        res = solve_staged(problem, eps=eps, max_iters=max_iters,
+                           seed=seed, u0=u0,
+                           keep_membership=keep_membership)
+        _record_telemetry("flat", "staged", res.n_iters, res.final_delta)
+        return res
+
     impl = _select_impl(problem, backend)
     v0, tol = _single_init(problem, eps, tol)
     c, m = problem.c, problem.m
@@ -388,12 +420,18 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
             v0[None].contiguous(),
             torch.tensor([tol], dtype=torch.float32, device=x.device))
         v, delta, it = v[0], delta[0], int(iters[0])
+    elif impl == "fused":
+        # Scalar rows as they are; unit weights are not read at all.
+        step = kops.build_step("flat", "fused",
+                               x=problem.features.contiguous(),
+                               w=problem.weights, m=m)
+        v, delta, it = while_centers(step, v0, tol, max_iters)
     else:
         step = kops.build_step("flat", "reference", feats=feats2, weights=w,
                                m=m)
         v, delta, it = while_centers(step, v0, tol, max_iters)
     labels = kops.defuzzify_labels(feats2, v)
-    u = F.update_membership(feats2, v, m) if keep_membership else None
+    u = _final_membership(problem, feats2, v) if keep_membership else None
     centers = v[:, 0] if problem.scalar else v
     final_delta = float(delta)
     _record_telemetry("flat", impl, it, final_delta)
@@ -401,6 +439,16 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
                        final_delta=final_delta, membership=u,
                        converged=bool(final_delta < tol),
                        healthy=bool(torch.isfinite(centers).all()))
+
+
+def _final_membership(problem: FCMProblem, feats2: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Eq. 4 at the final centers, ``(c, N)``: the membership kernel for
+    scalar rows (its plain version on the CPU); vector rows, which no
+    kernel takes yet, the plain math."""
+    if problem.scalar:
+        return kops.membership(problem.features, v[:, 0], problem.m)
+    return F.update_membership(feats2, v, problem.m)
 
 
 @dataclasses.dataclass
@@ -429,11 +477,11 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     if not problem.batch:
         raise ValueError("solve_batched() needs a batch=True problem "
                          "(see batch_problems())")
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; the port has "
-                         f"{BACKENDS}")
+    if backend not in ("auto", "reference", "resident"):
+        raise ValueError(f"batched solves run the reference or resident "
+                         f"steps only; got backend={backend!r}")
     problem = _on_device(problem, device)
-    eps, max_iters = _resolve(cfg, eps, max_iters)
+    eps, max_iters, _ = _resolve(cfg, eps, max_iters)
     impl = _select_impl(problem, backend, batch=True)
     feats, w = problem.rows()
     v, delta, iters, total = flat_batched_solve(
@@ -453,3 +501,92 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     return BatchedFCMResult(centers=v, n_iters=n_iters,
                             final_delta=final_delta, total_iters=total,
                             converged=converged, healthy=healthy)
+
+
+# ---------------------------------------------------------------------------
+# Host-loop backends: the paper's staged pipeline + the sequential CPU floor
+# ---------------------------------------------------------------------------
+
+def solve_staged(problem: FCMProblem, *, eps: float = 5e-3,
+                 max_iters: int = 300, seed: int = 0, u0=None,
+                 keep_membership: bool = False) -> F.FCMResult:
+    """The paper's pipeline: the membership array materialized between
+    stages, random membership init (``seed``, or ``u0`` (c, N)), and the
+    convergence test ``max|u' - u| < eps`` read on the host each
+    iteration (the paper copies the membership back). For scalar rows
+    each iteration is the center-partials kernel, the division, then the
+    membership kernel (their plain versions on the CPU); vector rows run
+    the plain stages on the CPU and raise on the card, where the staged
+    kernels take scalar rows only. Labels are the argmax of the final
+    membership."""
+    if problem.weights is not None:
+        raise ValueError("backend='staged' reproduces the paper's "
+                         "unweighted pixel pipeline only")
+    x = problem.features
+    dev = x.device
+    if dev.type == "cuda" and not problem.scalar:
+        raise ValueError(
+            f"the staged kernels (membership, center_partials) take "
+            f"scalar rows (D = 1) only, got D={problem.n_feat} on the card")
+    n = x.shape[0]
+    c, m = problem.c, problem.m
+    if u0 is None:
+        u = F.random_membership(torch.Generator().manual_seed(int(seed)),
+                                c, n, dev)
+    else:
+        u = DV.as_f32(u0, dev)
+        if tuple(u.shape) != (c, n):
+            raise ValueError(f"u0 must be (c, N) = {(c, n)}, got "
+                             f"{tuple(u.shape)}")
+    n_iters = 0
+    delta = float("inf")
+    v = None
+    for it in range(max_iters):
+        if problem.scalar:
+            num, den = kops.center_partials(x, u, m)
+            v = F._stage_combine(num, den)[:, 0]
+            u_new = kops.membership(x, v, m)
+        else:
+            num_terms, den_terms = F._stage_terms(x, u, m)
+            v = F._stage_combine(F._stage_reduce_num(num_terms),
+                                 F._stage_reduce_den(den_terms))
+            u_new = F._stage_membership(x, v, m)
+        # Host round trip, as in the paper's block diagram.
+        delta = float((u_new - u).abs().max())
+        u = u_new
+        n_iters = it + 1
+        if delta < eps:
+            break
+    if v is None:
+        # max_iters=0: centers from the initial membership, so the result
+        # is still well-defined.
+        v = F.update_centers(x, u, m)
+    return F.FCMResult(centers=v, labels=F.defuzzify(u), n_iters=n_iters,
+                       final_delta=delta,
+                       membership=u if keep_membership else None,
+                       converged=bool(delta < eps),
+                       healthy=bool(torch.isfinite(v).all()))
+
+
+def _solve_sequential(problem: FCMProblem, eps: float, max_iters: int,
+                      seed: int, u0) -> F.FCMResult:
+    """The paper's CPU comparison floor: single-core numpy on the host
+    whatever the problem's device (:mod:`repro_torch.core.sequential`);
+    the result's tensors come back on the problem's device."""
+    from . import sequential as S
+    if problem.weights is not None or not problem.scalar:
+        raise ValueError("backend='sequential' is the scalar unweighted "
+                         "CPU baseline only")
+    if isinstance(u0, torch.Tensor):
+        u0 = u0.cpu().numpy()
+    v, labels, it = S.fcm_sequential_numpy(
+        problem.features.cpu().numpy(), c=problem.c, m=problem.m, eps=eps,
+        max_iters=max_iters, seed=seed, u0=u0)
+    dev = problem.device
+    # The comparator reports no residual (final_delta=NaN), so converged
+    # is inferred from the iteration budget.
+    return F.FCMResult(
+        centers=torch.from_numpy(v.astype(np.float32)).to(dev),
+        labels=torch.from_numpy(labels).to(dev), n_iters=int(it),
+        final_delta=float("nan"), converged=bool(int(it) < max_iters),
+        healthy=bool(np.isfinite(v).all()))

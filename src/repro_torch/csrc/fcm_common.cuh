@@ -1,0 +1,81 @@
+// Device helpers shared by the per-iteration FCM kernels (fcm_membership.cu,
+// fcm_centers.cu): the Eq. 4 membership of one scalar pixel, computed in
+// registers with the same float32 operations as the plain PyTorch version
+// (repro_torch.core.fcm.membership_from_d2), and the cluster-count tiers the
+// kernels are instantiated for.
+//
+// Arithmetic, as the plain version does it:
+//   d2_j = (v_j - x) * (v_j - x)                      ((v - x) ** 2)
+//   p_j  = 1 / max(d2_j, 1e-12)         when m == 2  (pow with exponent -1)
+//        = powf(max(d2_j, 1e-12), -1/(m-1))  otherwise
+//   u_j  = p_j / (p_0 + p_1 + ... + p_{c-1})         (a divide, not a
+//                                                      reciprocal multiply)
+// and a pixel at distance exactly 0 from some centers splits its mass evenly
+// over those centers (1 / count each, 0 elsewhere). The library is compiled
+// with --fmad=false, so no multiply-add is contracted where the plain version
+// rounds twice. powf and PyTorch's pow may differ by an ulp, so general m
+// agrees to a tolerance; m == 2 takes no powf at all.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace fcm {
+
+constexpr float kFloor = 1e-12f;
+// the largest cluster count the per-iteration kernels take (the membership
+// of one pixel lives in MAXC registers)
+constexpr int kMaxC = 32;
+
+// max(a, floor) that propagates NaN, like torch.clamp / jnp.maximum
+__device__ __forceinline__ float floor_at(float a) {
+  return a < kFloor ? kFloor : a;
+}
+
+// Eq. 4 for one scalar pixel xi against c <= MAXC centers v (shared memory):
+// fills u[0..c) and zeroes u[c..MAXC).
+template <int MAXC>
+__device__ __forceinline__ void membership_of(float xi,
+                                              const float* __restrict__ v,
+                                              int c, bool m_is_2, float expo,
+                                              float (&u)[MAXC]) {
+  int n_zero = 0;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    float s = 0.f;
+    if (j < c) {
+      const float e = v[j] - xi;
+      s = e * e;
+      if (s <= 0.f) ++n_zero;
+    }
+    u[j] = s;  // d2 for now
+  }
+  if (n_zero > 0) {
+    const float share = 1.0f / (float)n_zero;
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j) u[j] = (j < c && u[j] <= 0.f) ? share : 0.f;
+    return;
+  }
+  float ps = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    if (j < c) {
+      const float dd = floor_at(u[j]);
+      u[j] = m_is_2 ? 1.0f / dd : powf(dd, expo);
+      ps = ps + u[j];
+    } else {
+      u[j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j)
+    if (j < c) u[j] = u[j] / ps;
+}
+
+// The smallest instantiated tier that holds c clusters (0 if none does).
+inline int tier_of(int c) {
+  return c < 1 ? 0 : c <= 4 ? 4 : c <= 8 ? 8 : c <= 16 ? 16 : c <= kMaxC ? 32
+                                                                         : 0;
+}
+
+}  // namespace fcm

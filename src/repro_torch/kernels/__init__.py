@@ -1,3 +1,4 @@
 """The port's CUDA kernels (csrc/), their wrappers and plain versions,
 and the step dispatch registry."""
-from . import defuzzify, fcm_resident, histogram_bin, ops  # noqa: F401
+from . import (defuzzify, fcm_centers, fcm_membership,  # noqa: F401
+               fcm_resident, histogram_bin, ops)

@@ -4,8 +4,9 @@ Every ``.cu`` file under ``repro_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` (one process per source, all started together), linked into
 one ``.so`` with a plain C interface, and loaded with :mod:`ctypes`.
 The library lands in ``build/kernels/`` at the repository root, named
-after a digest of the sources and flags, so an edited source rebuilds
-and an unchanged one loads at once. Nothing here runs at import time:
+after a digest of every file under ``csrc`` (headers included) and the
+flags, so an edited source or header rebuilds and an unchanged tree
+loads at once. Nothing here runs at import time:
 the CPU tests import every module, and this machine class has no
 ``nvcc``.
 """
@@ -42,6 +43,10 @@ SIGNATURES = {
     "fcm_resident_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                            _P, _P, _P, _P),
     "fcm_resident_max_rows": (),
+    "fcm_membership": (_P, _L, _P, _I, _F, _F, _P, _P),
+    "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P),
+    "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _P, _I, _P, _P, _P),
+    "fcm_max_c": (),
 }
 
 _lock = threading.Lock()
@@ -68,14 +73,17 @@ def _nvcc() -> str:
 
 
 def sources():
+    """The translation units: every ``.cu`` file under ``csrc``."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def _digest() -> str:
+    """A digest of the flags and of every file under ``csrc`` (sources
+    and the headers they include), so editing either rebuilds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

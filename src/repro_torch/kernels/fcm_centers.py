@@ -1,0 +1,152 @@
+"""Eq. 3 center partial sums over ``(N,)`` scalar pixels: ``num_j =
+sum_i u_ji^m w_i x_i`` and ``den_j = sum_i u_ji^m w_i``.
+
+Two CUDA kernels (``csrc/fcm_centers.cu``), each with its plain PyTorch
+version beside it:
+
+* :func:`center_partials` from a materialized ``(c, N)`` membership
+  (replaces ``repro/kernels/fcm_centers.py::center_partials_pallas``,
+  the paper's staged reduction);
+* :func:`fused_partials` from the centers, the Eq. 4 membership computed
+  in registers and reduced at once, so the ``(c, N)`` array never exists
+  (replaces ``repro/kernels/fcm_centers.py::fused_partials_pallas``; one
+  call an iteration of ``backend="fused"``).
+
+Each block reduces a grid-stride share of the pixels to per-block
+partials in a scratch buffer, and a second launch folds them in a fixed
+order: no float atomics, so a run repeats bit for bit. ``w`` is the
+optional per-pixel weight (histogram counts); ``None`` means 1 and is
+not read.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .fcm_membership import MAX_C, exponent
+
+#: threads a block; the block count is ceil(N / THREADS), at most
+#: MAX_BLOCKS (then each thread strides over several pixels). It depends
+#: only on N, so the summation order does too.
+THREADS = 256
+MAX_BLOCKS = 1024
+
+
+def center_partials_plain(x: torch.Tensor, u: torch.Tensor, m: float,
+                          w: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`center_partials`."""
+    um = u ** m
+    if w is not None:
+        um = um * w
+    return (um * x).sum(dim=-1), um.sum(dim=-1)
+
+
+def fused_partials_plain(x: torch.Tensor, w: Optional[torch.Tensor],
+                         v: torch.Tensor, m: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_partials`: the
+    membership of :func:`repro_torch.core.fcm.update_membership`, then
+    :func:`center_partials_plain`."""
+    from repro_torch.core import fcm as F
+    return center_partials_plain(x, F.update_membership(x, v, m), m, w)
+
+
+def _checked(what: str, x: torch.Tensor, w: Optional[torch.Tensor],
+             others, c: int) -> bool:
+    """Validate the common arguments; True when the kernel runs (a CUDA
+    tensor), False for the plain version (a CPU tensor)."""
+    if x.dim() != 1:
+        raise ValueError(f"{what} takes (N,) scalar pixels, got "
+                         f"{tuple(x.shape)}")
+    if w is not None and tuple(w.shape) != tuple(x.shape):
+        raise ValueError(f"{what}: weights {tuple(w.shape)} do not match "
+                         f"pixels {tuple(x.shape)}")
+    tensors = [x, *others] + ([] if w is None else [w])
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what} inputs must share one device")
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the {what} kernel takes float32 inputs")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"the {what} kernel needs contiguous inputs")
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"the {what} kernel takes 1 <= c <= {MAX_C}, got "
+                         f"c={c}")
+    return True
+
+
+def _zeros(x: torch.Tensor, c: int):
+    """The sums over no pixels."""
+    return (torch.zeros((c,), dtype=torch.float32, device=x.device),
+            torch.zeros((c,), dtype=torch.float32, device=x.device))
+
+
+def _outputs(x: torch.Tensor, c: int):
+    n_blocks = max(1, min(-(-x.shape[0] // THREADS), MAX_BLOCKS))
+    part = torch.empty((n_blocks, 2 * c), dtype=torch.float32,
+                       device=x.device)
+    num = torch.empty((c,), dtype=torch.float32, device=x.device)
+    den = torch.empty((c,), dtype=torch.float32, device=x.device)
+    return n_blocks, part, num, den
+
+
+def center_partials(x: torch.Tensor, u: torch.Tensor, m: float,
+                    w: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (N,), ``u`` (c, N), optional ``w`` (N,), float32 -> ``(num
+    (c,), den (c,))``. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (and its fold) or raises."""
+    if u.dim() != 2 or u.shape[1] != x.shape[-1]:
+        raise ValueError(f"center_partials takes u (c, N) for x (N,), got "
+                         f"{tuple(u.shape)} and {tuple(x.shape)}")
+    c = u.shape[0]
+    if not _checked("center_partials", x, w, [u], c):
+        return center_partials_plain(x, u, m, w)
+    n = x.shape[0]
+    if n == 0:
+        return _zeros(x, c)
+    n_blocks, part, num, den = _outputs(x, c)
+    _build.check(_build.library().fcm_center_partials(
+        x.data_ptr(), u.data_ptr(), None if w is None else w.data_ptr(), n,
+        c, float(np.float32(m)), part.data_ptr(), n_blocks, num.data_ptr(),
+        den.data_ptr(), _build.stream_of(x)), "fcm_center_partials")
+    center_partials.launches += 1
+    return num, den
+
+
+def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
+                   v: torch.Tensor, m: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (N,), ``w`` (N,) or ``None``, ``v`` (c,), float32 ->
+    ``(num (c,), den (c,))``. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (and its fold) or raises."""
+    if v.dim() != 1:
+        raise ValueError(f"fused_partials takes (c,) centers, got "
+                         f"{tuple(v.shape)}")
+    c = v.shape[0]
+    if not _checked("fused_partials", x, w, [v], c):
+        return fused_partials_plain(x, w, v, m)
+    n = x.shape[0]
+    if n == 0:
+        return _zeros(x, c)
+    n_blocks, part, num, den = _outputs(x, c)
+    _build.check(_build.library().fcm_fused_partials(
+        x.data_ptr(), None if w is None else w.data_ptr(), n, v.data_ptr(),
+        c, float(np.float32(m)), exponent(m), part.data_ptr(), n_blocks,
+        num.data_ptr(), den.data_ptr(), _build.stream_of(x)),
+        "fcm_fused_partials")
+    fused_partials.launches += 1
+    return num, den
+
+
+#: kernel launches (each a reduction and its fold) since the counts were
+#: last set to 0
+center_partials.launches = 0
+fused_partials.launches = 0

@@ -6,7 +6,8 @@ whole-solve, ``"bin"`` ingest binning, ``"labels"`` defuzzify) to its
 implementations (``"reference"`` plain PyTorch, a kernel on the card),
 and :func:`select_step` picks one by platform and problem shape. The
 platform is a device type, taken from the tensors the caller holds:
-``"cuda"`` where the JAX package says ``"tpu"``.
+``"cuda"`` where the JAX package says ``"tpu"``; the port's ``"fused"``
+is the JAX package's ``"pallas"`` flat step.
 
 On the card no step silently runs its plain version: when no kernel
 admits a problem, :func:`select_step` raises, unless the caller asked
@@ -20,8 +21,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from . import defuzzify as KD
+from . import fcm_centers as KC
+from . import fcm_membership as KM
 from . import fcm_resident as KR
 from . import histogram_bin as KB
+
+_D2_FLOOR = 1e-12
 
 
 def tile_rows_batched(feats: torch.Tensor, w: torch.Tensor):
@@ -69,6 +74,41 @@ def defuzzify_labels_batched(xs: torch.Tensor,
     return KD.labels(xs.contiguous(), v.to(torch.float32).contiguous())
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def membership(x: torch.Tensor, v: torch.Tensor,
+               m: float = 2.0) -> torch.Tensor:
+    """Eq. 4 membership: ``x`` (N,), ``v`` (c,) -> ``u`` (c, N). The
+    membership kernel on the card, its plain version on the CPU."""
+    return KM.membership(_f32(x), _f32(v), m)
+
+
+def center_partials(x: torch.Tensor, u: torch.Tensor, m: float = 2.0):
+    """Eq. 3 partial sums from a materialized membership (the paper's
+    staged reduction): ``x`` (N,), ``u`` (c, N) -> ``(num (c, 1), den
+    (c,))``, ``num`` in the ``(c, D)`` center layout."""
+    num, den = KC.center_partials(_f32(x), _f32(u), m)
+    return num[:, None], den
+
+
+def fused_step(x: torch.Tensor, v: torch.Tensor,
+               m: float = 2.0) -> torch.Tensor:
+    """One fused ``v -> v'`` iteration over unit-weight pixels ``x``
+    (N,): the fused-partials kernel, then ``num / max(den, 1e-12)``."""
+    num, den = KC.fused_partials(_f32(x), None, _f32(v), m)
+    return num / torch.clamp(den, min=_D2_FLOOR)
+
+
+def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
+                   v: torch.Tensor, m: float = 2.0):
+    """Raw fused partials ``(num (c,), den (c,))`` over ``x`` (N,) rows
+    weighted by ``w`` (N,) (``None`` = 1), from centers ``v`` (c,)."""
+    return KC.fused_partials(_f32(x), None if w is None else _f32(w),
+                             _f32(v), m)
+
+
 # ---------------------------------------------------------------------------
 # Step dispatch registry
 # ---------------------------------------------------------------------------
@@ -109,8 +149,9 @@ class StepImpl:
 
 _STEP_REGISTRY: Dict[Tuple[str, str], StepImpl] = {}
 
-#: the kernel implementation of each kind, tried first on the card
-_KERNEL_IMPLS = ("resident", "cuda")
+#: the kernel implementations of each kind, tried in this order on the
+#: card
+_KERNEL_IMPLS = ("resident", "fused", "cuda")
 
 
 def register_step(kind: str, name: str, *, platforms=("cpu", "cuda"),
@@ -151,13 +192,16 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
                 c: Optional[int] = None) -> StepImpl:
     """Dispatch: pick the step implementation for a problem shape and
     platform (a device type; default the card when one is present).
-    ``prefer`` forces a name; a preferred impl with a declared
-    ``fallback`` degrades off its platforms by walking the whole
-    fallback chain, skipping ineligible links, and raises only when the
-    chain is exhausted. Otherwise the kernel wins on ``"cuda"`` when the
-    problem fits it, and the plain reference runs on the CPU. On
-    ``"cuda"`` a problem no kernel admits raises: the card never runs a
-    plain version the caller did not ask for."""
+    ``prefer`` forces a name. Off its platforms, a preferred impl with
+    a declared ``fallback`` degrades by walking the whole fallback
+    chain, skipping ineligible links, and raises only when the chain is
+    exhausted; one with no fallback is returned as it is, and its
+    kernel wrappers take their plain versions for CPU tensors (the
+    JAX package's interpret mode). Otherwise the kernels win on
+    ``"cuda"`` in the order resident, fused, when the problem fits
+    them, and the plain reference runs on the CPU. On ``"cuda"`` a
+    problem no kernel admits raises: the card never runs a plain
+    version the caller did not ask for."""
     kinds = sorted({k for k, _ in _STEP_REGISTRY})
     if kind not in kinds:
         raise ValueError(f"unknown step kind {kind!r}; one of {kinds}")
@@ -180,7 +224,7 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
                 f"(rows <= {impl.max_rows}, c <= {impl.max_c}, "
                 f"D <= {impl.max_feat}); got rows={n_rows}, c={c}, "
                 f"D={n_feat}")
-        if platform in impl.platforms:
+        if platform in impl.platforms or impl.fallback is None:
             return impl
         # Walk the fallback chain: a link that is itself off-platform or
         # ineligible for this problem is skipped; only an exhausted
@@ -212,8 +256,11 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
             raise ValueError(
                 f"no flat kernel admits rows={n_rows}, c={c}, D={n_feat}: "
                 f"flat/resident holds rows <= {KR.MAX_ROWS}, c <= "
-                f"{KR.MAX_C}, D <= {KR.MAX_FEAT}, and the HBM-streamed "
-                f"whole-solve (resident_streamed) is not ported yet")
+                f"{KR.MAX_C}, D <= {KR.MAX_FEAT} a lane, flat/fused "
+                f"scalar rows (D = 1) with c <= {KC.MAX_C} in unbatched "
+                f"solves; larger vector rows wait for the HBM-streamed "
+                f"whole-solve (resident_streamed), which is not ported "
+                f"yet")
         raise ValueError(f"no {kind!r} kernel admits D={n_feat} on cuda; "
                          f"pass prefer='reference' to run the plain "
                          f"version on the card")
@@ -247,6 +294,18 @@ def _flat_resident(x, w, m, max_iters, **_):
         return KR.resident_solve(x, w, v0.contiguous(), tol.contiguous(), m,
                                  max_iters)
     return solve_fn
+
+
+@register_step("flat", "fused", platforms=("cuda",), scalar_only=True,
+               batched=False, max_c=KC.MAX_C)
+def _flat_fused(x, w, m, **_):
+    """The fused-partials kernel once an iteration over scalar rows ``x``
+    (N,) with weights ``w`` (N,) or ``None``: ``v (c, 1) -> num / max(den,
+    1e-12)``. The counterpart of the JAX package's ``flat/pallas``."""
+    def step(v):
+        num, den = KC.fused_partials(x, w, v[:, 0].contiguous(), m)
+        return (num / torch.clamp(den, min=_D2_FLOOR))[:, None]
+    return step
 
 
 @register_step("bin", "reference")

@@ -142,6 +142,7 @@ def test_intensity_histogram_rejects_what_jax_rejects(x):
 def test_registry_kinds_and_names():
     names = {(i.kind, i.name) for i in tops.step_impls()}
     assert names == {("flat", "reference"), ("flat", "resident"),
+                     ("flat", "fused"),
                      ("bin", "reference"), ("bin", "cuda"),
                      ("labels", "reference"), ("labels", "cuda")}
 
@@ -165,10 +166,12 @@ def test_resident_falls_back_to_reference_off_the_card():
 
 
 def test_oversize_flat_problem_raises_on_cuda_naming_streamed():
-    """Beyond the whole-solve kernel's bound the card raises; it never
-    runs the plain loop silently."""
+    """Vector rows beyond the whole-solve kernel's bound raise on the
+    card (scalar rows take the fused kernel); it never runs the plain
+    loop silently."""
     with pytest.raises(ValueError, match="resident_streamed"):
-        tops.select_step("flat", platform="cuda", n_rows=5000, c=4)
+        tops.select_step("flat", platform="cuda", n_rows=5000, c=4,
+                         n_feat=3)
     with pytest.raises(ValueError):
         tops.select_step("flat", prefer="resident", platform="cuda",
                          n_rows=5000, c=4)
@@ -311,9 +314,9 @@ def test_float64_inputs_become_float32():
 def test_problem_and_backend_validation():
     with pytest.raises(ValueError):
         TS.FCMProblem(features=np.zeros((2, 3, 4)), device=CPU)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown backend"):
         TS.solve(TS.pixel_problem(np.zeros(4), device=CPU),
-                 backend="staged")
+                 backend="pallas")
     with pytest.raises(ValueError):
         TS.solve_batched(TS.pixel_problem(np.zeros(4), device=CPU))
 

@@ -12,6 +12,8 @@ import torch
 from repro_torch.data import phantom
 from repro_torch.core import solver as TS
 from repro_torch.kernels import defuzzify as KD
+from repro_torch.kernels import fcm_centers as KC
+from repro_torch.kernels import fcm_membership as KM
 from repro_torch.kernels import fcm_resident as KR
 from repro_torch.kernels import histogram_bin as KB
 from repro_torch.serving import FCMServeEngine
@@ -89,3 +91,87 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
                                    atol=ATOL)
     assert (KB.histogram_bin.launches, KR.resident_solve.launches,
             KD.labels.launches) == tuple(n + 2 for n in counts)
+
+
+def _paper_pixels(dev, n=8193, c=4, seed=0):
+    """Integer pixels and centers, one center on a pixel value (an exact
+    zero distance)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, n).astype(np.float32)
+    v = np.sort(rng.uniform(0, 255, c)).astype(np.float32)
+    v[0] = x[0]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev)
+
+
+@pytest.mark.parametrize("n,c,m", [(1, 2, 2.0), (8193, 4, 2.0),
+                                   (8193, 8, 2.5), (70000, 32, 2.0)])
+def test_membership_kernel_matches_plain(dev, n, c, m):
+    x, v = _paper_pixels(dev, n, c, seed=n + c)
+    before = KM.membership.launches
+    got = KM.membership(x, v, m)
+    assert KM.membership.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               KM.membership_plain(x, v, m).cpu().numpy(),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,c,m,weighted", [(1, 2, 2.0, False),
+                                            (8193, 4, 2.0, False),
+                                            (300000, 8, 2.5, True)])
+def test_center_partials_kernel_matches_plain(dev, n, c, m, weighted):
+    x, v = _paper_pixels(dev, n, c, seed=n)
+    u = KM.membership_plain(x, v, m).contiguous()
+    w = (torch.arange(n, device=dev) % 7).to(torch.float32) if weighted \
+        else None
+    before = KC.center_partials.launches
+    num, den = KC.center_partials(x, u, m, w)
+    assert KC.center_partials.launches == before + 1
+    pnum, pden = KC.center_partials_plain(x, u, m, w)
+    np.testing.assert_allclose(num.cpu().numpy(), pnum.cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(den.cpu().numpy(), pden.cpu().numpy(),
+                               rtol=1e-5)
+    again = KC.center_partials(x, u, m, w)
+    assert torch.equal(again[0], num) and torch.equal(again[1], den)
+
+
+@pytest.mark.parametrize("n,c,m,weighted", [(1, 2, 2.0, False),
+                                            (8193, 4, 2.0, False),
+                                            (256, 4, 2.0, True),
+                                            (300000, 8, 2.5, False)])
+def test_fused_partials_kernel_matches_plain(dev, n, c, m, weighted):
+    x, v = _paper_pixels(dev, n, c, seed=2 * n)
+    w = (torch.arange(n, device=dev) % 5).to(torch.float32) if weighted \
+        else None
+    before = KC.fused_partials.launches
+    num, den = KC.fused_partials(x, w, v, m)
+    assert KC.fused_partials.launches == before + 1
+    pnum, pden = KC.fused_partials_plain(x, w, v, m)
+    np.testing.assert_allclose(num.cpu().numpy(), pnum.cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(den.cpu().numpy(), pden.cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused", "staged"])
+def test_paper_solve_on_the_card_matches_the_cpu(dev, backend):
+    img, _ = phantom.phantom_of_bytes(60 * 1024)
+    x = img.ravel()
+    got = TS.solve(TS.pixel_problem(x, device=dev), backend=backend)
+    want = TS.solve(TS.pixel_problem(x, device="cpu"), backend=backend)
+    assert got.n_iters == want.n_iters
+    np.testing.assert_allclose(got.centers.cpu().numpy(),
+                               want.centers.numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got.labels.cpu(), want.labels)
+
+
+def test_per_iteration_kernels_refuse_what_they_cannot_take(dev):
+    with pytest.raises(ValueError, match="c <= 32"):
+        KC.fused_partials(torch.zeros(8, device=dev), None,
+                          torch.zeros(33, device=dev), 2.0)
+    with pytest.raises(TypeError):
+        KM.membership(torch.zeros(8, device=dev, dtype=torch.float64),
+                      torch.zeros(4, device=dev, dtype=torch.float64), 2.0)
+    with pytest.raises(ValueError, match="scalar"):
+        TS.solve(TS.pixel_problem(torch.zeros((2000, 3)), device=dev),
+                 backend="staged")
