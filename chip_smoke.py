@@ -26,7 +26,16 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    and read just after; check iterations, centers, labels and DSC; time
    the paper's Table 3 ladder (sequential numpy on the host, staged,
    fused, histogram whole-solve) and profile one fused and one staged
-   solve.
+   solve;
+6. routes: hold the HBM-streamed whole-solve and the SLIC assignment
+   kernels against their plain versions (BrainWeb slices, the 1000 KB
+   image, 512x512 RGB, ragged and degenerate lanes; SLIC labels equal
+   up to float64-checked near-ties); serve the 181-slice volume, the
+   1000 KB image and a bucket of RGB slices through the pixel route and
+   RGB slices plus a 512x512 RGB image through the superpixel route,
+   each with the launch counts set to 0 just before and read just after,
+   against a CPU engine; time the 512x512 RGB image through both routes
+   with each route's per-class DSC.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -67,6 +76,13 @@ TABLE3_ITERS = 10
 U_RTOL, U_ATOL = 1e-6, 1e-7
 #: partial sums over up to a million pixels, summed in other orders
 SUM_RTOL = 1e-5
+#: SLIC labels that differ must be near-ties: the two candidates'
+#: distances, recomputed in float64, within TIE_RTOL, on at most
+#: TIE_SHARE of the pixels
+TIE_RTOL, TIE_SHARE = 1e-6, 1e-4
+#: the superpixel route's DSC against the pixel route's, per class (the
+#: JAX package's benchmarks/superpixel_fcm.py criterion)
+DSC_PARITY = 0.02
 
 
 def fail(msg):
@@ -277,12 +293,12 @@ def dsc_volume(results, gts, phantom):
     return phantom.dice_per_class(pred, gt)
 
 
-def serve_timed(eng, imgs, reps):
+def serve_timed(eng, imgs, reps, method="histogram"):
     """Flush latencies (seconds) of ``reps`` submit-all-then-flush runs."""
     lat = []
     for _ in range(reps):
         for im in imgs:
-            eng.submit(im)
+            eng.submit(im, method=method)
         t0 = time.perf_counter()
         out = eng.flush()
         lat.append(time.perf_counter() - t0)
@@ -290,12 +306,12 @@ def serve_timed(eng, imgs, reps):
     return lat
 
 
-def profile_flush(eng, imgs, card):
+def profile_flush(eng, imgs, card, method="histogram"):
     """One warm flush of the volume under torch.profiler: device time by
     kernel and the device's busy share of the flush's wall time."""
     from torch.profiler import ProfilerActivity, profile
     for im in imgs:
-        eng.submit(im)
+        eng.submit(im, method=method)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -445,12 +461,13 @@ def _counts(counters):
 
 def check_paper_solves(SV, phantom, counters, images, dev):
     """Each image through solve() on the card (auto with no device
-    argument, fused, staged with seed 0, and the histogram problem's
-    auto) and on the CPU: iterations, centers, labels, DSC, and each
-    run's launches against its iteration count. Returns the launches of
-    the whole phase."""
+    argument, which takes the streamed whole-solve past 1024 rows, fused,
+    staged with seed 0, and the histogram problem's auto) and on the
+    CPU: iterations, centers, labels, DSC, and each run's launches
+    against its iteration count. Returns the launches of the whole
+    phase."""
     expect = {
-        "auto": lambda it: {"fcm_fused_partials": it, "labels": 1},
+        "auto": lambda it: {"fcm_streamed_solve": 1, "labels": 1},
         "fused": lambda it: {"fcm_fused_partials": it, "labels": 1},
         "staged": lambda it: {"fcm_center_partials": it,
                               "fcm_membership": it},
@@ -660,6 +677,371 @@ def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
                 launches=launches["fcm_fused_partials"], **k_fus)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the pixel and superpixel routes
+# ---------------------------------------------------------------------------
+
+def _blobs(b, k, d, c, seed):
+    """Rows around ``c`` well-separated means per lane (a clustered
+    payload: uniform noise converges over hundreds of iterations, each
+    amplifying rounding, and says nothing about the kernel)."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(0, 255, (b, c, d))
+    pick = rng.integers(0, c, (b, k))
+    return (np.take_along_axis(means, pick[..., None], axis=1)
+            + rng.normal(0, 6, (b, k, d))).astype(np.float32)
+
+
+def streamed_cases(vol, big, rgb512):
+    """(name, x (B, K, D), w (B, K), c, m) at the pixel route's shapes and
+    at ragged and degenerate ones."""
+    rng = np.random.default_rng(5)
+    const_lane = np.full((5000, 1), 77.0, np.float32)
+    slice_lane = np.resize(vol[0], (5000, 1)).astype(np.float32)
+    holes = np.ones((2, 5000), np.float32)
+    holes[1, ::2] = 0.0                         # zero-weight rows are inert
+    ones = np.ones
+    return [
+        ("64 BrainWeb slices x 39277 scalar rows",
+         vol[..., None].astype(np.float32), ones(vol.shape, np.float32), 4,
+         2.0),
+        (f"1 x {big.size} rows (the {BIG_BYTES // 1024} KB image)",
+         big.reshape(1, -1, 1).astype(np.float32),
+         ones((1, big.size), np.float32), 4, 2.0),
+        ("4 x 262144 x D=3 (512x512 RGB)", rgb512,
+         ones(rgb512.shape[:2], np.float32), 4, 2.0),
+        ("ragged K=1025, D=2", _blobs(2, 1025, 2, 4, 1),
+         rng.uniform(0.5, 4, (2, 1025)).astype(np.float32), 4, 2.0),
+        ("ragged K=4099, D=3", _blobs(2, 4099, 3, 4, 2),
+         ones((2, 4099), np.float32), 4, 2.0),
+        ("a constant lane and zero-weight rows",
+         np.stack([const_lane, slice_lane]), holes, 4, 2.0),
+        ("c=8, m=2.5, D=16", _blobs(2, 3000, 16, 8, 3),
+         ones((2, 3000), np.float32), 8, 2.5),
+    ]
+
+
+def check_streamed(KR, SV, cases, dev, card):
+    """Streamed whole-solve kernel vs its plain version on each case:
+    equal iteration counts, centers within RTOL/ATOL, a second launch
+    bit-equal to the first; each case timed beside its bound and its
+    plain version. Returns the entry of the main path's case (the
+    first)."""
+    worst, entry = 0.0, None
+    for name, feats, w, c, m in cases:
+        x = torch.from_numpy(np.ascontiguousarray(feats)).to(dev)
+        wt = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+        lo, hi = SV.weighted_support(x, wt)
+        v0 = SV.linspace_from_support(lo, hi, c).contiguous()
+        tol = SV._tol_from_range((hi - lo).max(dim=1).values,
+                                 5e-3).contiguous()
+        v, _, iters = KR.resident_streamed_solve(x, wt, v0, tol, m, 300)
+        torch.cuda.synchronize()
+        v2, _, iters2 = KR.resident_streamed_solve(x, wt, v0, tol, m, 300)
+        require(torch.equal(v, v2) and torch.equal(iters, iters2),
+                f"streamed solve does not repeat bit for bit on {name}")
+        # a lane's bits do not depend on the other lanes of its launch
+        v1, _, iters1 = KR.resident_streamed_solve(
+            x[:1].contiguous(), wt[:1].contiguous(), v0[:1].contiguous(),
+            tol[:1].contiguous(), m, 300)
+        require(torch.equal(v1[0], v[0]) and torch.equal(iters1[0], iters[0]),
+                f"streamed lane 0 of {name} differs solved alone")
+        pv, pdelta, piters = KR.resident_streamed_solve_plain(x, wt, v0, tol,
+                                                              m, 300)
+        it_np, pit_np = iters.cpu().numpy(), piters.cpu().numpy()
+        v_np, pv_np = v.cpu().numpy(), pv.cpu().numpy()
+        require(np.isfinite(v_np).all(), f"non-finite centers on {name}")
+        if not np.array_equal(it_np, pit_np):
+            bad = np.nonzero(it_np != pit_np)[0]
+            margin = (pdelta.cpu().numpy() - tol.cpu().numpy())[bad]
+            fail(f"streamed iteration counts differ on {name}: lanes "
+                 f"{bad.tolist()} kernel {it_np[bad].tolist()} plain "
+                 f"{pit_np[bad].tolist()}, delta - tol {margin.tolist()}")
+        np.testing.assert_allclose(v_np, pv_np, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"streamed {name}")
+        err = float(np.abs(v_np - pv_np).max())
+        worst = max(worst, err)
+        b, k, d = x.shape
+        reps = 5 if b * k >= 1 << 20 else 20
+        ms = time_ms(lambda: KR.resident_streamed_solve(x, wt, v0, tol, m,
+                                                        300), reps=reps,
+                     rounds=5)
+        plain_ms = time_ms(lambda: KR.resident_streamed_solve_plain(
+            x, wt, v0, tol, m, 300), reps=1, rounds=3)
+        n_bytes = 4 * (b * k * d + b * k + 2 * b * c * d + 3 * b)
+        # per row, center and iteration: d2 3D, floor, reciprocal, sum,
+        # divide, square, weight, numerator 2D, denominator 1
+        n_ops = int(it_np.sum()) * k * c * (5 * d + 7)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        print(f"  streamed {name}: iters equal (max {int(it_np.max())}), "
+              f"max |dv| {err:.3g}, repeats bit for bit, lane 0 alone "
+              f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bnd:.5f} ms ({by}) [{card}]")
+        if entry is None:
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         library_ms=None)
+    return dict(max_abs_err=worst, **entry)
+
+
+def _near_ties(got, want, img, centers, sw):
+    """Pixels where two SLIC label maps differ; fails unless each is a
+    near-tie (the two candidates' float64 distances within TIE_RTOL)."""
+    ys, xs = np.nonzero(got != want)
+    img = img.astype(np.float64)
+    cen = np.asarray(centers, np.float64)
+    d = img.shape[-1]
+    for y, x in zip(ys, xs):
+        def dist(k):
+            return (((img[y, x] - cen[k, :d]) ** 2).sum()
+                    + sw * ((y - cen[k, d]) ** 2 + (x - cen[k, d + 1]) ** 2))
+        a, b = dist(got[y, x]), dist(want[y, x])
+        require(abs(a - b) <= TIE_RTOL * max(a, b),
+                f"SLIC labels differ at ({y}, {x}) by more than a near-tie: "
+                f"{a!r} vs {b!r}")
+    require(len(ys) <= TIE_SHARE * got.size,
+            f"{len(ys)} SLIC near-ties of {got.size} pixels")
+    return len(ys)
+
+
+def check_slic(KS, SL, phantom, dev, card):
+    """SLIC kernel vs the plain assign_ref on the card: 512x512 RGB with
+    seed and with drifted centers, a 217x181 grey slice, and the
+    (129, 131) shape with 100 segments and 3 channels."""
+    rgb = phantom.phantom_slice_rgb(512, 512, noise=6.0, seed=0)[0]
+    grey = phantom.phantom_slice(217, 181, seed=0)[0][:, :, None]
+    odd = phantom.phantom_slice_rgb(129, 131, seed=263)[0]
+    cases = [("512x512 RGB, seed centers", rgb, 256, 0),
+             ("512x512 RGB, drifted centers", rgb, 256, 3),
+             ("217x181 grey", grey, 256, 0),
+             ("129x131 RGB, 100 segments", odd, 100, 0)]
+    timing = None
+    n_diff = n_px = 0
+    for name, im, segs, drift in cases:
+        img = torch.from_numpy(np.ascontiguousarray(im, np.float32)).to(dev)
+        h, w, _ = img.shape
+        gy, gx = SL.grid_shape(h, w, segs)
+        sw = SL.spatial_weight(h, w, gy, gx, 10.0)
+        cen = SL.seed_centers(img, gy, gx)
+        for _ in range(drift):
+            cen = SL.update_centers(img, SL.assign_ref(img, cen, gy, gx, sw),
+                                    cen)[0]
+        cen = cen.contiguous()
+        got = KS.slic_assign(img, cen, gy, gx, sw)
+        torch.cuda.synchronize()
+        want = SL.assign_ref(img, cen, gy, gx, sw)
+        n = _near_ties(got.cpu().numpy(), want.cpu().numpy(),
+                       img.cpu().numpy(), cen.cpu().numpy(), sw)
+        n_diff, n_px = n_diff + n, n_px + h * w
+        print(f"  slic {name} (K={gy * gx}): {n} pixels differ (near-ties)")
+        if timing is None:
+            timing = (img, cen, gy, gx, sw)
+    img, cen, gy, gx, sw = timing
+    h, w, d = img.shape
+    ms = time_ms(lambda: KS.slic_assign(img, cen, gy, gx, sw))
+    plain_ms = time_ms(lambda: KS.slic_assign_plain(img, cen, gy, gx, sw),
+                       reps=5, rounds=3)
+    # per pixel, nine candidates of D (subtract, square, add) and two
+    # spatial terms of (subtract, square, weight, add)
+    bnd, by = bound_ms(h * w * (4 * d + 4) + cen.numel() * 4,
+                       9 * (3 * d + 8) * h * w)
+    print(f"  slic_assign: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library -, bound {bnd:.5f} ms ({by}) at 512x512 RGB, K={gy * gx}"
+          f" [{card}]")
+    # a label map's error: the share of pixels whose label differs from
+    # the plain version's over the four cases, each a checked near-tie
+    print(f"  slic_assign: {n_diff} of {n_px} labels differ from the plain "
+          f"version's, all near-ties")
+    return dict(max_abs_err=n_diff / n_px, labels_differ=n_diff, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=None)
+
+
+def _hold_to_cpu(res, res_cpu, what):
+    for r, rc in zip(res, res_cpu):
+        require(r.n_iters == rc.n_iters,
+                f"{what} request {r.request_id}: n_iters {r.n_iters} on the "
+                f"card, {rc.n_iters} on the CPU")
+        require(np.array_equal(r.labels, rc.labels),
+                f"{what} request {r.request_id}: labels differ from the CPU "
+                f"engine's")
+        np.testing.assert_allclose(r.centers, rc.centers, rtol=RTOL,
+                                   atol=ATOL, err_msg=what)
+        require(np.isfinite(r.centers).all(), f"{what}: non-finite centers")
+
+
+def _rgb_dsc(phantom, r, gt):
+    return phantom.dice_per_class(phantom.match_labels_to_means(
+        r.labels, r.centers, phantom.CLASS_MEANS_RGB), gt)
+
+
+def pixel_route(FCMServeEngine, cfg, sizes, counters, imgs, gts, big,
+                phantom, dev, card):
+    """The 181-slice volume, the 1000 KB image and 8 RGB slices through
+    the pixel route; returns the volume run's launches."""
+    eng = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device=dev)
+    cpu = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device="cpu")
+    for fn in counters.values():
+        fn.launches = 0
+    res = eng.segment(imgs, method="pixel")
+    launches = _counts(counters)
+    n_buckets = eng.stats()["pixel_batches"]
+    print(f"  pixel route, {len(imgs)} slices: {n_buckets} buckets, "
+          f"launches {launches}")
+    require(n_buckets == 3, f"pixel route: {n_buckets} buckets, expected 3")
+    require(launches == {**{k: 0 for k in counters},
+                         "fcm_streamed_solve": 3, "labels": 3},
+            f"pixel route launches {launches}, expected 3 streamed + 3 "
+            f"labels")
+    _hold_to_cpu(res, cpu.segment(imgs, method="pixel"), "pixel volume")
+    dsc = dsc_volume(res, gts, phantom)
+    print(f"  labels and n_iters equal the CPU engine's; DSC per class "
+          f"{[round(float(d), 4) for d in dsc]}")
+    require(min(dsc) >= 0.95, f"pixel route DSC below 0.95: {dsc}")
+    eng.reset_stats()
+    lat = serve_timed(eng, imgs, reps=10, method="pixel")
+    p50 = float(np.median(lat))
+    st = eng.stats()
+    print(f"  pixel route volume: {len(imgs) / p50:.1f} images/s, p50 flush "
+          f"{p50 * 1e3:.2f} ms over 10 flushes, stage seconds "
+          f"{st['stage_seconds']['pixel']} [{card}]")
+    profile_flush(eng, imgs, card, method="pixel")
+
+    before = _counts(counters)
+    r_big = eng.segment([big], method="pixel")[0]
+    used = {k: v - before[k] for k, v in _counts(counters).items()
+            if v != before[k]}
+    require(used == {"fcm_streamed_solve": 1, "labels": 1},
+            f"1000 KB pixel request launched {used}")
+    _hold_to_cpu([r_big], cpu.segment([big], method="pixel"), "1000 KB")
+    lat = serve_timed(eng, [big], reps=10, method="pixel")
+    print(f"  pixel route {BIG_BYTES // 1024} KB image at B=1: "
+          f"{r_big.n_iters} iterations, p50 flush "
+          f"{float(np.median(lat)) * 1e3:.3f} ms [{card}]")
+
+    rgb = [phantom.phantom_slice_rgb(217, 181, slice_pos=float(p), seed=i)[0]
+           for i, p in enumerate(np.linspace(0.3, 0.7, 8))]
+    before = _counts(counters)
+    res = eng.segment(rgb, method="pixel")
+    used = {k: v - before[k] for k, v in _counts(counters).items()
+            if v != before[k]}
+    require(used == {"fcm_streamed_solve": 1},
+            f"8 RGB pixel requests launched {used}")
+    _hold_to_cpu(res, cpu.segment(rgb, method="pixel"), "RGB pixel")
+    print(f"  pixel route, 8 RGB slices (D=3) in one bucket: one streamed "
+          f"launch, equal to the CPU engine's; iterations "
+          f"{[r.n_iters for r in res]}")
+    return launches
+
+
+def superpixel_route(FCMServeEngine, SL, cfg, sizes, counters, phantom,
+                     dev, card):
+    """16 RGB slices and one 512x512 RGB image through the superpixel
+    route; returns its launches."""
+    imgs = [phantom.phantom_slice_rgb(217, 181, slice_pos=float(p),
+                                      seed=i)[0]
+            for i, p in enumerate(np.linspace(0.3, 0.7, 16))]
+    imgs.append(phantom.phantom_slice_rgb(512, 512, noise=6.0, seed=0)[0])
+    eng = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device=dev)
+    cpu = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device="cpu")
+    spcfg = eng.superpixel_cfg
+    for fn in counters.values():
+        fn.launches = 0
+    res = eng.segment(imgs, method="superpixel")
+    launches = _counts(counters)
+    st = eng.stats()
+    # what the SLIC fits ran (the same fits again, after the counts were
+    # read), and whether their maps agree with the CPU's
+    maps = 0
+    slic_iters = 0
+    for im in imgs:
+        imf = im.astype(np.float32)
+        card_s = SL.fit_slic(imf, spcfg.slic_params(), device=dev)
+        host_s = SL.fit_slic(imf, spcfg.slic_params(), device="cpu")
+        slic_iters += card_s.n_iters
+        require(card_s.n_iters == host_s.n_iters,
+                "SLIC iterations differ from the CPU's")
+        got, want = card_s.labels.cpu().numpy(), host_s.labels.numpy()
+        if not np.array_equal(got, want):
+            maps += 1
+            h, w = got.shape
+            sw = SL.spatial_weight(h, w, host_s.gy, host_s.gx,
+                                   spcfg.compactness)
+            n = _near_ties(got, want, imf.reshape(h, w, -1),
+                           host_s.centers.numpy(), sw)
+            print(f"  superpixel map differs from the CPU's on {n} pixels")
+    n_buckets = st["superpixel_batches"]
+    print(f"  superpixel route, {len(imgs)} requests: {n_buckets} buckets, "
+          f"{slic_iters} SLIC iterations, launches {launches}")
+    require(launches == {**{k: 0 for k in counters},
+                         "slic_assign": slic_iters + len(imgs),
+                         "fcm_resident_solve": n_buckets},
+            f"superpixel launches {launches}, expected "
+            f"{slic_iters + len(imgs)} SLIC and {n_buckets} whole-solve")
+    _hold_to_cpu(res, cpu.segment(imgs, method="superpixel"), "superpixel")
+    print(f"  labels and n_iters equal the CPU engine's; {maps} SLIC maps "
+          f"differ from the CPU's; compress "
+          f"{st['superpixel_compress_seconds'] * 1e3:.1f} ms in all "
+          f"[{card}]")
+    return launches
+
+
+def rgb512_comparison(FCMServeEngine, cfg, phantom, dev, card):
+    """benchmarks/superpixel_fcm.py's measurement on the card: ms per
+    512x512 RGB image through the pixel route and through the
+    superpixel route (compress at submit + fit), each route's DSC."""
+    img, gt = phantom.phantom_slice_rgb(512, 512, noise=6.0, seed=0)
+    eng = FCMServeEngine(cfg, batch_sizes=(1,), cache_size=0, device=dev)
+    out = {}
+    for method in ("pixel", "superpixel"):
+        r = eng.segment([img], method=method)[0]
+        dsc = _rgb_dsc(phantom, r, gt)
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.submit(img, method=method)
+            eng.flush()
+            lat.append(time.perf_counter() - t0)
+        out[method] = (float(np.median(lat)) * 1e3, dsc, r.n_iters)
+        print(f"  512x512 RGB via {method}: {out[method][0]:.3f} ms per "
+              f"image (submit + flush, p50 of 10), {r.n_iters} iterations, "
+              f"DSC {[round(float(d), 4) for d in dsc]} [{card}]")
+        profile_call(lambda: eng.segment([img], method=method), card,
+                     f"512x512 RGB via {method}")
+    gap = max(abs(a - b) for a, b in zip(out["pixel"][1],
+                                         out["superpixel"][1]))
+    speed = out["pixel"][0] / out["superpixel"][0]
+    print(f"  superpixel vs pixel: {speed:.2f}x the speed, max per-class "
+          f"DSC gap {gap:.4f}")
+    require(gap <= DSC_PARITY, f"superpixel DSC {gap:.4f} from the pixel "
+            f"route's, over {DSC_PARITY}")
+
+
+def routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs, gts,
+                vol_u8, big, phantom, dev, card):
+    """Phase 6; returns the streamed and SLIC kernels' entries."""
+    rgb512 = np.stack([phantom.phantom_slice_rgb(512, 512, noise=6.0,
+                                                 seed=s)[0]
+                       for s in range(4)]).reshape(4, -1, 3).astype(
+                           np.float32)
+    print("[routes] streamed whole-solve")
+    k_str = check_streamed(KR, SV, streamed_cases(vol_u8, big, rgb512), dev,
+                           card)
+    print("[routes] SLIC assignment")
+    k_slic = check_slic(KS, SL, phantom, dev, card)
+    print("[routes] pixel route")
+    px = pixel_route(FCMServeEngine, job.fcm, job.serving_batch_sizes,
+                     counters, imgs, gts, big, phantom, dev, card)
+    print("[routes] superpixel route")
+    sp = superpixel_route(FCMServeEngine, SL, job.fcm,
+                          job.serving_batch_sizes, counters, phantom, dev,
+                          card)
+    print("[routes] 512x512 RGB: pixels vs superpixels")
+    rgb512_comparison(FCMServeEngine, job.fcm, phantom, dev, card)
+    return {"fcm_streamed_solve": dict(launches=px["fcm_streamed_solve"],
+                                       **k_str),
+            "slic_assign": dict(launches=sp["slic_assign"], **k_slic)}
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -683,7 +1065,9 @@ def main(dev=None):
     from repro_torch.kernels import fcm_membership as KM
     from repro_torch.kernels import fcm_resident as KR
     from repro_torch.kernels import histogram_bin as KB
+    from repro_torch.kernels import slic_assign as KS
     from repro_torch.serving import FCMServeEngine
+    from repro_torch.superpixel import slic as SL
     dev = torch.device("cuda") if dev is None else dev
 
     # -- 2. build ------------------------------------------------------------
@@ -700,6 +1084,14 @@ def main(dev=None):
     require(lib.fcm_max_c() == KM.MAX_C == KC.MAX_C,
             "the per-iteration kernels' cluster bound disagrees with "
             "fcm_membership.MAX_C")
+    require((lib.fcm_streamed_max_rows(), lib.fcm_streamed_max_c(),
+             lib.fcm_streamed_max_feat())
+            == (KR.STREAM_MAX_ROWS, KR.STREAM_MAX_C, KR.STREAM_MAX_FEAT),
+            "the streamed kernel's bounds disagree with fcm_resident's "
+            "STREAM_MAX_*")
+    require(lib.slic_max_center_bytes() == KS.MAX_CENTER_BYTES,
+            "the SLIC kernel's center-table bound disagrees with "
+            "slic_assign.MAX_CENTER_BYTES")
 
     # -- 3. kernels against their plain versions ----------------------------
     job = fcm_brainweb.make_config()
@@ -807,8 +1199,14 @@ def main(dev=None):
                 "fcm_resident_solve": KR.resident_solve,
                 "labels": KD.labels, "fcm_membership": KM.membership,
                 "fcm_center_partials": KC.center_partials,
-                "fcm_fused_partials": KC.fused_partials}
+                "fcm_fused_partials": KC.fused_partials,
+                "fcm_streamed_solve": KR.resident_streamed_solve,
+                "slic_assign": KS.slic_assign}
     paper = paper_path(SV, F, phantom, KM, KC, counters, dev, card)
+
+    # -- 6. the pixel and superpixel routes ------------------------------
+    routes = routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs,
+                         gts, vol_u8, big, phantom, dev, card)
 
     kernels = [
         dict(name="histogram_bin", route="cuda",
@@ -835,6 +1233,14 @@ def main(dev=None):
              source="src/repro_torch/csrc/fcm_centers.cu",
              replaces="src/repro/kernels/fcm_centers.py:98",
              **paper["fcm_fused_partials"]),
+        dict(name="fcm_streamed_solve", route="cuda",
+             source="src/repro_torch/csrc/fcm_streamed.cu",
+             replaces="src/repro/kernels/fcm_resident.py:222",
+             **routes["fcm_streamed_solve"]),
+        dict(name="slic_assign", route="cuda",
+             source="src/repro_torch/csrc/slic_assign.cu",
+             replaces="src/repro/kernels/slic_assign.py:83",
+             **routes["slic_assign"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

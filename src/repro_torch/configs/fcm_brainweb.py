@@ -1,15 +1,23 @@
 """The paper's own configuration: FCM segmentation of brain phantom
 slices into WM/GM/CSF/background (c=4, m=2, eps=0.005), served through
-the static bucket ladder, with the paper's Table 3 dataset sizes."""
+the static bucket ladder, with the paper's Table 3 dataset sizes, plus
+the superpixel compression for color and multi-modal stacks."""
 import dataclasses
 
 from repro_torch.core.fcm import FCMConfig
+from repro_torch.superpixel.pipeline import SuperpixelFCMConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class FCMJobConfig:
     name: str = "fcm-brainweb"
     fcm: FCMConfig = FCMConfig(n_clusters=4, m=2.0, eps=5e-3, max_iters=300)
+    # Superpixel compression for color / multi-modal stacks: ~256
+    # superpixels replace N pixels in the fit (the vector analogue of
+    # the 256-bin histogram); compactness 10 suits 0..255 features.
+    superpixel: SuperpixelFCMConfig = SuperpixelFCMConfig(
+        n_clusters=4, m=2.0, eps=5e-3, max_iters=300,
+        n_segments=256, compactness=10.0, slic_iters=10)
     # Serving: the bucket sizes every route pads its batches to.
     serving_batch_sizes: tuple = (1, 8, 16, 64)
     # paper Table 3 dataset sizes (bytes)

@@ -19,6 +19,7 @@ import torch
 from . import _device as DV
 from .core.fcm import FCMConfig, FCMResult
 from .core.solver import FCMProblem
+from .superpixel.pipeline import SuperpixelFCMConfig
 
 #: one LRU entry: (exact histogram key bytes, centers (c,), normalized
 #: histogram (n_bins,))
@@ -27,13 +28,16 @@ CacheEntry = Tuple[bytes, np.ndarray, np.ndarray]
 
 def config_from_numpy(fields: Dict[str, Any]) -> FCMConfig:
     """An :class:`FCMConfig` from a dict of the JAX config's fields
-    (``dataclasses.asdict`` of ``repro.core.fcm.FCMConfig``); unknown
-    keys raise."""
-    known = {f.name for f in dataclasses.fields(FCMConfig)}
-    extra = set(fields) - known
-    if extra:
-        raise ValueError(f"FCMConfig has no fields {sorted(extra)}")
-    return FCMConfig(**fields)
+    (``dataclasses.asdict`` of ``repro.core.fcm.FCMConfig``), or a
+    :class:`~repro_torch.superpixel.pipeline.SuperpixelFCMConfig` when
+    the dict carries the SLIC fields of ``repro.superpixel.pipeline.
+    SuperpixelFCMConfig``; unknown keys raise."""
+    for cls in (FCMConfig, SuperpixelFCMConfig):
+        if set(fields) <= {f.name for f in dataclasses.fields(cls)}:
+            return cls(**fields)
+    known = {f.name for f in dataclasses.fields(SuperpixelFCMConfig)}
+    raise ValueError(f"no config has the fields "
+                     f"{sorted(set(fields) - known)}")
 
 
 def problem_from_numpy(features, weights=None, init=None, c: int = 4,

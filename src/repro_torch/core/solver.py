@@ -10,11 +10,13 @@ its own convergence point.
 Backends:
 
 - ``"auto"``: the registry's pick. On the card the whole-solve kernel
-  when the problem fits it (<= 1024 rows), else the fused kernel for
-  scalar rows; the plain loop on the CPU.
+  when the problem fits it (<= 1024 rows), else the HBM-streamed
+  whole-solve (<= 2^20 rows, c <= 8, D <= 16), else the fused kernel
+  for scalar rows; the plain loop on the CPU.
 - ``"reference"``: the plain loop, on whichever device the problem
   lives.
-- ``"resident"``: the whole-solve kernel (on the CPU its plain version).
+- ``"resident"``: the whole-solve kernels, routed by size (resident,
+  else streamed); on the CPU the plain loop.
 - ``"fused"``: the fused-partials kernel once an iteration, the host
   loop testing center movement (the JAX package's ``"pallas"``).
 - ``"staged"``: the paper's pipeline, center-partials kernel then
@@ -23,8 +25,7 @@ Backends:
 - ``"sequential"``: the paper's single-core numpy comparator on the
   host (:mod:`repro_torch.core.sequential`).
 
-Stencil (FCM_S) problems, the HBM-streamed whole-solve and per-lane
-salvage are not ported yet.
+Stencil (FCM_S) problems and per-lane salvage are not ported yet.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; with no card and no device named, it raises.
@@ -171,6 +172,15 @@ def histogram_problem(x=None, cfg: Optional[F.FCMConfig] = None, *,
                       device=dev)
 
 
+def vector_problem(feats, weights=None, cfg: Optional[F.FCMConfig] = None,
+                   *, c: Optional[int] = None, m: Optional[float] = None,
+                   v0=None, device=None) -> FCMProblem:
+    """Weighted vector rows (the superpixel-compression payload)."""
+    c, m = _cfg_c_m(cfg, c, m)
+    return FCMProblem(features=feats, weights=weights, c=c, m=m, init=v0,
+                      device=device)
+
+
 def batch_problems(features, weights=None, *,
                    cfg: Optional[F.FCMConfig] = None,
                    c: Optional[int] = None, m: Optional[float] = None,
@@ -312,8 +322,9 @@ def flat_batched_solve(feats, w, c, m, eps, max_iters,
                        impl: str = "reference", active=None):
     """Batched flat solve: feats (B, K, D), w (B, K) -> (v (B, c, D),
     delta (B,), iters (B,) int32, total). ``impl="reference"`` is the
-    per-lane-masked plain loop; ``"resident"`` runs every lane's
-    complete loop inside one whole-solve kernel launch (its plain
+    per-lane-masked plain loop; ``"resident"`` / ``"resident_streamed"``
+    run every lane's complete loop inside one whole-solve kernel launch
+    (rows held in registers vs re-read from device memory; their plain
     version on the CPU). ``total`` is the loop's trip count, the
     largest lane's iterations. ``active`` is the real-lane mask of
     :func:`masked_while_centers` (reference impl only)."""
@@ -322,13 +333,13 @@ def flat_batched_solve(feats, w, c, m, eps, max_iters,
     v0 = linspace_from_support(lo, hi, c)                    # (B, c, D)
     tol = _tol_from_range((hi - lo).max(dim=1).values, eps)
 
-    if impl == "resident":
+    if impl in ("resident", "resident_streamed"):
         if active is not None:
             raise ValueError("active lane masks are supported by the "
                              "reference impl only (the whole-solve "
-                             "kernel runs every lane)")
+                             "kernels run every lane)")
         x, wt = kops.tile_rows_batched(feats, w)
-        solve_fn = kops.build_step("flat", "resident", x=x, w=wt, m=m,
+        solve_fn = kops.build_step("flat", impl, x=x, w=wt, m=m,
                                    max_iters=max_iters)
         v, delta, iters = solve_fn(v0, tol)
         return v, delta, iters, iters.max()
@@ -365,9 +376,14 @@ def _on_device(problem: FCMProblem, device) -> FCMProblem:
 
 def _select_impl(problem: FCMProblem, backend: str,
                  batch: bool = False) -> str:
-    """Registry dispatch on the problem's device and shape."""
+    """Registry dispatch on the problem's device and shape.
+    ``backend="resident"`` routes by size: the whole-solve kernel when
+    the rows fit its bounds, the HBM-streamed one beyond them."""
     prefer = {"auto": None, "reference": "reference",
               "resident": "resident", "fused": "fused"}[backend]
+    if backend == "resident" and not kops.step_impl("flat", "resident").fits(
+            problem.n_feat, problem.n_rows, problem.c):
+        prefer = "resident_streamed"
     return kops.select_step(
         "flat", prefer=prefer, platform=problem.device.type,
         n_feat=problem.n_feat, batched=batch, n_rows=problem.n_rows,
@@ -412,9 +428,9 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     c, m = problem.c, problem.m
     feats2, w = problem.rows()
 
-    if impl == "resident":
+    if impl in ("resident", "resident_streamed"):
         x, wt = kops.tile_rows_batched(feats2[None], w[None])
-        solve_fn = kops.build_step("flat", "resident", x=x, w=wt, m=m,
+        solve_fn = kops.build_step("flat", impl, x=x, w=wt, m=m,
                                    max_iters=max_iters)
         v, delta, iters = solve_fn(
             v0[None].contiguous(),
@@ -470,7 +486,8 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
                   backend: str = "auto", device=None) -> BatchedFCMResult:
     """Solve a stacked batch of independent problems (``batch=True``) on
     the problem's device (or ``device``): one whole-solve kernel launch
-    on the card, the per-lane-masked plain loop on the CPU. Each lane
+    on the card (resident or streamed, by lane size), the
+    per-lane-masked plain loop on the CPU. Each lane
     freezes at its own convergence point, so its trajectory is what
     :func:`solve` gives it alone. Every lane gets ``converged`` and
     ``healthy`` flags."""

@@ -41,7 +41,7 @@
 // D = 8 a thread keeps 4 * (8 + 1) row values, 8 * 9 partial sums and three
 // c-vectors, about 140 registers, within the 255 a thread may have; 256
 // threads at that count fit one block per SM's 65,536 registers. Larger flat
-// problems need the HBM-streamed solve, which is not ported yet.
+// problems take the HBM-streamed solve (fcm_streamed.cu).
 #include <cuda_runtime.h>
 #include <math.h>
 

@@ -47,6 +47,13 @@ SIGNATURES = {
     "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P),
     "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _P, _I, _P, _P, _P),
     "fcm_max_c": (),
+    "fcm_streamed_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
+                           _P, _P, _P, _P),
+    "fcm_streamed_max_rows": (),
+    "fcm_streamed_max_c": (),
+    "fcm_streamed_max_feat": (),
+    "slic_assign": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
+    "slic_max_center_bytes": (),
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,20 @@
 """Whole-solve weighted FCM: every lane's complete fixed point in one
 launch.
 
-The CUDA kernel (``csrc/fcm_resident.cu``) replaces the TPU's
-VMEM-resident whole-solve (``repro/kernels/fcm_resident.py::
-resident_solve_pallas``): one block per lane holds the lane's rows in
-registers and iterates the weighted Eq. 4 -> Eq. 3 step until
-``max|v' - v| < tol`` or ``max_iters``, with no launch and no trip to
-device memory between iterations. Each lane stops at its own
-convergence point, so its trajectory is a solo solve's.
+Two CUDA kernels, one contract:
+
+- ``csrc/fcm_resident.cu`` replaces the TPU's VMEM-resident whole-solve
+  (``repro/kernels/fcm_resident.py::resident_solve_pallas``): one block
+  per lane holds the lane's rows in registers (up to 1024 rows).
+- ``csrc/fcm_streamed.cu`` replaces its HBM-streamed twin
+  (``resident_streamed_solve_pallas``): one thread-block cluster per
+  lane re-reads the rows from device memory (and L2) on every iteration
+  and reduces across its blocks through distributed shared memory (up
+  to 2^20 rows).
+
+Each iterates the weighted Eq. 4 -> Eq. 3 step until ``max|v' - v| <
+tol`` or ``max_iters``, with no launch between iterations. Each lane
+stops at its own convergence point, so its trajectory is a solo solve's.
 """
 from __future__ import annotations
 
@@ -21,6 +28,13 @@ from . import _build
 MAX_ROWS = 1024
 MAX_C = 8
 MAX_FEAT = 8
+
+#: Bounds of one lane of the streamed kernel (csrc/fcm_streamed.cu): the
+#: row bound is a wall-clock choice covering the paper's 1000 KB image;
+#: D <= 16 is the pixel route's own ingest bound.
+STREAM_MAX_ROWS = 1 << 20
+STREAM_MAX_C = 8
+STREAM_MAX_FEAT = 16
 
 
 def resident_solve_plain(x, w, v0, tol, m: float, max_iters: int):
@@ -41,15 +55,16 @@ def resident_solve_plain(x, w, v0, tol, m: float, max_iters: int):
     return v.reshape(b, c, d), delta, iters
 
 
-def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
-                   tol: torch.Tensor, m: float, max_iters: int):
-    """x (B, K, D) rows, w (B, K) weights, v0 (B, c, D) init centers,
-    tol (B,) stop tolerances, all float32 -> (v (B, c, D), delta (B,),
-    iters (B,) int32). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+#: The streamed kernel's plain version is the same per-lane-masked loop:
+#: the two kernels differ in where the rows live, not in what they compute.
+resident_streamed_solve_plain = resident_solve_plain
+
+
+def _check_inputs(what, x, w, v0, tol):
+    """Shapes and devices of the shared contract; returns (B, K, D, c)."""
     if x.dim() != 3 or w.dim() != 2 or v0.dim() != 3 or tol.dim() != 1:
-        raise ValueError("resident_solve takes x (B, K, D), w (B, K), "
-                         "v0 (B, c, D), tol (B,)")
+        raise ValueError(f"{what} takes x (B, K, D), w (B, K), v0 (B, c, "
+                         f"D), tol (B,)")
     b, k, d = x.shape
     c = v0.shape[1]
     if (tuple(w.shape) != (b, k) or tuple(v0.shape) != (b, c, d)
@@ -58,22 +73,18 @@ def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
                          f"{tuple(w.shape)}, v0 {tuple(v0.shape)}, tol "
                          f"{tuple(tol.shape)}")
     if len({t.device for t in (x, w, v0, tol)}) != 1:
-        raise ValueError("resident_solve inputs must share one device")
-    if x.device.type == "cpu":
-        return resident_solve_plain(x, w, v0, tol, m, max_iters)
-    if x.device.type != "cuda":
-        raise ValueError(f"resident_solve runs on cpu or cuda, not "
-                         f"{x.device}")
-    if any(t.dtype != torch.float32 for t in (x, w, v0, tol)):
-        raise TypeError("the whole-solve kernel takes float32 inputs")
-    if not all(t.is_contiguous() for t in (x, w, v0, tol)):
-        raise ValueError("the whole-solve kernel needs contiguous inputs")
-    if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 1 <= d <= MAX_FEAT):
-        raise ValueError(
-            f"flat/resident holds rows <= {MAX_ROWS}, c <= {MAX_C}, "
-            f"D <= {MAX_FEAT} a lane; got rows={k}, c={c}, D={d} (larger "
-            f"flat problems need the HBM-streamed whole-solve, "
-            f"resident_streamed, which is not ported yet)")
+        raise ValueError(f"{what} inputs must share one device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    if x.device.type == "cuda":
+        if any(t.dtype != torch.float32 for t in (x, w, v0, tol)):
+            raise TypeError("the whole-solve kernels take float32 inputs")
+        if not all(t.is_contiguous() for t in (x, w, v0, tol)):
+            raise ValueError("the whole-solve kernels need contiguous inputs")
+    return b, k, d, c
+
+
+def _launch(fn_name, counter, x, w, v0, tol, m, max_iters, b, k, d, c):
     v = torch.empty((b, c, d), dtype=torch.float32, device=x.device)
     delta = torch.empty((b,), dtype=torch.float32, device=x.device)
     iters = torch.empty((b,), dtype=torch.int32, device=x.device)
@@ -82,13 +93,58 @@ def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
         # Python float -1/(m-1), then rounded once.
         m32 = float(np.float32(m))
         expo = float(np.float32(-1.0 / (m - 1.0)))
-        _build.check(_build.library().fcm_resident_solve(
+        fn = getattr(_build.library(), fn_name)
+        _build.check(fn(
             x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k,
             d, c, m32, expo, int(max_iters), v.data_ptr(), delta.data_ptr(),
-            iters.data_ptr(), _build.stream_of(x)), "fcm_resident_solve")
-        resident_solve.launches += 1
+            iters.data_ptr(), _build.stream_of(x)), fn_name)
+        counter.launches += 1
     return v, delta, iters
+
+
+def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
+                   tol: torch.Tensor, m: float, max_iters: int):
+    """x (B, K, D) rows, w (B, K) weights, v0 (B, c, D) init centers,
+    tol (B,) stop tolerances, all float32 -> (v (B, c, D), delta (B,),
+    iters (B,) int32). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    b, k, d, c = _check_inputs("resident_solve", x, w, v0, tol)
+    if x.device.type == "cpu":
+        return resident_solve_plain(x, w, v0, tol, m, max_iters)
+    if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 1 <= d <= MAX_FEAT):
+        raise ValueError(
+            f"flat/resident holds rows <= {MAX_ROWS}, c <= {MAX_C}, "
+            f"D <= {MAX_FEAT} a lane; got rows={k}, c={c}, D={d} (larger "
+            f"flat problems take the HBM-streamed whole-solve, "
+            f"resident_streamed_solve)")
+    return _launch("fcm_resident_solve", resident_solve, x, w, v0, tol, m,
+                   max_iters, b, k, d, c)
 
 
 #: kernel launches since the count was last set to 0
 resident_solve.launches = 0
+
+
+def resident_streamed_solve(x: torch.Tensor, w: torch.Tensor,
+                            v0: torch.Tensor, tol: torch.Tensor, m: float,
+                            max_iters: int):
+    """The HBM-streamed whole-solve, same contract as
+    :func:`resident_solve` for lanes of up to :data:`STREAM_MAX_ROWS`
+    rows, ``c <= STREAM_MAX_C`` and ``D <= STREAM_MAX_FEAT``. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    b, k, d, c = _check_inputs("resident_streamed_solve", x, w, v0, tol)
+    if x.device.type == "cpu":
+        return resident_streamed_solve_plain(x, w, v0, tol, m, max_iters)
+    if not (1 <= k <= STREAM_MAX_ROWS and 1 <= c <= STREAM_MAX_C
+            and 1 <= d <= STREAM_MAX_FEAT and b <= 65535):
+        raise ValueError(
+            f"flat/resident_streamed holds rows <= {STREAM_MAX_ROWS}, c <= "
+            f"{STREAM_MAX_C}, D <= {STREAM_MAX_FEAT} a lane and 65535 "
+            f"lanes; got rows={k}, c={c}, D={d}, B={b}")
+    return _launch("fcm_streamed_solve", resident_streamed_solve, x, w, v0,
+                   tol, m, max_iters, b, k, d, c)
+
+
+#: kernel launches since the count was last set to 0
+resident_streamed_solve.launches = 0

@@ -2,16 +2,21 @@
 registry the solver core routes through.
 
 The registry maps a step *kind* (``"flat"`` weighted-row update or
-whole-solve, ``"bin"`` ingest binning, ``"labels"`` defuzzify) to its
-implementations (``"reference"`` plain PyTorch, a kernel on the card),
-and :func:`select_step` picks one by platform and problem shape. The
+whole-solve, ``"bin"`` ingest binning, ``"labels"`` defuzzify,
+``"slic_assign"`` the SLIC assignment) to its implementations
+(``"reference"`` plain PyTorch, a kernel on the card), and
+:func:`select_step` picks one by platform and problem shape. The
 platform is a device type, taken from the tensors the caller holds:
 ``"cuda"`` where the JAX package says ``"tpu"``; the port's ``"fused"``
 is the JAX package's ``"pallas"`` flat step.
 
 On the card no step silently runs its plain version: when no kernel
 admits a problem, :func:`select_step` raises, unless the caller asked
-for ``"reference"`` by name.
+for ``"reference"`` by name. One case is not a kernel missing: hard
+labels of vector rows (D > 1). The JAX package has no TPU kernel for
+them (its ``labels_pallas`` takes scalar rows only) and runs its plain
+``labels_from_centers`` on every platform, so the port runs the plain
+version on the card too, on the rows' own device.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from . import fcm_centers as KC
 from . import fcm_membership as KM
 from . import fcm_resident as KR
 from . import histogram_bin as KB
+from . import slic_assign as KS
 
 _D2_FLOOR = 1e-12
 
@@ -57,7 +63,8 @@ def histogram_counts(px: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
 def defuzzify_labels(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Hard labels straight from centers: ``x`` (N,) or (N, D), ``v``
     (c,) or (c, D) -> (N,) int32. The labels kernel on the card for
-    scalar features, the plain version on the CPU."""
+    scalar features, the plain version on the CPU and for vector
+    features (no TPU kernel labels those; see the module docstring)."""
     if x.dim() == 2 and x.shape[-1] == 1:        # (N, 1) == scalar rows
         x = x[:, 0]
         v = v[:, 0] if v.dim() == 2 else v
@@ -109,6 +116,14 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
                              _f32(v), m)
 
 
+def slic_assign(img: torch.Tensor, centers: torch.Tensor, gy: int, gx: int,
+                sw: float) -> torch.Tensor:
+    """SLIC assignment: ``img`` (H, W, D), ``centers`` (gy * gx, D + 2)
+    -> (H, W) int32 labels. The SLIC kernel on the card, its plain
+    version on the CPU."""
+    return KS.slic_assign(_f32(img), _f32(centers), gy, gx, sw)
+
+
 # ---------------------------------------------------------------------------
 # Step dispatch registry
 # ---------------------------------------------------------------------------
@@ -150,8 +165,8 @@ class StepImpl:
 _STEP_REGISTRY: Dict[Tuple[str, str], StepImpl] = {}
 
 #: the kernel implementations of each kind, tried in this order on the
-#: card
-_KERNEL_IMPLS = ("resident", "fused", "cuda")
+#: card (the JAX package's auto order: resident, resident_streamed, pallas)
+_KERNEL_IMPLS = ("resident", "resident_streamed", "fused", "cuda")
 
 
 def register_step(kind: str, name: str, *, platforms=("cpu", "cuda"),
@@ -198,10 +213,12 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
     exhausted; one with no fallback is returned as it is, and its
     kernel wrappers take their plain versions for CPU tensors (the
     JAX package's interpret mode). Otherwise the kernels win on
-    ``"cuda"`` in the order resident, fused, when the problem fits
-    them, and the plain reference runs on the CPU. On ``"cuda"`` a
-    problem no kernel admits raises: the card never runs a plain
-    version the caller did not ask for."""
+    ``"cuda"`` in the order resident, resident_streamed, fused, when the
+    problem fits them, and the plain reference runs on the CPU. On
+    ``"cuda"`` a problem no kernel admits raises: the card never runs a
+    plain version the caller did not ask for. Vector-row labels are not
+    such a problem: no TPU kernel takes them, and the plain version is
+    their port (see the module docstring)."""
     kinds = sorted({k for k, _ in _STEP_REGISTRY})
     if kind not in kinds:
         raise ValueError(f"unknown step kind {kind!r}; one of {kinds}")
@@ -251,20 +268,27 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
         if (impl is not None and platform in impl.platforms
                 and _eligible(impl, n_feat, batched, n_rows, c)):
             return impl
+    if kind == "labels" and n_feat != 1:
+        return _STEP_REGISTRY[(kind, "reference")]
     if platform == "cuda":
         if kind == "flat":
             raise ValueError(
-                f"no flat kernel admits rows={n_rows}, c={c}, D={n_feat}: "
-                f"flat/resident holds rows <= {KR.MAX_ROWS}, c <= "
-                f"{KR.MAX_C}, D <= {KR.MAX_FEAT} a lane, flat/fused "
-                f"scalar rows (D = 1) with c <= {KC.MAX_C} in unbatched "
-                f"solves; larger vector rows wait for the HBM-streamed "
-                f"whole-solve (resident_streamed), which is not ported "
-                f"yet")
+                f"no flat kernel admits rows={n_rows}, c={c}, D={n_feat}"
+                f"{' in a batched solve' if batched else ''}: flat/resident "
+                f"holds rows <= {KR.MAX_ROWS}, c <= {KR.MAX_C}, D <= "
+                f"{KR.MAX_FEAT} a lane, flat/resident_streamed rows <= "
+                f"{KR.STREAM_MAX_ROWS}, c <= {KR.STREAM_MAX_C}, D <= "
+                f"{KR.STREAM_MAX_FEAT}, flat/fused scalar rows (D = 1) with "
+                f"c <= {KC.MAX_C} in unbatched solves")
         raise ValueError(f"no {kind!r} kernel admits D={n_feat} on cuda; "
                          f"pass prefer='reference' to run the plain "
                          f"version on the card")
     return _STEP_REGISTRY[(kind, "reference")]
+
+
+def step_impl(kind: str, name: str) -> StepImpl:
+    """The registered (kind, name) implementation."""
+    return _STEP_REGISTRY[(kind, name)]
 
 
 def build_step(kind: str, name: str, **params) -> Callable:
@@ -293,6 +317,20 @@ def _flat_resident(x, w, m, max_iters, **_):
     def solve_fn(v0, tol):
         return KR.resident_solve(x, w, v0.contiguous(), tol.contiguous(), m,
                                  max_iters)
+    return solve_fn
+
+
+@register_step("flat", "resident_streamed", platforms=("cuda",),
+               batched=True, max_rows=KR.STREAM_MAX_ROWS,
+               max_c=KR.STREAM_MAX_C, max_feat=KR.STREAM_MAX_FEAT,
+               fallback="resident")
+def _flat_resident_streamed(x, w, m, max_iters, **_):
+    """The HBM-streamed whole-solve: the same ``(v0, tol) -> (v, delta,
+    iters)`` contract as ``flat/resident`` for lanes past its row bound.
+    Off the card the fallback chain walks resident, then reference."""
+    def solve_fn(v0, tol):
+        return KR.resident_streamed_solve(x, w, v0.contiguous(),
+                                          tol.contiguous(), m, max_iters)
     return solve_fn
 
 
@@ -339,3 +377,16 @@ def _labels_cuda(**_):
                          v.to(torch.float32).reshape(1, -1).contiguous()
                          )[0]
     return labels
+
+
+@register_step("slic_assign", "reference", batched=False)
+def _slic_reference(gy, gx, sw, **_):
+    """Plain 3x3-candidate SLIC assignment (repro_torch.superpixel.slic)."""
+    from repro_torch.superpixel import slic as SL
+    return lambda img, centers: SL.assign_ref(img, centers, gy, gx, sw)
+
+
+@register_step("slic_assign", "cuda", platforms=("cuda",), batched=False)
+def _slic_cuda(gy, gx, sw, **_):
+    """One thread per pixel, the center table in shared memory."""
+    return lambda img, centers: slic_assign(img, centers, gy, gx, sw)

@@ -1,11 +1,15 @@
-"""Request-batching segmentation engine: the histogram route, sync API.
+"""Request-batching segmentation engine: the histogram, pixel and
+superpixel routes, sync API.
 
 Every serving method is a declarative :class:`RouteSpec` in a route
 registry: an ingest transform, a bucket key (requests sharing one may
 share one launch), a materializer (per-request labels from centers, for
-cache hits and duplicates) and a :class:`RouteProgram` factory. ``flush``
-groups queued requests by bucket key, pads each chunk to the nearest
-size in ``batch_sizes`` and runs one program per chunk.
+cache hits, duplicates and routes without a program) and either a
+:class:`RouteProgram` factory or a ``build_problem`` hook. ``flush`` groups
+queued requests by bucket key, pads each chunk to the nearest size in
+``batch_sizes`` and runs one program per chunk, or, for a route without
+one, one :func:`~repro_torch.core.solver.solve_batched` on the chunk's
+batched problem.
 
 The histogram route's program for same-size payloads is three kernel
 launches on the card: the binning kernel turns the ``(B, N)`` uint8
@@ -23,9 +27,19 @@ near-identical ones (L1 distance between normalized histograms at most
 ``cache_tol``) a nearest-match scan; either way only the label-table
 gather runs.
 
-The pixel, spatial and superpixel routes, async admission, retries, the
-circuit breaker, per-request salvage and mesh dispatch are not ported
-yet. A lane whose centers come back non-finite fails with
+The pixel route clusters every pixel (``(H, W)`` grey or channels-last
+``(H, W, D <= 16)`` features): on the card one whole-solve launch per
+bucket (the resident kernel up to 1024 pixels, the HBM-streamed one
+beyond), then for scalar payloads the labels kernel; vector payloads
+are labelled by the plain ``labels_from_centers``, as the JAX package
+does. The superpixel route compresses each image at ingest with SLIC
+(the SLIC kernel on the card) to ~256 weighted feature rows; a bucket
+is one batched solve of those rows (the resident kernel on the card),
+and each request's labels are gathered through its superpixel map.
+
+The spatial route, async admission, retries, the circuit breaker,
+per-request salvage and mesh dispatch are not ported yet. A lane whose
+centers come back non-finite fails with
 :class:`~repro_torch.serving.admission.SolveFailed`.
 """
 from __future__ import annotations
@@ -46,6 +60,7 @@ from ..core import fcm as F
 from ..core import solver as SV
 from ..core.batched import hist_rows
 from ..kernels import ops as kops
+from ..superpixel import pipeline as SX
 from .admission import InvalidInput, SolveFailed
 
 
@@ -54,7 +69,7 @@ class SegmentationResult:
     """Per-request output."""
     request_id: int
     labels: np.ndarray            # same spatial shape as the submitted image
-    centers: np.ndarray           # (c,)
+    centers: np.ndarray           # (c,) scalar or (c, D) vector features
     n_iters: int                  # 0 for cache hits
     cache_hit: bool
     method: str = "histogram"
@@ -87,6 +102,28 @@ class _Pending:
     key: Optional[bytes] = None         # cache/dedup key, lazy
 
 
+@dataclasses.dataclass
+class _PendingPixels:
+    """A pixel request: uncompressed per-image FCM, the route every
+    compression is measured against. (H, W, D) payloads cluster in
+    D-dim feature space; same-shape payloads batch."""
+    request_id: int
+    pixels: np.ndarray
+
+
+@dataclasses.dataclass
+class _PendingSuperpixel:
+    """A superpixel request after ingest-time SLIC compression: it
+    carries only the reduced payload to the fit and bypasses the
+    histogram LRU (vector features have no 256-bin key).
+    ``features.shape`` buckets the batch."""
+    request_id: int
+    features: np.ndarray          # (K, D) superpixel mean features
+    weights: np.ndarray           # (K,) pixel counts
+    label_map: np.ndarray         # (H, W) int32 pixel -> superpixel
+    slic_iters: int
+
+
 # ---------------------------------------------------------------------------
 # Route registry
 # ---------------------------------------------------------------------------
@@ -98,21 +135,32 @@ class RouteSpec:
     ``ingest(engine, img, rid)`` validates and reduces the payload;
     ``bucket_key(engine, payload)`` decides which payloads may share one
     launch; ``materialize`` turns fitted centers into one request's
-    labels (cache hits, duplicates); ``program_key(engine, chunk)``
-    names the program shape a chunk shares and ``make_program(engine,
-    key, bucket)`` builds that :class:`RouteProgram`, cached per (route
-    generation, bucket, key). ``cacheable`` routes carry a
+    labels (cache hits and duplicates of ``cacheable`` routes, routes
+    without a program);
+    ``program_key(engine, chunk)`` names the program shape a chunk
+    shares and ``make_program(engine, key, bucket)`` builds that
+    :class:`RouteProgram`, cached per (route generation, bucket, key). A
+    route without a program gives ``build_problem(engine, chunk,
+    bucket)``, which stacks a chunk (plus padding lanes up to
+    ``bucket``) into one batched
+    :class:`~repro_torch.core.solver.FCMProblem` and names the config
+    whose eps/max_iters govern the fit. ``cacheable`` routes carry a
     ``.key``/``.hist`` payload and go through the histogram LRU and
     intra-flush dedup.
     """
     name: str
     ingest: Callable[["FCMServeEngine", np.ndarray, int], Any]
     bucket_key: Callable[["FCMServeEngine", Any], Hashable]
-    materialize: Callable[["FCMServeEngine", Any, np.ndarray, int, bool],
-                          SegmentationResult]
-    program_key: Callable[["FCMServeEngine", List[Any]], Hashable]
-    make_program: Callable[["FCMServeEngine", Hashable, int],
-                           "RouteProgram"]
+    materialize: Optional[
+        Callable[["FCMServeEngine", Any, np.ndarray, int, bool],
+                 SegmentationResult]] = None
+    program_key: Optional[
+        Callable[["FCMServeEngine", List[Any]], Hashable]] = None
+    make_program: Optional[
+        Callable[["FCMServeEngine", Hashable, int], "RouteProgram"]] = None
+    build_problem: Optional[
+        Callable[["FCMServeEngine", List[Any], int],
+                 Tuple[SV.FCMProblem, F.FCMConfig]]] = None
     cacheable: bool = False
     stats_prefix: str = ""        # "" keeps the legacy histogram names
 
@@ -299,6 +347,139 @@ register_route(RouteSpec(
     make_program=_make_histogram_program,
     cacheable=True))
 
+
+# -- pixel route --------------------------------------------------------------
+
+def _ingest_pixel(eng, img, rid) -> _PendingPixels:
+    # 3-D pixel payloads are channels-last feature stacks; a (D, H, W)
+    # volume would silently cluster on W-dim rows, so anything that does
+    # not look like trailing channels is rejected here.
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1] > 16):
+        raise ValueError(
+            f"pixel requests need (H, W) or channels-last "
+            f"(H, W, D<=16) input, got shape {img.shape}; "
+            f"use method='histogram' for volumes")
+    # a copy: the caller may reuse its buffer between submit() and flush()
+    return _PendingPixels(rid, np.array(img))
+
+
+def _pixel_program_key(eng, chunk):
+    return ("px",) + chunk[0].pixels.shape  # bucket_key groups by shape
+
+
+def _make_pixel_program(eng, key, bucket) -> RouteProgram:
+    """Stack -> batched whole-solve -> labels. On the card the solve is
+    one launch of the whole-solve kernel the registry picks for the lane
+    size (the HBM-streamed one past 1024 pixels); scalar payloads are
+    labelled by the labels kernel, vector payloads by the plain
+    ``labels_from_centers`` (no kernel labels vector rows). uint8
+    payloads travel to the device as uint8."""
+    shape = key[1:]
+    scalar = len(shape) == 2
+    d = 1 if scalar else shape[-1]
+    n = int(np.prod(shape[:2]))
+    cfg = eng.cfg
+    c, m = cfg.n_clusters, float(cfg.m)
+    eps, max_iters = float(cfg.eps), int(cfg.max_iters)
+    dev = eng.device
+    impl = kops.select_step("flat", platform=dev.type, n_feat=d,
+                            batched=True, n_rows=n, c=c).name
+    w = torch.ones((bucket, n), dtype=torch.float32, device=dev)
+    lane_shape = (n,) if scalar else (n, d)
+
+    def launch(px):
+        xs = px.to(torch.float32)
+        feats = xs[..., None] if scalar else xs
+        v, delta, iters, total = SV.flat_batched_solve(
+            feats, w, c, m, eps, max_iters, impl=impl)
+        if scalar:
+            v2 = v[..., 0].contiguous()
+            return (v2, delta, iters, total,
+                    kops.defuzzify_labels_batched(px, v2))
+        return v, delta, iters, total, F.labels_from_centers(feats, v)
+
+    def gather(eng_, chunk, bucket_):
+        dtype = (np.uint8 if all(q.pixels.dtype == np.uint8 for q in chunk)
+                 else np.float32)
+        px = np.empty((bucket_,) + lane_shape, dtype)
+        for i, q in enumerate(chunk):
+            px[i] = q.pixels.reshape(lane_shape)
+        # Padding lanes replay the first image, dropped on output.
+        px[len(chunk):] = px[0]
+        return (torch.from_numpy(px).to(dev),)
+
+    def scatter(eng_, chunk, outs):
+        v, delta, iters, total, labels = outs
+        centers = v.cpu().numpy()
+        iters_np = iters.cpu().numpy()
+        labels_np = labels[:len(chunk)].cpu().numpy()
+        res = [SegmentationResult(q.request_id,
+                                  labels_np[i].reshape(shape[:2]),
+                                  centers[i], int(iters_np[i]), False,
+                                  method="pixel")
+               for i, q in enumerate(chunk)]
+        return res, centers, iters_np, int(total), delta.cpu().numpy()
+
+    return RouteProgram(gather, launch, scatter)
+
+
+# -- superpixel route ---------------------------------------------------------
+
+def _ingest_superpixel(eng, img, rid) -> _PendingSuperpixel:
+    if img.ndim not in (2, 3):
+        raise ValueError(f"superpixel requests need (H, W) or "
+                         f"(H, W, D) input, got shape {img.shape}")
+    # compress is a stage of this route's ingest: its own span and
+    # stage counter (superpixel_compress_seconds)
+    with eng.tracer.span("compress", ring=False, route="superpixel") as sp:
+        comp = SX.compress(img.astype(np.float32), eng.superpixel_cfg,
+                           device=eng.device)
+        out = _PendingSuperpixel(rid, comp.features.cpu().numpy(),
+                                 comp.weights.cpu().numpy(),
+                                 comp.label_map.cpu().numpy(),
+                                 comp.slic_iters)
+    eng._stage_seconds("superpixel", "compress").inc(sp.wall_s)
+    return out
+
+
+def _build_superpixel(eng, chunk, bucket):
+    k, d = chunk[0].features.shape
+    feats = np.stack([q.features for q in chunk])
+    ws = np.stack([q.weights for q in chunk])
+    n_pad = bucket - len(chunk)
+    if n_pad:
+        # Benign padding lanes: a unit-weight feature ramp converges in a
+        # handful of iterations and is dropped on output.
+        ramp = np.broadcast_to(
+            np.linspace(0.0, 1.0, k, dtype=np.float32)[:, None], (k, d))
+        feats = np.concatenate([feats, np.broadcast_to(ramp, (n_pad, k, d))])
+        ws = np.concatenate([ws, np.ones((n_pad, k), np.float32)])
+    # The superpixel config governs the fit.
+    return SV.batch_problems(feats, ws, cfg=eng.superpixel_cfg,
+                             device=eng.device), eng.superpixel_cfg
+
+
+def _materialize_superpixel(eng, q, centers, n_iters, cache_hit):
+    # K superpixel rows against c centers: a host argmin, then one gather
+    # through the superpixel map
+    sp_labels = F.labels_from_centers(torch.from_numpy(q.features),
+                                      torch.from_numpy(np.asarray(centers)))
+    labels = sp_labels.numpy()[q.label_map]
+    return SegmentationResult(q.request_id, labels, np.asarray(centers),
+                              n_iters, cache_hit, method="superpixel")
+
+
+register_route(RouteSpec(
+    name="pixel", ingest=_ingest_pixel,
+    bucket_key=lambda eng, p: ("pixel",) + p.pixels.shape,
+    program_key=_pixel_program_key, make_program=_make_pixel_program,
+    stats_prefix="pixel"))
+register_route(RouteSpec(
+    name="superpixel", ingest=_ingest_superpixel,
+    bucket_key=lambda eng, p: ("superpixel",) + p.features.shape,
+    materialize=_materialize_superpixel, build_problem=_build_superpixel,
+    stats_prefix="superpixel"))
+
 #: The serving routes, in registration order.
 METHODS = tuple(ROUTES)
 
@@ -317,6 +498,7 @@ class FCMServeEngine:
                  n_bins: int = 256,
                  cache_size: int = 256,
                  cache_tol: float = 0.15,
+                 superpixel_cfg: Optional[SX.SuperpixelFCMConfig] = None,
                  tracing: bool = True,
                  trace_ring: int = 64,
                  device=None):
@@ -324,6 +506,9 @@ class FCMServeEngine:
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         self.device = DV.resolve_device(device)
         self.cfg = cfg
+        self.superpixel_cfg = superpixel_cfg or SX.SuperpixelFCMConfig(
+            n_clusters=cfg.n_clusters, m=cfg.m, eps=cfg.eps,
+            max_iters=cfg.max_iters)
         self.batch_sizes = tuple(sorted(set(int(b) for b in batch_sizes)))
         self.n_bins = n_bins
         self.cache_size = cache_size
@@ -524,9 +709,12 @@ class FCMServeEngine:
         return self.batch_sizes[-1]
 
     def _program_for(self, route: RouteSpec, chunk: List[Any],
-                     bucket: int) -> RouteProgram:
+                     bucket: int) -> Optional[RouteProgram]:
         """The program this chunk rides, built once per (route
-        generation, bucket, shape key); stale generations are purged."""
+        generation, bucket, shape key), or None for a route without
+        programs; stale generations are purged."""
+        if route.make_program is None:
+            return None
         key = route.program_key(self, chunk)
         gen = _ROUTE_GEN[route.name]
         for k in [k for k in self._programs
@@ -541,30 +729,71 @@ class FCMServeEngine:
                 del self._programs[next(iter(self._programs))]
         return prog
 
+    def _run_program(self, route: RouteSpec, prog: RouteProgram,
+                     chunk: List[Any], bucket: int,
+                     results: Dict[int, SegmentationResult]):
+        """gather -> launch -> scatter; finishes the finite lanes and
+        returns (centers, n_iters, total_iters, deltas, bad requests,
+        the three spans)."""
+        max_iters = int(self.cfg.max_iters)
+        with self.tracer.span("gather", route=route.name) as sp_g:
+            inputs = prog.gather(self, chunk, bucket)
+        with self.tracer.span("launch", route=route.name) as sp_s:
+            outs = sp_s.fence(prog.launch(*inputs))
+        with self.tracer.span("scatter", route=route.name) as sp_m:
+            res_list, centers, n_iters, total_iters, deltas = \
+                prog.scatter(self, chunk, outs)
+        finite = np.isfinite(
+            centers.reshape(centers.shape[0], -1)).all(axis=1)
+        bad: List[Any] = []
+        for lane, (p, r) in enumerate(zip(chunk, res_list)):
+            if not bool(finite[lane]):
+                bad.append(p)
+                continue
+            r.converged = bool(n_iters[lane] < max_iters)
+            self._finish(route, results, r)
+        return (centers, n_iters, total_iters, deltas, bad,
+                (sp_g, sp_s, sp_m))
+
+    def _run_solve(self, route: RouteSpec, chunk: List[Any], bucket: int,
+                   results: Dict[int, SegmentationResult]):
+        """A route without a program: build_problem -> solve_batched
+        (backend auto) -> materialize each finite lane. Returns what
+        :meth:`_run_program` returns."""
+        with self.tracer.span("build", route=route.name) as sp_g:
+            problem, cfg = route.build_problem(self, chunk, bucket)
+        with self.tracer.span("solve", route=route.name) as sp_s:
+            res = SV.solve_batched(problem, cfg, backend="auto")
+            sp_s.fence(res.centers)
+        with self.tracer.span("materialize", route=route.name) as sp_m:
+            centers = res.centers.cpu().numpy()
+            finite = np.isfinite(
+                centers.reshape(centers.shape[0], -1)).all(axis=1)
+            bad: List[Any] = []
+            for lane, p in enumerate(chunk):
+                if not bool(finite[lane]):
+                    bad.append(p)
+                    continue
+                r = route.materialize(self, p, centers[lane],
+                                      int(res.n_iters[lane]), False)
+                r.converged = bool(res.converged[lane])
+                self._finish(route, results, r)
+        return (centers, res.n_iters, res.total_iters, res.final_delta, bad,
+                (sp_g, sp_s, sp_m))
+
     def _run_bucket(self, route: RouteSpec, chunk: List[Any], bucket: int,
                     results: Dict[int, SegmentationResult],
                     fitted: Dict[bytes, np.ndarray]) -> None:
         prog = self._program_for(route, chunk, bucket)
-        max_iters = int(self.cfg.max_iters)
-        bad: List[Any] = []
         with self.tracer.span("bucket", route=route.name, bucket=bucket,
-                              n=len(chunk),
+                              n=len(chunk), fused=prog is not None,
                               requests=[p.request_id for p in chunk]):
-            with self.tracer.span("gather", route=route.name) as sp_g:
-                inputs = prog.gather(self, chunk, bucket)
-            with self.tracer.span("launch", route=route.name) as sp_s:
-                outs = sp_s.fence(prog.launch(*inputs))
-            with self.tracer.span("scatter", route=route.name) as sp_m:
-                res_list, centers, n_iters, total_iters, deltas = \
-                    prog.scatter(self, chunk, outs)
-            finite = np.isfinite(
-                centers.reshape(centers.shape[0], -1)).all(axis=1)
-            for lane, (p, r) in enumerate(zip(chunk, res_list)):
-                if not bool(finite[lane]):
-                    bad.append(p)
-                    continue
-                r.converged = bool(n_iters[lane] < max_iters)
-                self._finish(route, results, r)
+            if prog is not None:
+                out = self._run_program(route, prog, chunk, bucket, results)
+            else:
+                out = self._run_solve(route, chunk, bucket, results)
+        centers, n_iters, total_iters, deltas, bad, spans = out
+        sp_g, sp_s, sp_m = spans
         self._stage_seconds(route.name, "ingest").inc(sp_g.wall_s)
         self._stage_seconds(route.name, "solve").inc(sp_s.wall_s)
         self._stage_seconds(route.name, "materialize").inc(sp_m.wall_s)
@@ -579,8 +808,9 @@ class FCMServeEngine:
         self.metrics.gauge("route.last_final_delta", route=route.name).set(
             float(np.max(deltas[:len(chunk)])))
         if route.cacheable and self.cache_size > 0:
+            bad_ids = {p.request_id for p in bad}
             for lane, p in enumerate(chunk):
-                if bool(finite[lane]):   # poisoned centers never cached
+                if p.request_id not in bad_ids:   # poisoned: never cached
                     fitted[p.key] = centers[lane]
                     self._cache_put(p.key, centers[lane], p.hist)
         if bad:
@@ -637,6 +867,8 @@ class FCMServeEngine:
                 self._stage_seconds(route.name, "ingest").snapshot()
             s[route.stat("materialize")] = \
                 self._stage_seconds(route.name, "materialize").snapshot()
+            s[route.stat("compress")] = \
+                self._stage_seconds(route.name, "compress").snapshot()
             for k in ("batches", "images", "padded", "iters"):
                 s[route.stat(k)] = \
                     self._route_counter(k, route.name).snapshot()

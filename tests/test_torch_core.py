@@ -23,6 +23,7 @@ from repro_torch.core import fcm as TF
 from repro_torch.core import histogram as TH
 from repro_torch.core import solver as TS
 from repro_torch.data import phantom as TP
+from repro_torch.kernels import fcm_resident as KR
 from repro_torch.kernels import ops as tops
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -142,12 +143,13 @@ def test_intensity_histogram_rejects_what_jax_rejects(x):
 def test_registry_kinds_and_names():
     names = {(i.kind, i.name) for i in tops.step_impls()}
     assert names == {("flat", "reference"), ("flat", "resident"),
-                     ("flat", "fused"),
+                     ("flat", "resident_streamed"), ("flat", "fused"),
                      ("bin", "reference"), ("bin", "cuda"),
-                     ("labels", "reference"), ("labels", "cuda")}
+                     ("labels", "reference"), ("labels", "cuda"),
+                     ("slic_assign", "reference"), ("slic_assign", "cuda")}
 
 
-@pytest.mark.parametrize("kind", ["flat", "bin", "labels"])
+@pytest.mark.parametrize("kind", ["flat", "bin", "labels", "slic_assign"])
 def test_select_step_picks_reference_on_cpu(kind):
     assert tops.select_step(kind, platform="cpu", n_rows=256,
                             c=4).name == "reference"
@@ -166,17 +168,22 @@ def test_resident_falls_back_to_reference_off_the_card():
 
 
 def test_oversize_flat_problem_raises_on_cuda_naming_streamed():
-    """Vector rows beyond the whole-solve kernel's bound raise on the
+    """Vector rows beyond the streamed whole-solve's bounds raise on the
     card (scalar rows take the fused kernel); it never runs the plain
-    loop silently."""
+    loop silently. Vector labels are no such case: no TPU kernel takes
+    them, so the plain version is their port on the card too."""
+    big = KR.STREAM_MAX_ROWS + 1
+    with pytest.raises(ValueError, match="resident_streamed"):
+        tops.select_step("flat", platform="cuda", n_rows=big, c=4,
+                         n_feat=3)
     with pytest.raises(ValueError, match="resident_streamed"):
         tops.select_step("flat", platform="cuda", n_rows=5000, c=4,
-                         n_feat=3)
+                         n_feat=17)
     with pytest.raises(ValueError):
         tops.select_step("flat", prefer="resident", platform="cuda",
                          n_rows=5000, c=4)
-    with pytest.raises(ValueError):
-        tops.select_step("labels", platform="cuda", n_feat=3)
+    assert tops.select_step("labels", platform="cuda",
+                            n_feat=3).name == "reference"
     # asked for by name, the plain version may run anywhere
     assert tops.select_step("flat", prefer="reference", platform="cuda",
                             n_rows=5000, c=4).name == "reference"

@@ -16,7 +16,9 @@ from repro_torch.kernels import fcm_centers as KC
 from repro_torch.kernels import fcm_membership as KM
 from repro_torch.kernels import fcm_resident as KR
 from repro_torch.kernels import histogram_bin as KB
+from repro_torch.kernels import slic_assign as KS
 from repro_torch.serving import FCMServeEngine
+from repro_torch.superpixel import slic as SL
 
 pytestmark = pytest.mark.cuda
 
@@ -175,3 +177,108 @@ def test_per_iteration_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="scalar"):
         TS.solve(TS.pixel_problem(torch.zeros((2000, 3)), device=dev),
                  backend="staged")
+
+
+def _blobs(b, k, d, c, seed):
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(0, 255, (b, c, d))
+    pick = rng.integers(0, c, (b, k))
+    return (np.take_along_axis(means, pick[..., None], axis=1)
+            + rng.normal(0, 6, (b, k, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,k,d,c,m", [(2, 1025, 1, 4, 2.0),
+                                       (3, 4099, 3, 4, 2.0),
+                                       (1, 70000, 1, 4, 2.0),
+                                       (2, 3000, 16, 8, 2.5)])
+def test_streamed_kernel_matches_plain(dev, b, k, d, c, m):
+    x = torch.from_numpy(_blobs(b, k, d, c, seed=k + d)).to(dev)
+    w = torch.ones((b, k), device=dev)
+    w[0, ::3] = 0.0                        # zero-weight rows are inert
+    lo, hi = TS.weighted_support(x, w)
+    v0 = TS.linspace_from_support(lo, hi, c).contiguous()
+    tol = TS._tol_from_range((hi - lo).max(dim=1).values, 5e-3).contiguous()
+    before = KR.resident_streamed_solve.launches
+    v, _, it = KR.resident_streamed_solve(x, w, v0, tol, m, 300)
+    assert KR.resident_streamed_solve.launches == before + 1
+    pv, _, pit = KR.resident_streamed_solve_plain(x, w, v0, tol, m, 300)
+    assert torch.equal(it, pit)
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    again = KR.resident_streamed_solve(x, w, v0, tol, m, 300)
+    assert torch.equal(again[0], v) and torch.equal(again[2], it)
+
+
+@pytest.mark.parametrize("h,w,ch,segs", [(217, 181, 1, 256),
+                                         (129, 131, 3, 100),
+                                         (64, 300, 3, 48)])
+def test_slic_kernel_equals_plain(dev, h, w, ch, segs):
+    img = phantom.phantom_slice_rgb(h, w, seed=h)[0][:, :, :ch]
+    img = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(dev)
+    gy, gx = SL.grid_shape(h, w, segs)
+    sw = SL.spatial_weight(h, w, gy, gx, 10.0)
+    cen = SL.seed_centers(img, gy, gx)
+    for _ in range(2):                     # seed grid, then drifted
+        before = KS.slic_assign.launches
+        got = KS.slic_assign(img, cen.contiguous(), gy, gx, sw)
+        assert KS.slic_assign.launches == before + 1
+        want = SL.assign_ref(img, cen, gy, gx, sw)
+        assert torch.equal(got, want)
+        cen = SL.update_centers(img, want, cen)[0]
+
+
+def test_vector_solve_on_the_card_labels_like_the_cpu(dev):
+    x = _blobs(1, 3000, 3, 4, seed=1)[0]
+    got = TS.solve(TS.pixel_problem(x, device=dev))
+    want = TS.solve(TS.pixel_problem(x, device="cpu"))
+    assert got.n_iters == want.n_iters
+    np.testing.assert_allclose(got.centers.cpu().numpy(),
+                               want.centers.numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got.labels.cpu(), want.labels)
+
+
+@pytest.mark.parametrize("method", ["pixel", "superpixel"])
+def test_routes_on_the_card_match_the_cpu_engine(dev, method):
+    imgs = [phantom.phantom_slice_rgb(64, 64, seed=i)[0] for i in range(3)]
+    imgs += _slices(3)
+    gpu = FCMServeEngine(batch_sizes=(1, 8), cache_size=0, device=dev)
+    cpu = FCMServeEngine(batch_sizes=(1, 8), cache_size=0, device="cpu")
+    for g, c in zip(gpu.segment(imgs, method=method),
+                    cpu.segment(imgs, method=method)):
+        assert g.n_iters == c.n_iters
+        np.testing.assert_array_equal(g.labels, c.labels)
+        np.testing.assert_allclose(g.centers, c.centers, rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_streamed_lane_bits_do_not_depend_on_its_bucket(dev):
+    """A BrainWeb-sized lane gives the same bits alone and in a bucket of
+    64: its blocks and reduction order come from its rows alone."""
+    x = torch.from_numpy(_blobs(64, 39277, 1, 4, seed=9)).to(dev)
+    w = torch.ones((64, 39277), device=dev)
+    lo, hi = TS.weighted_support(x, w)
+    v0 = TS.linspace_from_support(lo, hi, 4).contiguous()
+    tol = TS._tol_from_range((hi - lo).max(dim=1).values, 5e-3).contiguous()
+    v, delta, it = KR.resident_streamed_solve(x, w, v0, tol, 2.0, 300)
+    v1, delta1, it1 = KR.resident_streamed_solve(
+        x[:1].contiguous(), w[:1].contiguous(), v0[:1].contiguous(),
+        tol[:1].contiguous(), 2.0, 300)
+    assert torch.equal(v1[0], v[0]) and torch.equal(delta1[0], delta[0])
+    assert torch.equal(it1[0], it[0])
+
+
+def test_fit_slic_repeats_bit_for_bit_on_fractional_features(dev):
+    img = phantom.phantom_slice_rgb(217, 181, seed=4)[0].astype(np.float32)
+    img += np.random.default_rng(4).uniform(0, 1, img.shape).astype(
+        np.float32)
+    params = SL.SLICParams(n_segments=256)
+    a = SL.fit_slic(img, params, device=dev)
+    b = SL.fit_slic(img, params, device=dev)
+    assert a.n_iters == b.n_iters
+    for x, y in ((a.labels, b.labels), (a.centers, b.centers),
+                 (a.counts, b.counts)):
+        assert torch.equal(x, y)
+    host = SL.fit_slic(img, params, device="cpu")
+    assert a.n_iters == host.n_iters
+    np.testing.assert_allclose(a.centers.cpu().numpy(), host.centers.numpy(),
+                               rtol=RTOL, atol=ATOL)

@@ -171,7 +171,7 @@ def test_program_cache_reused_and_evicted_on_reregistration():
     assert eng.stats()["compiled_programs"] == 1
     prog = next(iter(eng._programs.values()))
     TE.register_route(TE.ROUTES["histogram"])       # same spec, new gen
-    assert TE.METHODS == ("histogram",)
+    assert TE.METHODS == ("histogram", "pixel", "superpixel")
     eng.segment(imgs)
     assert len(eng._programs) == 1
     assert next(iter(eng._programs.values())) is not prog

@@ -264,18 +264,26 @@ def test_paper_backends_reject_what_jax_rejects():
 # ---------------------------------------------------------------------------
 
 def test_auto_on_cuda_picks_resident_then_fused():
+    """The JAX package's auto order: resident, the streamed whole-solve,
+    then the fused step (unbatched scalar rows beyond the streamed
+    kernel's bounds)."""
     pick = tops.select_step
     assert pick("flat", platform="cuda", n_rows=1024, c=4).name == "resident"
-    assert pick("flat", platform="cuda", n_rows=1025, c=4).name == "fused"
+    assert pick("flat", platform="cuda", n_rows=1025,
+                c=4).name == "resident_streamed"
     assert pick("flat", platform="cuda", n_rows=1024 * 1000,
                 c=32).name == "fused"
+    assert pick("flat", platform="cuda", n_rows=(1 << 20) + 1,
+                c=4).name == "fused"
+    assert pick("flat", platform="cuda", n_rows=1025, c=4,
+                n_feat=3).name == "resident_streamed"
     with pytest.raises(ValueError, match="resident_streamed"):
-        pick("flat", platform="cuda", n_rows=1025, c=4, n_feat=3)
-    with pytest.raises(ValueError, match="resident_streamed"):
-        pick("flat", platform="cuda", n_rows=1025, c=33)
+        pick("flat", platform="cuda", n_rows=1025, c=33, n_feat=3)
     # batched solves never take the fused step
+    assert pick("flat", platform="cuda", batched=True, n_rows=1025,
+                c=4).name == "resident_streamed"
     with pytest.raises(ValueError, match="resident_streamed"):
-        pick("flat", platform="cuda", batched=True, n_rows=1025, c=4)
+        pick("flat", platform="cuda", batched=True, n_rows=1025, c=33)
     # asked for by name off the card, the fused step runs its plain
     # version (the JAX package's interpret mode); on the CPU auto stays
     # on the reference
