@@ -35,7 +35,21 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    RGB slices plus a 512x512 RGB image through the superpixel route,
    each with the launch counts set to 0 just before and read just after,
    against a CPU engine; time the 512x512 RGB image through both routes
-   with each route's per-class DSC.
+   with each route's per-class DSC;
+7. spatial: hold the FCM_S step kernels (2-D and 3-D) and the stencil
+   whole-solve against their plain versions (the 1000 KB image, noisy
+   BrainWeb slices, the whole noisy 181x217x181 volume, degenerate
+   grids; ragged lanes and an 8x64x64 volume for the whole-solve), each
+   case twice and bit-equal, a whole-solve lane alone bit-equal to
+   itself in its bucket; ``solve(spatial_problem)`` on the card (auto,
+   resident, fused, reference) against ``device="cpu"`` with the launch
+   counts set to 0 just before and read just after, labels equal up to
+   float64-checked near-ties; serve 181 noisy slices, the 1000 KB image
+   and the volume through the spatial route against a CPU engine, with
+   throughput, p50 flush, per-class DSC and a profiled flush; and time
+   the whole-solve against the step kernels at B=1 on 2-D images of
+   2^16, 2^18 and 2^20 pixels, the sweep that sets the whole-solve's
+   dispatch bound.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -83,6 +97,16 @@ TIE_RTOL, TIE_SHARE = 1e-6, 1e-4
 #: the superpixel route's DSC against the pixel route's, per class (the
 #: JAX package's benchmarks/superpixel_fcm.py criterion)
 DSC_PARITY = 0.02
+#: spatial labels that differ from the CPU's must be near-ties: the two
+#: labels' effective distances, recomputed in float64 at the card's
+#: centers, within SPATIAL_TIE_RTOL (the centers themselves differ by up
+#: to RTOL/ATOL), on at most TIE_SHARE of the pixels
+SPATIAL_TIE_RTOL = 1e-4
+#: FCM_S on noisy slices: every class's DSC at least this (the JAX
+#: package's tests/test_fcm_spatial.py bar at its heaviest noise level)
+SPATIAL_DSC = 0.75
+#: the whole-solve's dispatch sweep: 2-D images of 2^16, 2^18, 2^20 pixels
+SWEEP_SHAPES = ((256, 256), (512, 512), (1024, 1024))
 
 
 def fail(msg):
@@ -1042,6 +1066,461 @@ def routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs, gts,
             "slic_assign": dict(launches=sp["slic_assign"], **k_slic)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the spatial (FCM_S) route
+# ---------------------------------------------------------------------------
+
+#: neighbor deltas of each stencil arity, for the float64 near-tie check
+_DELTAS = {4: ((1, 0), (-1, 0), (0, 1), (0, -1)),
+           8: ((1, 0), (-1, 0), (0, 1), (0, -1),
+               (1, 1), (1, -1), (-1, 1), (-1, -1)),
+           6: ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+               (0, 0, -1))}
+
+
+def _effective_d2_f64(img, centers, neighbors, alpha, idx):
+    """(len(idx), c) FCM_S effective distances in float64 at the flat
+    pixel indices ``idx``: (v - x)^2 + alpha * mean over the in-grid
+    neighbors of (v - x_r)^2."""
+    x = np.asarray(img, np.float64)
+    v = np.asarray(centers, np.float64)
+    coords = np.unravel_index(idx, x.shape)
+    nb = np.zeros((len(idx), v.size))
+    cnt = np.zeros(len(idx))
+    for delta in _DELTAS[neighbors]:
+        cc = [coords[a] + delta[a] for a in range(x.ndim)]
+        ok = np.ones(len(idx), bool)
+        for a in range(x.ndim):
+            ok &= (cc[a] >= 0) & (cc[a] < x.shape[a])
+        xs = x[tuple(np.where(ok, cc[a], 0) for a in range(x.ndim))]
+        nb += ok[:, None] * (v[None] - xs[:, None]) ** 2
+        cnt += ok
+    xi = x[coords]
+    return ((v[None] - xi[:, None]) ** 2
+            + alpha * nb / np.maximum(cnt, 1.0)[:, None])
+
+
+def _spatial_near_ties(got, want, img, centers, neighbors, alpha, what):
+    """Pixels where two FCM_S label maps differ; fails unless each is a
+    near-tie at ``centers`` in float64 and they are at most TIE_SHARE of
+    the pixels. Returns their count."""
+    got, want = np.asarray(got), np.asarray(want)
+    idx = np.flatnonzero(got != want)
+    if idx.size:
+        d = _effective_d2_f64(img, centers, neighbors, alpha, idx)
+        rows = np.arange(idx.size)
+        a = d[rows, got.reshape(-1)[idx]]
+        b = d[rows, want.reshape(-1)[idx]]
+        bad = np.abs(a - b) > SPATIAL_TIE_RTOL * np.maximum(a, b)
+        require(not bad.any(), f"{what}: {int(bad.sum())} labels differ by "
+                f"more than a near-tie")
+    require(idx.size <= TIE_SHARE * got.size,
+            f"{what}: {idx.size} near-ties of {got.size} pixels")
+    return int(idx.size)
+
+
+def spatial_step_cases(big, noisy_sl, noisy_vol, dev):
+    """(name, x (B, *grid), v (B, c), m, alpha, neighbors) for the step
+    kernels: the main path's shapes and degenerate grids. Realistic
+    centers sit between pixel values; 'on pixels' are integers that
+    occur in the image (exact zero distances)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    v4 = t([[0.6, 51.3, 105.4, 167.6]])
+    v_on = t([[0.0, 51.0, 105.0, 168.0]])
+    img = t(big.reshape(1, -1, 256))
+    sl = t(noisy_sl[None])
+    vol = t(noisy_vol[None])
+    rng = np.random.default_rng(3)
+    return [
+        ("1000 KB 4000x256, 8 nb", img, v4, 2.0, 1.0, 8),
+        ("1000 KB, 4 nb", img, v4, 2.0, 1.0, 4),
+        ("1000 KB, 8 nb, centers on pixels", img, v_on, 2.0, 1.0, 8),
+        ("1000 KB, 8 nb, alpha 0", img, v4, 2.0, 0.0, 8),
+        ("1000 KB, 8 nb, alpha 2.5, m 1.6", img, v4, 1.6, 2.5, 8),
+        ("noisy 217x181, 8 nb", sl, v4, 2.0, 1.0, 8),
+        ("noisy 217x181, 4 nb, alpha 2.5", sl, v_on, 2.0, 2.5, 4),
+        ("1x1", t([[[77.0]]]), v4, 2.0, 1.0, 8),
+        ("2x2, m 1.6", t(rng.integers(0, 256, (1, 2, 2))), v_on, 1.6, 1.0,
+         8),
+        ("1x300, alpha 0", t(rng.integers(0, 256, (1, 1, 300))), v4, 2.0,
+         0.0, 4),
+        ("300x1", t(rng.integers(0, 256, (1, 300, 1))), v4, 2.0, 1.0, 8),
+        ("BrainWeb volume 181x217x181, 6 nb", vol, v4, 2.0, 1.0, 6),
+        ("volume, alpha 2.5, m 1.6", vol, v_on, 1.6, 2.5, 6),
+        ("2x2x2", t(rng.integers(0, 256, (1, 2, 2, 2))), v4, 2.0, 1.0, 6),
+    ]
+
+
+#: float operations a pixel and cluster of an FCM_S update spends after
+#: its own and its neighbors' distances are known: the neighbors' mean
+#: and its weight (divide, multiply, add), the membership (floor,
+#: reciprocal, sum, divide), u^m, and the two sums (3)
+_FCMS_OPS_PER_CLUSTER = 11
+
+
+def _step_ops(n, c, k):
+    """Float operations of one FCM_S step over n pixels, c clusters, k
+    neighbors, as the TPU step kernel does them: per neighbor a count, a
+    sum and c (subtract, square, add); per pixel the floor of the count,
+    xbar and x + alpha xbar (4); per pixel and cluster its own distance
+    (2) and the update."""
+    return n * (k * (2 + 3 * c) + 4 + c * (2 + _FCMS_OPS_PER_CLUSTER))
+
+
+def _stencil_ops(ns, iters, c, k):
+    """Float operations of the whole FCM_S fixed point, as the TPU
+    whole-solve does them, over lanes of ns pixels that ran iters
+    iterations: once a lane, per pixel the neighbor count and intensity
+    sum (2k), the count's floor, xbar and x_eff = (x + alpha xbar) / (1
+    + alpha) (5); each iteration, per pixel and cluster the distance once
+    (2), its k neighbors' shifted copies added (k) and the update."""
+    return sum(n * (2 * k + 5) + it * n * c * (2 + k + _FCMS_OPS_PER_CLUSTER)
+               for n, it in zip(ns, iters))
+
+
+def check_spatial_steps(KSP, cases, card):
+    """Step kernels vs their plain version on every case, each launched
+    twice and required bit-equal; the 2-D kernel timed at the 1000 KB
+    image (the main path's solve past the whole-solve bound), the 3-D one
+    at the volume (the route's B=1 volume)."""
+    out = {}
+    for name, x, v, m, alpha, nb in cases:
+        key = "3d" if x.dim() == 4 else "2d"
+        fn = KSP.spatial_partials_3d if key == "3d" \
+            else KSP.spatial_partials_2d
+        args = () if key == "3d" else (nb,)
+        got = fn(x, v, m, alpha, *args)
+        torch.cuda.synchronize()
+        again = fn(x, v, m, alpha, *args)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"spatial step does not repeat bit for bit on {name}")
+        err, rel = _close_sums(got, KSP.spatial_partials_plain(
+            x, v, m, alpha, nb), f"spatial step {name}")
+        e = out.setdefault(key, dict(max_abs_err=0.0, max_rel_err=0.0))
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["max_rel_err"] = max(e["max_rel_err"], rel)
+        line = (f"  spatial step {name}: max abs err {err:.3g} (relative "
+                f"{rel:.3g}), repeats bit for bit")
+        if "ms" not in e and (name.startswith("1000 KB 4000")
+                              or name.startswith("BrainWeb")):
+            n = x[0].numel()
+            c = v.shape[1]
+            e["ms"] = time_ms(lambda: fn(x, v, m, alpha, *args))
+            e["plain_ms"] = time_ms(lambda: KSP.spatial_partials_plain(
+                x, v, m, alpha, nb), reps=3, rounds=3)
+            e["bound_ms"], e["bound_by"] = bound_ms(4 * (n + 3 * c),
+                                                    _step_ops(n, c, nb))
+            e["library_ms"] = None
+            line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+                     f"ms, bound {e['bound_ms']:.5f} ms ({e['bound_by']}) "
+                     f"[{card}]")
+        print(line)
+    return out["2d"], out["3d"]
+
+
+def check_stencil(KST, SV, noisy_imgs, phantom, dev, card):
+    """Stencil whole-solve vs its plain version: 64 noisy BrainWeb slices
+    (the route's bucket), ragged lanes, two 8x64x64 volumes, c=8 with
+    m=1.6; each case twice and bit-equal, lane 0 alone bit-equal to
+    itself in the bucket, equal iterations, centers within RTOL/ATOL.
+    Timed at the 64 slices."""
+    pick = np.linspace(0, len(noisy_imgs) - 1, 64).round().astype(int)
+    slices = np.stack([noisy_imgs[i] for i in pick]).astype(np.float32)
+    const = np.full(slices.shape[1:], 77.0, np.float32)
+    two = np.zeros(slices.shape[1:], np.float32)
+    two[:, 90:] = 200.0
+    vols = np.stack([phantom.noisy_phantom_volume(seed=s)[0]
+                     for s in (0, 8)]).astype(np.float32)
+    cases = [("64 noisy 217x181 slices, 8 nb", slices, 2.0, 1.0, 8, 4),
+             ("ragged: a constant lane, a two-valued lane, 3 noisy slices, "
+              "4 nb, alpha 2.5",
+              np.stack([const, two, *slices[:3]]), 2.0, 2.5, 4, 4),
+             ("two 8x64x64 volumes, 6 nb", vols, 2.0, 1.0, 6, 4),
+             ("4 noisy slices, c=8, m=1.6", slices[:4], 1.6, 1.0, 8, 8)]
+    worst, entry = 0.0, None
+    for name, imgs, m, alpha, nb, c in cases:
+        x = torch.from_numpy(imgs).to(dev)
+        v0, tol = SV.stencil_lane_init(x, c, 5e-3)
+        v, delta, it = KST.stencil_solve(x, v0, tol, m, alpha, nb, 300)
+        torch.cuda.synchronize()
+        v2, delta2, it2 = KST.stencil_solve(x, v0, tol, m, alpha, nb, 300)
+        require(torch.equal(v, v2) and torch.equal(it, it2)
+                and torch.equal(delta, delta2),
+                f"stencil solve does not repeat bit for bit on {name}")
+        v1, delta1, it1 = KST.stencil_solve(
+            x[:1].contiguous(), v0[:1].contiguous(), tol[:1].contiguous(),
+            m, alpha, nb, 300)
+        require(torch.equal(v1[0], v[0]) and torch.equal(it1[0], it[0])
+                and torch.equal(delta1[0], delta[0]),
+                f"stencil lane 0 of {name} differs solved alone")
+        pv, pdelta, pit = KST.stencil_solve_plain(x, v0, tol, m, alpha, nb,
+                                                  300)
+        it_np, pit_np = it.cpu().numpy(), pit.cpu().numpy()
+        if not np.array_equal(it_np, pit_np):
+            bad = np.nonzero(it_np != pit_np)[0]
+            margin = (pdelta.cpu().numpy() - tol.cpu().numpy())[bad]
+            fail(f"stencil iteration counts differ on {name}: lanes "
+                 f"{bad.tolist()} kernel {it_np[bad].tolist()} plain "
+                 f"{pit_np[bad].tolist()}, delta - tol {margin.tolist()}")
+        v_np, pv_np = v.cpu().numpy(), pv.cpu().numpy()
+        require(np.isfinite(v_np).all(), f"non-finite centers on {name}")
+        np.testing.assert_allclose(v_np, pv_np, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"stencil {name}")
+        err = float(np.abs(v_np - pv_np).max())
+        worst = max(worst, err)
+        line = (f"  stencil {name}: iters equal {sorted(set(it_np.tolist()))}"
+                f", max |dv| {err:.3g}, repeats bit for bit, lane 0 alone "
+                f"bit-equal")
+        if entry is None:
+            b, n = x.shape[0], x[0].numel()
+            ms = time_ms(lambda: KST.stencil_solve(x, v0, tol, m, alpha, nb,
+                                                   300), reps=5, rounds=5)
+            plain_ms = time_ms(lambda: KST.stencil_solve_plain(
+                x, v0, tol, m, alpha, nb, 300), reps=1, rounds=3)
+            bnd, by = bound_ms(4 * (b * n + 2 * b * c + 3 * b),
+                               _stencil_ops([n] * b, it_np.tolist(), c, nb))
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         library_ms=None)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                     f"{bnd:.5f} ms ({by}) [{card}]")
+        print(line)
+    return dict(max_abs_err=worst, **entry)
+
+
+def check_spatial_solves(SV, phantom, scfg, counters, images, dev):
+    """solve(spatial_problem) on the card (auto with no device argument)
+    and on the CPU for each (image, backend): equal iterations, centers
+    within RTOL/ATOL, labels equal up to float64-checked near-ties, and
+    the run's launches. Returns the launches of the 1000 KB auto run."""
+    expect = {
+        "auto, under the bound": lambda it: {"fcm_stencil_solve": 1},
+        "resident": lambda it: {"fcm_stencil_solve": 1},
+        "fused": lambda it: {"fcm_spatial_partials_2d": it},
+        "reference": lambda it: {},
+        "auto, 2-D past the bound": lambda it: {"fcm_spatial_partials_2d": it},
+        "auto, volume": lambda it: {"fcm_spatial_partials_3d": it},
+    }
+    runs = [("217x181", "auto, under the bound"), ("217x181", "resident"),
+            ("217x181", "fused"), ("217x181", "reference"),
+            ("1000 KB 4000x256", "auto, 2-D past the bound"),
+            ("volume 181x217x181", "auto, volume")]
+    big_launches = None
+    for img_name, run in runs:
+        img, gt = images[img_name]
+        backend = run.split(",")[0]
+        nb = 6 if img.ndim == 3 else scfg.neighbors
+        before = _counts(counters)
+        card = SV.solve(SV.spatial_problem(
+            img, scfg, device=None if backend == "auto" else dev), scfg,
+            backend=backend)
+        torch.cuda.synchronize()
+        after = _counts(counters)
+        used = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+        host = SV.solve(SV.spatial_problem(img, scfg, device="cpu"), scfg,
+                        backend=backend)
+        it = card.n_iters
+        require(it == host.n_iters,
+                f"spatial {img_name} {run}: n_iters {it} on the card, "
+                f"{host.n_iters} on the CPU")
+        np.testing.assert_allclose(card.centers.cpu().numpy(),
+                                   host.centers.numpy(), rtol=RTOL,
+                                   atol=ATOL,
+                                   err_msg=f"spatial {img_name} {run}")
+        ties = _spatial_near_ties(card.labels.cpu().numpy(),
+                                  host.labels.numpy(), img,
+                                  card.centers.cpu().numpy(), nb,
+                                  scfg.alpha, f"spatial {img_name} {run}")
+        require(used == expect[run](it),
+                f"spatial {img_name} {run}: launches {used} for {it} "
+                f"iterations, expected {expect[run](it)}")
+        if run.endswith("past the bound"):
+            big_launches = {k: after[k] - before[k] for k in after}
+        dsc = phantom.dice_per_class(phantom.match_labels_to_classes(
+            card.labels.cpu().numpy(), card.centers.cpu().numpy()), gt)
+        print(f"  spatial solve {img_name} {run}: {it} iterations on both, "
+              f"max |dv| "
+              f"{float((card.centers.cpu() - host.centers).abs().max()):.3g}"
+              f", {ties} labels differ (near-ties), DSC "
+              f"{[round(float(d), 4) for d in dsc]}, launches {used}")
+    return big_launches
+
+
+def _hold_spatial(res, res_cpu, imgs, scfg, what):
+    ties = 0
+    for r, rc, im in zip(res, res_cpu, imgs):
+        require(r.n_iters == rc.n_iters,
+                f"{what} request {r.request_id}: n_iters {r.n_iters} on the "
+                f"card, {rc.n_iters} on the CPU")
+        require(np.isfinite(r.centers).all(), f"{what}: non-finite centers")
+        np.testing.assert_allclose(r.centers, rc.centers, rtol=RTOL,
+                                   atol=ATOL, err_msg=what)
+        nb = 6 if im.ndim == 3 else scfg.neighbors
+        ties += _spatial_near_ties(r.labels, rc.labels, im, r.centers, nb,
+                                   scfg.alpha, f"{what} {r.request_id}")
+    return ties
+
+
+def spatial_route(FCMServeEngine, job, counters, noisy_imgs, noisy_gts,
+                  big, big_gt, vol, vol_gt, phantom, dev, card):
+    """181 noisy slices, the 1000 KB image and the volume through the
+    spatial route against a CPU engine, each with the launch counts set to
+    0 just before and read just after; returns the slices' and the
+    volume's launches."""
+    scfg, sizes = job.spatial, job.serving_batch_sizes
+    eng = FCMServeEngine(job.fcm, batch_sizes=sizes, cache_size=0,
+                         spatial_cfg=scfg, device=dev)
+    cpu = FCMServeEngine(job.fcm, batch_sizes=sizes, cache_size=0,
+                         spatial_cfg=scfg, device="cpu")
+    zero = {k: 0 for k in counters}
+    for fn in counters.values():
+        fn.launches = 0
+    res = eng.segment(noisy_imgs, method="spatial")
+    sl_launches = _counts(counters)
+    n_buckets = eng.stats()["spatial_batches"]
+    print(f"  spatial route, {len(noisy_imgs)} noisy slices: {n_buckets} "
+          f"buckets, launches {sl_launches}")
+    require(n_buckets == 3, f"spatial route: {n_buckets} buckets, expected 3")
+    require(sl_launches == {**zero, "fcm_stencil_solve": 3},
+            f"spatial route launches {sl_launches}, expected 3 whole-solve")
+    t0 = time.perf_counter()
+    res_cpu = cpu.segment(noisy_imgs, method="spatial")
+    t_cpu = time.perf_counter() - t0
+    ties = _hold_spatial(res, res_cpu, noisy_imgs, scfg, "spatial slices")
+    dsc = dsc_volume(res, noisy_gts, phantom)
+    print(f"  against the CPU engine ({t_cpu:.1f} s there): n_iters equal, "
+          f"{ties} of {sum(im.size for im in noisy_imgs)} labels differ "
+          f"(near-ties); DSC per class {[round(float(d), 4) for d in dsc]}")
+    require(min(dsc) >= SPATIAL_DSC, f"spatial route DSC {dsc}")
+    eng.reset_stats()
+    lat = serve_timed(eng, noisy_imgs, reps=10, method="spatial")
+    p50 = float(np.median(lat))
+    st = eng.stats()
+    print(f"  spatial route {len(noisy_imgs)} slices: "
+          f"{len(noisy_imgs) / p50:.1f} images/s, p50 flush "
+          f"{p50 * 1e3:.2f} ms over 10 flushes, stage seconds "
+          f"{st['stage_seconds']['spatial']} [{card}]")
+    profile_flush(eng, noisy_imgs, card, method="spatial")
+
+    img = big.reshape(-1, 256)
+    for fn in counters.values():
+        fn.launches = 0
+    r = eng.segment([img], method="spatial")[0]
+    used = _counts(counters)
+    require(used == {**zero, "fcm_spatial_partials_2d": r.n_iters},
+            f"1000 KB spatial request launched {used}")
+    ties = _hold_spatial([r], cpu.segment([img], method="spatial"), [img],
+                         scfg, "spatial 1000 KB")
+    lat = serve_timed(eng, [img], reps=10, method="spatial")
+    dsc = phantom.dice_per_class(phantom.match_labels_to_classes(
+        r.labels, r.centers), big_gt.reshape(img.shape))
+    print(f"  spatial route, the {BIG_BYTES // 1024} KB image at B=1: "
+          f"{r.n_iters} iterations, {r.n_iters} step launches, {ties} "
+          f"near-ties against the CPU engine, DSC "
+          f"{[round(float(d), 4) for d in dsc]}; p50 flush "
+          f"{float(np.median(lat)) * 1e3:.3f} ms [{card}]")
+    profile_flush(eng, [img], card, method="spatial")
+
+    for fn in counters.values():
+        fn.launches = 0
+    r = eng.segment([vol], method="spatial")[0]
+    vol_launches = _counts(counters)
+    require(vol_launches == {**zero, "fcm_spatial_partials_3d": r.n_iters},
+            f"volume spatial request launched {vol_launches}")
+    t0 = time.perf_counter()
+    rc = cpu.segment([vol], method="spatial")
+    t_cpu = time.perf_counter() - t0
+    ties = _hold_spatial([r], rc, [vol], scfg, "spatial volume")
+    dsc = phantom.dice_per_class(phantom.match_labels_to_classes(
+        r.labels, r.centers), vol_gt)
+    require(min(dsc) >= SPATIAL_DSC, f"spatial volume DSC {dsc}")
+    lat = serve_timed(eng, [vol], reps=5, method="spatial")
+    print(f"  spatial route, the volume {vol.shape} at B=1: {r.n_iters} "
+          f"iterations, launches {vol_launches}, {ties} near-ties against "
+          f"the CPU engine ({t_cpu:.1f} s there), DSC "
+          f"{[round(float(d), 4) for d in dsc]}; p50 flush "
+          f"{float(np.median(lat)) * 1e3:.2f} ms over 5 flushes [{card}]")
+    profile_flush(eng, [vol], card, method="spatial")
+    return sl_launches, vol_launches
+
+
+def stencil_sweep(SV, KSP, KST, phantom, dev, card):
+    """The whole-solve against the step kernels at B=1 on noisy 2-D images
+    of 2^16, 2^18 and 2^20 pixels: host-clock ms of the batched solve
+    (init, the loop, the last read of the centers) through each, and
+    each kernel's own time. Fails unless the whole-solve wins at every
+    swept size up to fcm_stencil.STENCIL_MAX_PIXELS and loses past it, so
+    the sweep that set the dispatch bound also guards it."""
+    print(f"  whole-solve vs step kernels at B=1, 8 nb, alpha 1 [{card}]")
+    print("     pixels   iters  whole-solve ms  step path ms  (kernel "
+          "alone: whole-solve ms, step ms x iters); iters are the "
+          "whole-solve's / the step path's")
+    wins = []
+    for h, w in SWEEP_SHAPES:
+        img = phantom.noisy_phantom_slice(h, w, seed=h)[0]
+        x = torch.from_numpy(img.astype(np.float32)[None]).to(dev)
+        out = {}
+        for impl in ("resident", "fused"):
+            v, _, iters, _ = SV.stencil_batched_solve(
+                x, 4, 2.0, 1.0, 8, 5e-3, 300, impl=impl)
+            out[impl] = (int(iters[0]), host_ms(
+                lambda: SV.stencil_batched_solve(x, 4, 2.0, 1.0, 8, 5e-3,
+                                                 300, impl=impl), reps=5))
+        it = out["resident"][0]
+        v0, tol = SV.stencil_lane_init(x, 4, 5e-3)
+        k_res = time_ms(lambda: KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8,
+                                                  300), reps=3, rounds=3)
+        k_step = time_ms(lambda: KSP.spatial_partials_2d(x, v0, 2.0, 1.0,
+                                                         8))
+        print(f"  {h * w:9d} {it:3d}/{out['fused'][0]:<3d} "
+              f"{out['resident'][1]:15.3f} {out['fused'][1]:13.3f}  "
+              f"({k_res:.3f}, {k_step:.4f} x {it})")
+        if out["resident"][1] < out["fused"][1]:
+            wins.append(h * w)
+    print(f"  the whole-solve wins at {wins} pixels of the swept sizes; "
+          f"fcm_stencil.STENCIL_MAX_PIXELS = {KST.STENCIL_MAX_PIXELS}")
+    require(wins == [h * w for h, w in SWEEP_SHAPES
+                     if h * w <= KST.STENCIL_MAX_PIXELS],
+            f"the whole-solve wins at {wins} pixels of the swept sizes, "
+            f"but auto sends lanes of up to {KST.STENCIL_MAX_PIXELS} pixels "
+            f"to it")
+
+
+def spatial_path(SV, KSP, KST, FCMServeEngine, job, counters, big, big_gt,
+                 phantom, dev, card):
+    """Phase 7; returns the whole-solve's and the two step kernels'
+    entries."""
+    n_slices, h, w = VOLUME
+    vol, vol_gt = phantom.noisy_phantom_volume(n_slices, h, w)
+    noisy_imgs, noisy_gts = list(vol), list(vol_gt)
+    print("[spatial] step kernels (rows 9 and 10)")
+    k_2d, k_3d = check_spatial_steps(KSP, spatial_step_cases(
+        big, vol[n_slices // 2], vol, dev), card)
+    print("[spatial] stencil whole-solve (row 8)")
+    k_st = check_stencil(KST, SV, noisy_imgs, phantom, dev, card)
+    print("[spatial] solve on the card vs the CPU")
+    images = {"217x181": (vol[n_slices // 2], vol_gt[n_slices // 2]),
+              "1000 KB 4000x256": (big.reshape(-1, 256),
+                                   big_gt.reshape(-1, 256)),
+              "volume 181x217x181": (vol, vol_gt)}
+    big_launches = check_spatial_solves(SV, phantom, job.spatial, counters,
+                                        images, dev)
+    print("[spatial] spatial route")
+    sl_launches, vol_launches = spatial_route(
+        FCMServeEngine, job, counters, noisy_imgs, noisy_gts, big, big_gt,
+        vol, vol_gt, phantom, dev, card)
+    print("[spatial] whole-solve vs step kernels by lane size")
+    stencil_sweep(SV, KSP, KST, phantom, dev, card)
+    return {"fcm_stencil_solve": dict(
+                launches=sl_launches["fcm_stencil_solve"], **k_st),
+            "fcm_spatial_partials_2d": dict(
+                launches=big_launches["fcm_spatial_partials_2d"], **k_2d),
+            "fcm_spatial_partials_3d": dict(
+                launches=vol_launches["fcm_spatial_partials_3d"], **k_3d)}
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1064,6 +1543,8 @@ def main(dev=None):
     from repro_torch.kernels import fcm_centers as KC
     from repro_torch.kernels import fcm_membership as KM
     from repro_torch.kernels import fcm_resident as KR
+    from repro_torch.kernels import fcm_spatial as KSP
+    from repro_torch.kernels import fcm_stencil as KST
     from repro_torch.kernels import histogram_bin as KB
     from repro_torch.kernels import slic_assign as KS
     from repro_torch.serving import FCMServeEngine
@@ -1092,6 +1573,13 @@ def main(dev=None):
     require(lib.slic_max_center_bytes() == KS.MAX_CENTER_BYTES,
             "the SLIC kernel's center-table bound disagrees with "
             "slic_assign.MAX_CENTER_BYTES")
+    require((lib.fcm_stencil_max_pixels(), lib.fcm_stencil_max_c())
+            == (KST.MAX_PIXELS, KST.MAX_C)
+            and KST.STENCIL_MAX_PIXELS <= KST.MAX_PIXELS,
+            "the stencil whole-solve's bounds disagree with fcm_stencil's")
+    require((lib.fcm_spatial_tile_w(), lib.fcm_spatial_tile_h())
+            == (KSP.TILE_W, KSP.TILE_H),
+            "the step kernels' tile disagrees with fcm_spatial.TILE_W/H")
 
     # -- 3. kernels against their plain versions ----------------------------
     job = fcm_brainweb.make_config()
@@ -1201,12 +1689,22 @@ def main(dev=None):
                 "fcm_center_partials": KC.center_partials,
                 "fcm_fused_partials": KC.fused_partials,
                 "fcm_streamed_solve": KR.resident_streamed_solve,
-                "slic_assign": KS.slic_assign}
+                "slic_assign": KS.slic_assign,
+                "fcm_stencil_solve": KST.stencil_solve,
+                "fcm_spatial_partials_2d": KSP.spatial_partials_2d,
+                "fcm_spatial_partials_3d": KSP.spatial_partials_3d}
     paper = paper_path(SV, F, phantom, KM, KC, counters, dev, card)
 
     # -- 6. the pixel and superpixel routes ------------------------------
     routes = routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs,
                          gts, vol_u8, big, phantom, dev, card)
+
+    # -- 7. the spatial (FCM_S) route ------------------------------------
+    t7 = time.perf_counter()
+    big_img, big_gt = phantom.phantom_of_bytes(BIG_BYTES)
+    spatial = spatial_path(SV, KSP, KST, FCMServeEngine, job, counters,
+                           big_img, big_gt, phantom, dev, card)
+    print(f"[spatial] {time.perf_counter() - t7:.1f} s")
 
     kernels = [
         dict(name="histogram_bin", route="cuda",
@@ -1241,6 +1739,18 @@ def main(dev=None):
              source="src/repro_torch/csrc/slic_assign.cu",
              replaces="src/repro/kernels/slic_assign.py:83",
              **routes["slic_assign"]),
+        dict(name="fcm_stencil_solve", route="cuda",
+             source="src/repro_torch/csrc/fcm_stencil.cu",
+             replaces="src/repro/kernels/fcm_resident.py:347",
+             **spatial["fcm_stencil_solve"]),
+        dict(name="fcm_spatial_partials_2d", route="cuda",
+             source="src/repro_torch/csrc/fcm_spatial.cu",
+             replaces="src/repro/kernels/fcm_spatial.py:170",
+             **spatial["fcm_spatial_partials_2d"]),
+        dict(name="fcm_spatial_partials_3d", route="cuda",
+             source="src/repro_torch/csrc/fcm_spatial.cu",
+             replaces="src/repro/kernels/fcm_spatial.py:184",
+             **spatial["fcm_spatial_partials_3d"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

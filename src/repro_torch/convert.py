@@ -1,7 +1,8 @@
 """Carry the JAX package's state across to the port, as numpy.
 
-FCM has no weights: its state is the configuration, the problem arrays
-(rows, weights, init centers), the staged path's initial membership,
+FCM has no weights: its state is the configuration (plain, FCM_S or
+superpixel), the problem arrays (rows or pixel grids, weights, init
+centers), the staged path's initial membership,
 the serving engine's histogram LRU, and a solve's result. These helpers
 take and give plain numpy and Python values, so neither side imports
 the other.
@@ -19,6 +20,7 @@ import torch
 from . import _device as DV
 from .core.fcm import FCMConfig, FCMResult
 from .core.solver import FCMProblem
+from .core.spatial import SpatialFCMConfig
 from .superpixel.pipeline import SuperpixelFCMConfig
 
 #: one LRU entry: (exact histogram key bytes, centers (c,), normalized
@@ -28,14 +30,18 @@ CacheEntry = Tuple[bytes, np.ndarray, np.ndarray]
 
 def config_from_numpy(fields: Dict[str, Any]) -> FCMConfig:
     """An :class:`FCMConfig` from a dict of the JAX config's fields
-    (``dataclasses.asdict`` of ``repro.core.fcm.FCMConfig``), or a
+    (``dataclasses.asdict`` of ``repro.core.fcm.FCMConfig``), a
+    :class:`~repro_torch.core.spatial.SpatialFCMConfig` when the dict
+    carries the FCM_S fields (``alpha``, ``neighbors``) of
+    ``repro.core.spatial.SpatialFCMConfig``, or a
     :class:`~repro_torch.superpixel.pipeline.SuperpixelFCMConfig` when
-    the dict carries the SLIC fields of ``repro.superpixel.pipeline.
+    it carries the SLIC fields of ``repro.superpixel.pipeline.
     SuperpixelFCMConfig``; unknown keys raise."""
-    for cls in (FCMConfig, SuperpixelFCMConfig):
+    classes = (FCMConfig, SpatialFCMConfig, SuperpixelFCMConfig)
+    for cls in classes:
         if set(fields) <= {f.name for f in dataclasses.fields(cls)}:
             return cls(**fields)
-    known = {f.name for f in dataclasses.fields(SuperpixelFCMConfig)}
+    known = {f.name for cls in classes for f in dataclasses.fields(cls)}
     raise ValueError(f"no config has the fields "
                      f"{sorted(set(fields) - known)}")
 

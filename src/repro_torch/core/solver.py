@@ -1,9 +1,12 @@
-"""The weighted-feature FCM solver core (flat problems).
+"""The FCM solver core: weighted-feature (flat) and stencil (FCM_S)
+problems.
 
 Every FCM variant iterates ``v -> step(v)``, where ``step`` substitutes
 the Eq. 4 membership into the Eq. 3 weighted center update over a set of
 (feature row, weight) pairs: pixels weigh 1, histogram bins weigh their
-counts. :class:`FCMProblem` names the rows, :func:`solve` runs one
+counts. FCM_S problems keep the pixel grid, and their step is Eq. 4' /
+Eq. 3' over each pixel's neighborhood (:mod:`repro_torch.core.spatial`).
+:class:`FCMProblem` names the rows or the grid, :func:`solve` runs one
 problem and :func:`solve_batched` a stacked batch, each lane stopping at
 its own convergence point.
 
@@ -25,7 +28,11 @@ Backends:
 - ``"sequential"``: the paper's single-core numpy comparator on the
   host (:mod:`repro_torch.core.sequential`).
 
-Stencil (FCM_S) problems and per-lane salvage are not ported yet.
+Stencil (FCM_S) problems take ``auto`` (on the card the stencil
+whole-solve up to ``fcm_stencil.STENCIL_MAX_PIXELS`` pixels, c <= 8,
+else the step kernels under the host loop, c <= 32), ``reference``,
+``resident`` (the whole-solve; on the CPU the plain loop) and ``fused``
+(the step kernels). Per-lane salvage is not ported yet.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; with no card and no device named, it raises.
@@ -42,6 +49,7 @@ from .. import _device as DV
 from ..kernels import ops as kops
 from . import fcm as F
 from . import histogram as H
+from . import spatial as SP
 
 _D2_FLOOR = 1e-12
 _BIG = 3.4e38
@@ -78,14 +86,26 @@ def _record_telemetry(kind: str, impl: str, n_iters: int,
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class FCMProblem:
-    """One weighted-feature flat FCM problem (or a stacked batch).
+class StencilSpec:
+    """FCM_S neighborhood regularization: ``alpha`` weighs the
+    neighborhood penalty (0 is plain FCM); ``neighbors`` is the stencil
+    arity, 4 or 8 for 2-D images, 6 for 3-D volumes."""
+    alpha: float = 1.0
+    neighbors: int = 4
 
-    ``features`` is ``(K,)`` / ``(K, D)`` rows; with ``batch=True`` a
+
+@dataclasses.dataclass(frozen=True)
+class FCMProblem:
+    """One FCM problem (or a stacked batch of them).
+
+    ``features`` is ``(K,)`` / ``(K, D)`` weighted rows for flat
+    problems, or the pixel grid ``(H, W)`` / ``(D, H, W)`` when
+    ``stencil`` is set (FCM_S needs positions). With ``batch=True`` a
     leading lane axis is added everywhere and lanes are independent
-    problems. ``weights`` are per-row multiplicities (``None`` = 1).
-    ``init`` overrides the weighted-support linspace ``v0``. Every array
-    is held as float32 on ``device`` (``None`` = the card).
+    problems. ``weights`` are per-row multiplicities (``None`` = 1;
+    stencil problems take none). ``init`` overrides the weighted-support
+    linspace ``v0``. Every array is held as float32 on ``device``
+    (``None`` = the card).
     """
     features: Any
     weights: Any = None
@@ -94,6 +114,7 @@ class FCMProblem:
     init: Any = None
     batch: bool = False
     device: Any = None
+    stencil: Optional[StencilSpec] = None
 
     def __post_init__(self):
         dev = DV.resolve_device(self.device)
@@ -105,7 +126,23 @@ class FCMProblem:
             if val is not None:
                 object.__setattr__(self, name, DV.as_f32(val, dev))
         lead = 1 if self.batch else 0
-        if feats.dim() - lead not in (1, 2):
+        ndim = feats.dim() - lead
+        if self.stencil is not None:
+            if self.weights is not None:
+                raise ValueError("stencil problems take no row weights "
+                                 "(every grid pixel weighs 1)")
+            if ndim not in (2, 3):
+                raise ValueError(
+                    f"stencil problems need a (H, W) or (D, H, W) pixel "
+                    f"grid{' per lane' if self.batch else ''}, got shape "
+                    f"{tuple(feats.shape)}")
+            ok = (4, 8) if ndim == 2 else (6,)
+            if self.stencil.neighbors not in ok:
+                raise ValueError(
+                    f"{ndim}-D neighborhoods are "
+                    f"{' or '.join(map(str, ok))}-connected, got "
+                    f"{self.stencil.neighbors}")
+        elif ndim not in (1, 2):
             raise ValueError(
                 f"flat problems need (K,) or (K, D) feature rows"
                 f"{' per lane' if self.batch else ''}, got shape "
@@ -114,7 +151,8 @@ class FCMProblem:
     @property
     def scalar(self) -> bool:
         """True when centers should come back featureless, shape (c,)."""
-        return self.features.dim() - (1 if self.batch else 0) == 1
+        return (self.stencil is not None
+                or self.features.dim() - (1 if self.batch else 0) == 1)
 
     @property
     def n_feat(self) -> int:
@@ -122,12 +160,18 @@ class FCMProblem:
 
     @property
     def n_rows(self) -> int:
-        """Rows per lane, what the kernels' bounds are checked against."""
-        return int(self.features.shape[1 if self.batch else 0])
+        """Rows per lane, what the kernels' bounds are checked against:
+        the per-lane pixel count of a stencil problem."""
+        lead = 1 if self.batch else 0
+        if self.stencil is not None:
+            return int(np.prod(self.features.shape[lead:]))
+        return int(self.features.shape[lead])
 
     def rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Canonical ``(K, D)`` rows + ``(K,)`` weights (with
-        ``batch=True`` a leading lane axis on both)."""
+        ``batch=True`` a leading lane axis on both) of a flat problem."""
+        if self.stencil is not None:
+            raise ValueError("stencil problems have no flat rows")
         feats = self.features
         if self.scalar:
             feats = feats[..., None]
@@ -181,15 +225,37 @@ def vector_problem(feats, weights=None, cfg: Optional[F.FCMConfig] = None,
                       device=device)
 
 
-def batch_problems(features, weights=None, *,
+def spatial_problem(img, cfg=None, *, alpha: Optional[float] = None,
+                    neighbors: Optional[int] = None,
+                    c: Optional[int] = None, m: Optional[float] = None,
+                    v0=None, device=None) -> FCMProblem:
+    """FCM_S over a 2-D image or 3-D volume. ``cfg`` may be a
+    :class:`repro_torch.core.spatial.SpatialFCMConfig` (supplies
+    alpha/neighbors too); 3-D volumes always use the 6-stencil."""
+    c, m = _cfg_c_m(cfg, c, m)
+    if alpha is None:
+        alpha = getattr(cfg, "alpha", 1.0)
+    if neighbors is None:
+        neighbors = getattr(cfg, "neighbors", 4)
+    dev = DV.resolve_device(device)
+    img = DV.as_f32(img, dev)
+    if img.dim() == 3:
+        neighbors = 6
+    return FCMProblem(features=img, c=c, m=m, init=v0, device=dev,
+                      stencil=StencilSpec(alpha=float(alpha),
+                                          neighbors=int(neighbors)))
+
+
+def batch_problems(features, weights=None, *, stencil=None,
                    cfg: Optional[F.FCMConfig] = None,
                    c: Optional[int] = None, m: Optional[float] = None,
                    device=None) -> FCMProblem:
-    """Stack same-shape independent flat problems along a leading lane
-    axis: ``(B, K[, D])`` rows (+ ``(B, K)`` weights)."""
+    """Stack same-shape independent problems along a leading lane axis:
+    flat ``(B, K[, D])`` rows (+ ``(B, K)`` weights) or stencil ``(B, H,
+    W)`` / ``(B, D, H, W)`` grids."""
     c, m = _cfg_c_m(cfg, c, m)
     return FCMProblem(features=features, weights=weights, c=c, m=m,
-                      batch=True, device=device)
+                      batch=True, device=device, stencil=stencil)
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +360,9 @@ def lane_tolerances(problem: FCMProblem, eps: float) -> np.ndarray:
     """Per-lane center-movement tolerances the batched solve derives
     (same float32 arithmetic), so a post-solve pass can decide per lane
     whether ``final_delta`` met the stop test."""
+    if problem.stencil is not None:
+        return stencil_lane_init(problem.features, problem.c,
+                                 eps)[1].cpu().numpy()
     feats, w = problem.rows()
     lo, hi = weighted_support(feats, w)
     return _tol_from_range((hi - lo).max(dim=-1).values,
@@ -302,7 +371,12 @@ def lane_tolerances(problem: FCMProblem, eps: float) -> np.ndarray:
 
 def _single_init(problem: FCMProblem, eps: float, tol: Optional[float]):
     """(v0 (c, D), tol) for one problem."""
-    flat, w = problem.rows()
+    if problem.stencil is not None:
+        flat = problem.features.reshape(-1, 1)
+        w = torch.ones((flat.shape[0],), dtype=torch.float32,
+                       device=flat.device)
+    else:
+        flat, w = problem.rows()
     lo, hi = weighted_support(flat, w)
     if problem.init is not None:
         v0 = F._as_2d(problem.init)
@@ -353,6 +427,45 @@ def flat_batched_solve(feats, w, c, m, eps, max_iters,
     return v.reshape(b, c, d), delta, iters, it
 
 
+def stencil_lane_init(imgs: torch.Tensor, c: int, eps: float):
+    """Each lane's init centers and stop tolerance from its intensity
+    range: imgs (B, *grid) -> (v0 (B, c), tol (B,))."""
+    flat = imgs.reshape(imgs.shape[0], -1, 1)
+    lo, hi = flat.min(dim=1).values, flat.max(dim=1).values   # (B, 1)
+    return (linspace_from_support(lo, hi, c)[..., 0],
+            _tol_from_range((hi - lo)[:, 0], eps))
+
+
+def stencil_batched_solve(imgs, c, m, alpha, neighbors, eps, max_iters,
+                          impl: str = "reference"):
+    """Batched FCM_S solve: imgs (B, *grid) -> (v (B, c), delta (B,),
+    iters (B,) int32, total), each lane from its own range's init (see
+    :func:`stencil_loop`)."""
+    v0, tol = stencil_lane_init(imgs, c, eps)
+    return stencil_loop(imgs, v0, tol, m, alpha, neighbors, max_iters, impl)
+
+
+def stencil_loop(imgs, v0, tol, m, alpha, neighbors, max_iters,
+                 impl: str = "reference"):
+    """FCM_S fixed point of every lane of imgs (B, *grid) from v0 (B, c)
+    to tol (B,). ``impl``: ``"reference"`` runs the plain stencil step
+    under the per-lane-masked loop; ``"fused"`` the step kernels under
+    the same loop, one launch an iteration for the whole bucket (their
+    plain version on the CPU); ``"resident"`` every lane's complete fixed
+    point inside one whole-solve launch (its plain version on the CPU).
+    Returns ``(v, delta, iters, total)``, ``total`` the largest lane's
+    iterations."""
+    if impl == "resident":
+        solve_fn = kops.build_step("stencil", "resident", x=imgs, m=m,
+                                   alpha=alpha, neighbors=neighbors,
+                                   max_iters=max_iters)
+        v, delta, iters = solve_fn(v0, tol)
+        return v, delta, iters, iters.max()
+    step = kops.build_step("stencil", impl, x=imgs, m=m, alpha=alpha,
+                           neighbors=neighbors)
+    return masked_while_centers(step, v0, tol, max_iters)
+
+
 # ---------------------------------------------------------------------------
 # solve / solve_batched
 # ---------------------------------------------------------------------------
@@ -377,15 +490,18 @@ def _on_device(problem: FCMProblem, device) -> FCMProblem:
 def _select_impl(problem: FCMProblem, backend: str,
                  batch: bool = False) -> str:
     """Registry dispatch on the problem's device and shape.
-    ``backend="resident"`` routes by size: the whole-solve kernel when
-    the rows fit its bounds, the HBM-streamed one beyond them."""
+    ``backend="resident"`` routes a flat problem by size: the
+    whole-solve kernel when the rows fit its bounds, the HBM-streamed
+    one beyond them."""
     prefer = {"auto": None, "reference": "reference",
               "resident": "resident", "fused": "fused"}[backend]
-    if backend == "resident" and not kops.step_impl("flat", "resident").fits(
-            problem.n_feat, problem.n_rows, problem.c):
+    kind = "flat" if problem.stencil is None else "stencil"
+    if (kind == "flat" and backend == "resident"
+            and not kops.step_impl("flat", "resident").fits(
+                problem.n_feat, problem.n_rows, problem.c)):
         prefer = "resident_streamed"
     return kops.select_step(
-        "flat", prefer=prefer, platform=problem.device.type,
+        kind, prefer=prefer, platform=problem.device.type,
         n_feat=problem.n_feat, batched=batch, n_rows=problem.n_rows,
         c=problem.c).name
 
@@ -401,7 +517,8 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     forces exactly ``max_iters`` iterations). ``seed`` and ``u0`` (a
     ``(c, N)`` initial membership) only matter for the
     membership-initialized ``staged`` and ``sequential`` backends, which
-    stop on ``max|u' - u| < eps``. Labels come back per row."""
+    stop on ``max|u' - u| < eps``. Labels come back per row, or shaped
+    like the grid for a stencil problem."""
     if problem.batch:
         raise ValueError("solve() takes a single problem; use "
                          "solve_batched() for batch=True problems")
@@ -425,6 +542,9 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
 
     impl = _select_impl(problem, backend)
     v0, tol = _single_init(problem, eps, tol)
+    if problem.stencil is not None:
+        return _solve_stencil(problem, impl, v0[:, 0], tol, max_iters,
+                              keep_membership)
     c, m = problem.c, problem.m
     feats2, w = problem.rows()
 
@@ -457,6 +577,30 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
                        healthy=bool(torch.isfinite(centers).all()))
 
 
+def _solve_stencil(problem: FCMProblem, impl: str, v0: torch.Tensor,
+                   tol: float, max_iters: int,
+                   keep_membership: bool) -> F.FCMResult:
+    """One FCM_S problem through ``impl`` from ``v0`` (c,); labels are
+    the argmax of the final Eq. 4' membership, grid-shaped."""
+    img = problem.features
+    m = problem.m
+    alpha, neighbors = problem.stencil.alpha, problem.stencil.neighbors
+    v, delta, iters, _ = stencil_loop(
+        img[None].contiguous(), v0[None],
+        torch.tensor([tol], dtype=torch.float32, device=img.device), m,
+        alpha, neighbors, max_iters, impl)
+    v, delta, it = v[0], delta[0], int(iters[0])
+    u = SP.spatial_membership(img, v, m, alpha, neighbors)
+    labels = F.defuzzify(u.reshape(problem.c, -1)).reshape(img.shape)
+    final_delta = float(delta)
+    _record_telemetry("stencil", impl, it, final_delta)
+    return F.FCMResult(centers=v, labels=labels, n_iters=it,
+                       final_delta=final_delta,
+                       membership=u if keep_membership else None,
+                       converged=bool(final_delta < tol),
+                       healthy=bool(torch.isfinite(v).all()))
+
+
 def _final_membership(problem: FCMProblem, feats2: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """Eq. 4 at the final centers, ``(c, N)``: the membership kernel for
@@ -486,8 +630,9 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
                   backend: str = "auto", device=None) -> BatchedFCMResult:
     """Solve a stacked batch of independent problems (``batch=True``) on
     the problem's device (or ``device``): one whole-solve kernel launch
-    on the card (resident or streamed, by lane size), the
-    per-lane-masked plain loop on the CPU. Each lane
+    on the card (resident or streamed, by lane size; for stencil lanes
+    past the whole-solve's pixel bound, the step kernels once an
+    iteration), the per-lane-masked plain loop on the CPU. Each lane
     freezes at its own convergence point, so its trajectory is what
     :func:`solve` gives it alone. Every lane gets ``converged`` and
     ``healthy`` flags."""
@@ -500,11 +645,17 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     problem = _on_device(problem, device)
     eps, max_iters, _ = _resolve(cfg, eps, max_iters)
     impl = _select_impl(problem, backend, batch=True)
-    feats, w = problem.rows()
-    v, delta, iters, total = flat_batched_solve(
-        feats, w, problem.c, problem.m, eps, max_iters, impl=impl)
-    if problem.scalar:
-        v = v[..., 0]
+    kind = "flat" if problem.stencil is None else "stencil"
+    if kind == "stencil":
+        v, delta, iters, total = stencil_batched_solve(
+            problem.features, problem.c, problem.m, problem.stencil.alpha,
+            problem.stencil.neighbors, eps, max_iters, impl=impl)
+    else:
+        feats, w = problem.rows()
+        v, delta, iters, total = flat_batched_solve(
+            feats, w, problem.c, problem.m, eps, max_iters, impl=impl)
+        if problem.scalar:
+            v = v[..., 0]
     n_iters = iters.cpu().numpy()
     final_delta = delta.cpu().numpy()
     cen = v.cpu().numpy()
@@ -513,7 +664,7 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     healthy = np.isfinite(cen.reshape(b, -1)).all(axis=1)
     converged = (final_delta < lane_tol) & np.isfinite(final_delta)
     total = int(total)
-    _record_telemetry("flat", impl, total, float(np.nanmax(final_delta)),
+    _record_telemetry(kind, impl, total, float(np.nanmax(final_delta)),
                       lane_iters=n_iters)
     return BatchedFCMResult(centers=v, n_iters=n_iters,
                             final_delta=final_delta, total_iters=total,
@@ -536,7 +687,7 @@ def solve_staged(problem: FCMProblem, *, eps: float = 5e-3,
     the plain stages on the CPU and raise on the card, where the staged
     kernels take scalar rows only. Labels are the argmax of the final
     membership."""
-    if problem.weights is not None:
+    if problem.weights is not None or problem.stencil is not None:
         raise ValueError("backend='staged' reproduces the paper's "
                          "unweighted pixel pipeline only")
     x = problem.features
@@ -591,7 +742,8 @@ def _solve_sequential(problem: FCMProblem, eps: float, max_iters: int,
     whatever the problem's device (:mod:`repro_torch.core.sequential`);
     the result's tensors come back on the problem's device."""
     from . import sequential as S
-    if problem.weights is not None or not problem.scalar:
+    if (problem.weights is not None or not problem.scalar
+            or problem.stencil is not None):
         raise ValueError("backend='sequential' is the scalar unweighted "
                          "CPU baseline only")
     if isinstance(u0, torch.Tensor):

@@ -41,44 +41,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Fold each thread's c numerator and c denominator sums over the block, in a
-// fixed order, into part[blockIdx.x * 2c + o]: o < c numerators, then c
-// denominators.
-template <int MAXC>
-__device__ __forceinline__ void block_partials(const float (&num)[MAXC],
-                                               const float (&den)[MAXC],
-                                               int c,
-                                               float* __restrict__ part) {
-  __shared__ float warp_s[kWarps][2 * MAXC];
-  const int wid = threadIdx.x >> 5;
-  const int lid = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    if (j < c) {  // uniform across the block: every lane shuffles
-      float a = num[j];
-      float b = den[j];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        a = a + __shfl_down_sync(0xffffffffu, a, off);
-        b = b + __shfl_down_sync(0xffffffffu, b, off);
-      }
-      if (lid == 0) {
-        warp_s[wid][j] = a;
-        warp_s[wid][MAXC + j] = b;
-      }
-    }
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < 2 * c) {
-    const int slot = t < c ? t : MAXC + (t - c);
-    float s = warp_s[0][slot];
-#pragma unroll
-    for (int q = 1; q < kWarps; ++q) s = s + warp_s[q][slot];
-    part[(long long)blockIdx.x * 2 * c + t] = s;
-  }
-}
-
 template <int MAXC>
 __global__ void __launch_bounds__(kThreads)
 center_partials_kernel(const float* __restrict__ x,
@@ -105,7 +67,8 @@ center_partials_kernel(const float* __restrict__ x,
       }
     }
   }
-  block_partials<MAXC>(num, den, c, part);
+  fcm::block_partials<MAXC, kThreads>(num, den, c,
+                                      part + (long long)blockIdx.x * 2 * c);
 }
 
 template <int MAXC>
@@ -138,7 +101,8 @@ fused_partials_kernel(const float* __restrict__ x,
       }
     }
   }
-  block_partials<MAXC>(num, den, c, part);
+  fcm::block_partials<MAXC, kThreads>(num, den, c,
+                                      part + (long long)blockIdx.x * 2 * c);
 }
 
 // part (n_blocks, 2c) -> num (c,), den (c,): one warp per output, its lanes

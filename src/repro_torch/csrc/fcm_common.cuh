@@ -1,8 +1,10 @@
 // Device helpers shared by the per-iteration FCM kernels (fcm_membership.cu,
-// fcm_centers.cu): the Eq. 4 membership of one scalar pixel, computed in
-// registers with the same float32 operations as the plain PyTorch version
-// (repro_torch.core.fcm.membership_from_d2), and the cluster-count tiers the
-// kernels are instantiated for.
+// fcm_centers.cu, fcm_spatial.cu): the Eq. 4 membership of one pixel from its
+// c squared distances, computed in registers with the same float32
+// operations as the plain PyTorch version
+// (repro_torch.core.fcm.membership_from_d2), a block's fixed-order fold of
+// per-thread sums, and the cluster-count tiers the kernels are instantiated
+// for.
 //
 // Arithmetic, as the plain version does it:
 //   d2_j = (v_j - x) * (v_j - x)                      ((v - x) ** 2)
@@ -32,24 +34,16 @@ __device__ __forceinline__ float floor_at(float a) {
   return a < kFloor ? kFloor : a;
 }
 
-// Eq. 4 for one scalar pixel xi against c <= MAXC centers v (shared memory):
-// fills u[0..c) and zeroes u[c..MAXC).
+// Eq. 4 from squared distances: u[0..c) holds a pixel's c distances on entry
+// and its memberships on exit; u[c..MAXC) is zeroed.
 template <int MAXC>
-__device__ __forceinline__ void membership_of(float xi,
-                                              const float* __restrict__ v,
-                                              int c, bool m_is_2, float expo,
-                                              float (&u)[MAXC]) {
+__device__ __forceinline__ void membership_from_d2(int c, bool m_is_2,
+                                                   float expo,
+                                                   float (&u)[MAXC]) {
   int n_zero = 0;
 #pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    float s = 0.f;
-    if (j < c) {
-      const float e = v[j] - xi;
-      s = e * e;
-      if (s <= 0.f) ++n_zero;
-    }
-    u[j] = s;  // d2 for now
-  }
+  for (int j = 0; j < MAXC; ++j)
+    if (j < c && u[j] <= 0.f) ++n_zero;
   if (n_zero > 0) {
     const float share = 1.0f / (float)n_zero;
 #pragma unroll
@@ -70,6 +64,63 @@ __device__ __forceinline__ void membership_of(float xi,
 #pragma unroll
   for (int j = 0; j < MAXC; ++j)
     if (j < c) u[j] = u[j] / ps;
+}
+
+// Eq. 4 for one scalar pixel xi against c <= MAXC centers v (shared memory):
+// fills u[0..c) and zeroes u[c..MAXC).
+template <int MAXC>
+__device__ __forceinline__ void membership_of(float xi,
+                                              const float* __restrict__ v,
+                                              int c, bool m_is_2, float expo,
+                                              float (&u)[MAXC]) {
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    float s = 0.f;
+    if (j < c) {
+      const float e = v[j] - xi;
+      s = e * e;
+    }
+    u[j] = s;
+  }
+  membership_from_d2<MAXC>(c, m_is_2, expo, u);
+}
+
+// Fold each thread's c numerator and c denominator sums over a block of
+// THREADS threads, in a fixed order (a shuffle tree in each warp, then the
+// warps in warp order), into out[0..2c): c numerators, then c denominators.
+template <int MAXC, int THREADS>
+__device__ __forceinline__ void block_partials(const float (&num)[MAXC],
+                                               const float (&den)[MAXC],
+                                               int c, float* __restrict__ out) {
+  constexpr int kWarps = THREADS / 32;
+  __shared__ float warp_s[kWarps][2 * MAXC];
+  const int wid = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    if (j < c) {  // uniform across the block: every lane shuffles
+      float a = num[j];
+      float b = den[j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        a = a + __shfl_down_sync(0xffffffffu, a, off);
+        b = b + __shfl_down_sync(0xffffffffu, b, off);
+      }
+      if (lid == 0) {
+        warp_s[wid][j] = a;
+        warp_s[wid][MAXC + j] = b;
+      }
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < 2 * c) {
+    const int slot = t < c ? t : MAXC + (t - c);
+    float s = warp_s[0][slot];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) s = s + warp_s[q][slot];
+    out[t] = s;
+  }
 }
 
 // The smallest instantiated tier that holds c clusters (0 if none does).

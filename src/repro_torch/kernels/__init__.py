@@ -1,4 +1,5 @@
 """The port's CUDA kernels (csrc/), their wrappers and plain versions,
 and the step dispatch registry."""
 from . import (defuzzify, fcm_centers, fcm_membership,  # noqa: F401
-               fcm_resident, histogram_bin, ops, slic_assign)
+               fcm_resident, fcm_spatial, fcm_stencil, histogram_bin, ops,
+               slic_assign)

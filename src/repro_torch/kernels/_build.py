@@ -54,6 +54,16 @@ SIGNATURES = {
     "fcm_streamed_max_feat": (),
     "slic_assign": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "slic_max_center_bytes": (),
+    "fcm_spatial_partials_2d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+                                _P, _P),
+    "fcm_spatial_partials_3d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+                                _P, _P),
+    "fcm_spatial_tile_w": (),
+    "fcm_spatial_tile_h": (),
+    "fcm_stencil_solve": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                          _I, _P, _P, _P, _P),
+    "fcm_stencil_max_pixels": (),
+    "fcm_stencil_max_c": (),
 }
 
 _lock = threading.Lock()

@@ -2,13 +2,14 @@
 registry the solver core routes through.
 
 The registry maps a step *kind* (``"flat"`` weighted-row update or
-whole-solve, ``"bin"`` ingest binning, ``"labels"`` defuzzify,
-``"slic_assign"`` the SLIC assignment) to its implementations
+whole-solve, ``"stencil"`` FCM_S update or whole-solve, ``"bin"`` ingest
+binning, ``"labels"`` defuzzify, ``"slic_assign"`` the SLIC assignment)
+to its implementations
 (``"reference"`` plain PyTorch, a kernel on the card), and
 :func:`select_step` picks one by platform and problem shape. The
 platform is a device type, taken from the tensors the caller holds:
 ``"cuda"`` where the JAX package says ``"tpu"``; the port's ``"fused"``
-is the JAX package's ``"pallas"`` flat step.
+is the JAX package's ``"pallas"`` flat or stencil step.
 
 On the card no step silently runs its plain version: when no kernel
 admits a problem, :func:`select_step` raises, unless the caller asked
@@ -29,6 +30,8 @@ from . import defuzzify as KD
 from . import fcm_centers as KC
 from . import fcm_membership as KM
 from . import fcm_resident as KR
+from . import fcm_spatial as KSP
+from . import fcm_stencil as KST
 from . import histogram_bin as KB
 from . import slic_assign as KS
 
@@ -114,6 +117,22 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
     weighted by ``w`` (N,) (``None`` = 1), from centers ``v`` (c,)."""
     return KC.fused_partials(_f32(x), None if w is None else _f32(w),
                              _f32(v), m)
+
+
+def spatial_partials(x: torch.Tensor, v: torch.Tensor, m: float = 2.0,
+                     alpha: float = 1.0, neighbors: int = 4):
+    """Raw FCM_S partials ``(num (B, c), den (B, c))`` of one step over
+    ``(B, H, W)`` lanes (4 or 8 neighbors) or ``(B, D, H, W)`` lanes (6),
+    from centers ``v`` (B, c); the caller divides ``num / max((1 + alpha)
+    den, 1e-12)``. The step kernels on the card, their plain version on
+    the CPU. The grid is unpadded: the TPU's ``tile_grid`` padding has
+    no counterpart here."""
+    if x.dim() == 3:
+        return KSP.spatial_partials_2d(_f32(x), _f32(v), m, alpha, neighbors)
+    if neighbors != 6:
+        raise ValueError(f"3-D neighborhoods are 6-connected, got "
+                         f"{neighbors}")
+    return KSP.spatial_partials_3d(_f32(x), _f32(v), m, alpha)
 
 
 def slic_assign(img: torch.Tensor, centers: torch.Tensor, gy: int, gx: int,
@@ -271,6 +290,11 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
     if kind == "labels" and n_feat != 1:
         return _STEP_REGISTRY[(kind, "reference")]
     if platform == "cuda":
+        if kind == "stencil":
+            raise ValueError(
+                f"no stencil kernel admits pixels={n_rows}, c={c}: "
+                f"stencil/resident holds pixels <= {KST.STENCIL_MAX_PIXELS}, "
+                f"c <= {KST.MAX_C} a lane, stencil/fused c <= {KSP.MAX_C}")
         if kind == "flat":
             raise ValueError(
                 f"no flat kernel admits rows={n_rows}, c={c}, D={n_feat}"
@@ -344,6 +368,42 @@ def _flat_fused(x, w, m, **_):
         num, den = KC.fused_partials(x, w, v[:, 0].contiguous(), m)
         return (num / torch.clamp(den, min=_D2_FLOOR))[:, None]
     return step
+
+
+@register_step("stencil", "reference")
+def _stencil_reference(x, m, alpha, neighbors, **_):
+    """Plain shifted-array FCM_S step (repro_torch.core.spatial) over
+    ``(B, *grid)`` lanes with ``(B, c)`` centers."""
+    from repro_torch.core import spatial as SP
+    return lambda v: SP.spatial_center_step(x, v, m, alpha, neighbors,
+                                            batched=True)
+
+
+@register_step("stencil", "fused", platforms=("cuda",), max_c=KSP.MAX_C)
+def _stencil_fused(x, m, alpha, neighbors, **_):
+    """The step kernels once an iteration over ``(B, H, W)`` or ``(B, D,
+    H, W)`` lanes: ``v (B, c) -> num / max((1 + alpha) den, 1e-12)``, one
+    launch for the whole bucket. The counterpart of the JAX package's
+    ``stencil/pallas``, which takes one grid; here the lane axis is the
+    CUDA form of the JAX route's vmap."""
+    def step(v):
+        num, den = spatial_partials(x, v.contiguous(), m, alpha, neighbors)
+        return num / torch.clamp((1.0 + alpha) * den, min=_D2_FLOOR)
+    return step
+
+
+@register_step("stencil", "resident", platforms=("cuda",), batched=True,
+               max_rows=KST.STENCIL_MAX_PIXELS, max_c=KST.MAX_C,
+               fallback="reference")
+def _stencil_resident(x, m, alpha, neighbors, max_iters, **_):
+    """The stencil whole-solve: a ``(v0 (B, c), tol (B,)) -> (v, delta,
+    iters)`` solver over ``(B, *grid)`` lanes, the convergence loop inside
+    the kernel. ``max_rows`` bounds the per-lane pixel count
+    (``FCMProblem.n_rows`` of a stencil problem)."""
+    def solve_fn(v0, tol):
+        return KST.stencil_solve(x, v0.contiguous(), tol.contiguous(), m,
+                                 alpha, neighbors, max_iters)
+    return solve_fn
 
 
 @register_step("bin", "reference")

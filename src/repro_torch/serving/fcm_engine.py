@@ -1,5 +1,5 @@
-"""Request-batching segmentation engine: the histogram, pixel and
-superpixel routes, sync API.
+"""Request-batching segmentation engine: the histogram, pixel, spatial
+and superpixel routes, sync API.
 
 Every serving method is a declarative :class:`RouteSpec` in a route
 registry: an ingest transform, a bucket key (requests sharing one may
@@ -37,8 +37,17 @@ does. The superpixel route compresses each image at ingest with SLIC
 is one batched solve of those rows (the resident kernel on the card),
 and each request's labels are gathered through its superpixel map.
 
-The spatial route, async admission, retries, the circuit breaker,
-per-request salvage and mesh dispatch are not ported yet. A lane whose
+The spatial route runs FCM_S on each ``(H, W)`` slice or ``(D, H, W)``
+volume (8 neighbors for slices by default in ``configs/fcm_brainweb.py``,
+6 for volumes): a bucket of same-shape payloads is one batched stencil
+solve, on the card the whole-solve kernel for lanes within its pixel
+bound and the per-iteration step kernels (one launch an iteration for
+the bucket) past it; labels are the argmax of the final Eq. 4'
+membership, in plain PyTorch on the payloads' device, as the JAX
+package computes them.
+
+Async admission, retries, the circuit breaker, per-request salvage and
+mesh dispatch are not ported yet. A lane whose
 centers come back non-finite fails with
 :class:`~repro_torch.serving.admission.SolveFailed`.
 """
@@ -58,6 +67,7 @@ from .. import _device as DV
 from .. import obs
 from ..core import fcm as F
 from ..core import solver as SV
+from ..core import spatial as SP
 from ..core.batched import hist_rows
 from ..kernels import ops as kops
 from ..superpixel import pipeline as SX
@@ -104,9 +114,11 @@ class _Pending:
 
 @dataclasses.dataclass
 class _PendingPixels:
-    """A pixel request: uncompressed per-image FCM, the route every
-    compression is measured against. (H, W, D) payloads cluster in
-    D-dim feature space; same-shape payloads batch."""
+    """A pixel or spatial request: the uncompressed payload. Pixel
+    requests are per-image FCM, the route every compression is measured
+    against ((H, W, D) payloads cluster in D-dim feature space); spatial
+    requests are FCM_S grids, (H, W) or (D, H, W), whose stencil needs
+    the positions. Same-shape payloads batch."""
     request_id: int
     pixels: np.ndarray
 
@@ -189,11 +201,13 @@ class RouteProgram:
     work (binning, batched solve, labels); ``scatter(engine, chunk,
     outputs)`` unpacks it into per-request results and returns
     ``(results, centers (B, c), n_iters (B,), total_iters, final_delta
-    (B,))``.
+    (B,))``. ``max_iters`` is the solve's iteration budget: a lane that
+    used all of it did not converge.
     """
     gather: Callable[["FCMServeEngine", List[Any], int], Tuple]
     launch: Callable[..., Tuple]
     scatter: Callable[["FCMServeEngine", List[Any], Tuple], Tuple]
+    max_iters: int
 
 
 #: engine-held programs per (route, generation, bucket, key), bounded so
@@ -312,7 +326,7 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
                    for i, p in enumerate(chunk)]
             return res, centers, iters, total, delta
 
-        return RouteProgram(gather, launch, scatter)
+        return RouteProgram(gather, launch, scatter, max_iters)
 
     # Mixed payload sizes: one solve on the stacked histograms (padding
     # lanes uniform), the per-bin label table on the device, per-request
@@ -336,7 +350,7 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
                for i, p in enumerate(chunk)]
         return res, centers, iters, total, delta
 
-    return RouteProgram(gather, launch, scatter)
+    return RouteProgram(gather, launch, scatter, max_iters)
 
 
 register_route(RouteSpec(
@@ -365,6 +379,39 @@ def _ingest_pixel(eng, img, rid) -> _PendingPixels:
 
 def _pixel_program_key(eng, chunk):
     return ("px",) + chunk[0].pixels.shape  # bucket_key groups by shape
+
+
+def _gather_lanes(lane_shape, dev):
+    """A program's gather: the chunk's payloads stacked into (bucket,
+    *lane_shape) on ``dev``, uint8 when every payload is uint8, else
+    float32; padding lanes replay the first payload and are dropped on
+    output."""
+    def gather(eng_, chunk, bucket_):
+        dtype = (np.uint8 if all(q.pixels.dtype == np.uint8 for q in chunk)
+                 else np.float32)
+        px = np.empty((bucket_,) + lane_shape, dtype)
+        for i, q in enumerate(chunk):
+            px[i] = q.pixels.reshape(lane_shape)
+        px[len(chunk):] = px[0]
+        return (torch.from_numpy(px).to(dev),)
+    return gather
+
+
+def _scatter_lanes(method, label_shape):
+    """A program's scatter for outputs ``(v, delta, iters, total,
+    labels)``: one result a real lane, labels shaped ``label_shape``."""
+    def scatter(eng_, chunk, outs):
+        v, delta, iters, total, labels = outs
+        centers = v.cpu().numpy()
+        iters_np = iters.cpu().numpy()
+        labels_np = labels[:len(chunk)].cpu().numpy()
+        res = [SegmentationResult(q.request_id,
+                                  labels_np[i].reshape(label_shape),
+                                  centers[i], int(iters_np[i]), False,
+                                  method=method)
+               for i, q in enumerate(chunk)]
+        return res, centers, iters_np, int(total), delta.cpu().numpy()
+    return scatter
 
 
 def _make_pixel_program(eng, key, bucket) -> RouteProgram:
@@ -398,29 +445,57 @@ def _make_pixel_program(eng, key, bucket) -> RouteProgram:
                     kops.defuzzify_labels_batched(px, v2))
         return v, delta, iters, total, F.labels_from_centers(feats, v)
 
-    def gather(eng_, chunk, bucket_):
-        dtype = (np.uint8 if all(q.pixels.dtype == np.uint8 for q in chunk)
-                 else np.float32)
-        px = np.empty((bucket_,) + lane_shape, dtype)
-        for i, q in enumerate(chunk):
-            px[i] = q.pixels.reshape(lane_shape)
-        # Padding lanes replay the first image, dropped on output.
-        px[len(chunk):] = px[0]
-        return (torch.from_numpy(px).to(dev),)
+    return RouteProgram(_gather_lanes(lane_shape, dev), launch,
+                        _scatter_lanes("pixel", shape[:2]), max_iters)
 
-    def scatter(eng_, chunk, outs):
-        v, delta, iters, total, labels = outs
-        centers = v.cpu().numpy()
-        iters_np = iters.cpu().numpy()
-        labels_np = labels[:len(chunk)].cpu().numpy()
-        res = [SegmentationResult(q.request_id,
-                                  labels_np[i].reshape(shape[:2]),
-                                  centers[i], int(iters_np[i]), False,
-                                  method="pixel")
-               for i, q in enumerate(chunk)]
-        return res, centers, iters_np, int(total), delta.cpu().numpy()
 
-    return RouteProgram(gather, launch, scatter)
+# -- spatial route ------------------------------------------------------------
+
+def _ingest_spatial(eng, img, rid) -> _PendingPixels:
+    if img.ndim not in (2, 3):
+        raise ValueError(f"spatial requests need a (H, W) or (D, H, W) "
+                         f"pixel grid, got shape {img.shape}")
+    # a copy: the caller may reuse its buffer between submit() and flush()
+    return _PendingPixels(rid, np.array(img))
+
+
+def _spatial_neighbors(eng, ndim: int) -> int:
+    return eng.spatial_cfg.neighbors if ndim == 2 else 6
+
+
+def _spatial_program_key(eng, chunk):
+    return ("sp",) + chunk[0].pixels.shape  # bucket_key groups by shape
+
+
+def _make_spatial_program(eng, key, bucket) -> RouteProgram:
+    """Stack -> batched FCM_S solve -> stencil-membership labels. On the
+    card the solve is one launch of the stencil whole-solve for lanes
+    within its pixel bound, else the step kernels once an iteration for
+    the whole bucket (the registry's pick for the lane size); the labels
+    are the argmax of the Eq. 4' membership in plain PyTorch (the JAX
+    package has no kernel for them either). uint8 payloads travel to the
+    device as uint8."""
+    shape = key[1:]
+    scfg = eng.spatial_cfg
+    c, m = scfg.n_clusters, float(scfg.m)
+    alpha = float(scfg.alpha)
+    neighbors = _spatial_neighbors(eng, len(shape))
+    eps, max_iters = float(scfg.eps), int(scfg.max_iters)
+    dev = eng.device
+    impl = kops.select_step("stencil", platform=dev.type, batched=True,
+                            n_rows=int(np.prod(shape)), c=c).name
+
+    def launch(px):
+        imgs = px.to(torch.float32)
+        v, delta, iters, total = SV.stencil_batched_solve(
+            imgs, c, m, alpha, neighbors, eps, max_iters, impl=impl)
+        u = SP.spatial_membership(imgs, v, m, alpha, neighbors,
+                                  batched=True)
+        return v, delta, iters, total, torch.argmax(u, dim=1).to(
+            torch.int32)
+
+    return RouteProgram(_gather_lanes(shape, dev), launch,
+                        _scatter_lanes("spatial", shape), max_iters)
 
 
 # -- superpixel route ---------------------------------------------------------
@@ -475,6 +550,11 @@ register_route(RouteSpec(
     program_key=_pixel_program_key, make_program=_make_pixel_program,
     stats_prefix="pixel"))
 register_route(RouteSpec(
+    name="spatial", ingest=_ingest_spatial,
+    bucket_key=lambda eng, p: ("spatial",) + p.pixels.shape,
+    program_key=_spatial_program_key, make_program=_make_spatial_program,
+    stats_prefix="spatial"))
+register_route(RouteSpec(
     name="superpixel", ingest=_ingest_superpixel,
     bucket_key=lambda eng, p: ("superpixel",) + p.features.shape,
     materialize=_materialize_superpixel, build_problem=_build_superpixel,
@@ -499,6 +579,7 @@ class FCMServeEngine:
                  cache_size: int = 256,
                  cache_tol: float = 0.15,
                  superpixel_cfg: Optional[SX.SuperpixelFCMConfig] = None,
+                 spatial_cfg: Optional[SP.SpatialFCMConfig] = None,
                  tracing: bool = True,
                  trace_ring: int = 64,
                  device=None):
@@ -506,6 +587,9 @@ class FCMServeEngine:
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         self.device = DV.resolve_device(device)
         self.cfg = cfg
+        self.spatial_cfg = spatial_cfg or SP.SpatialFCMConfig(
+            n_clusters=cfg.n_clusters, m=cfg.m, eps=cfg.eps,
+            max_iters=cfg.max_iters)
         self.superpixel_cfg = superpixel_cfg or SX.SuperpixelFCMConfig(
             n_clusters=cfg.n_clusters, m=cfg.m, eps=cfg.eps,
             max_iters=cfg.max_iters)
@@ -735,7 +819,6 @@ class FCMServeEngine:
         """gather -> launch -> scatter; finishes the finite lanes and
         returns (centers, n_iters, total_iters, deltas, bad requests,
         the three spans)."""
-        max_iters = int(self.cfg.max_iters)
         with self.tracer.span("gather", route=route.name) as sp_g:
             inputs = prog.gather(self, chunk, bucket)
         with self.tracer.span("launch", route=route.name) as sp_s:
@@ -750,7 +833,7 @@ class FCMServeEngine:
             if not bool(finite[lane]):
                 bad.append(p)
                 continue
-            r.converged = bool(n_iters[lane] < max_iters)
+            r.converged = bool(n_iters[lane] < prog.max_iters)
             self._finish(route, results, r)
         return (centers, n_iters, total_iters, deltas, bad,
                 (sp_g, sp_s, sp_m))

@@ -146,10 +146,13 @@ def test_registry_kinds_and_names():
                      ("flat", "resident_streamed"), ("flat", "fused"),
                      ("bin", "reference"), ("bin", "cuda"),
                      ("labels", "reference"), ("labels", "cuda"),
-                     ("slic_assign", "reference"), ("slic_assign", "cuda")}
+                     ("slic_assign", "reference"), ("slic_assign", "cuda"),
+                     ("stencil", "reference"), ("stencil", "fused"),
+                     ("stencil", "resident")}
 
 
-@pytest.mark.parametrize("kind", ["flat", "bin", "labels", "slic_assign"])
+@pytest.mark.parametrize("kind", ["flat", "bin", "labels", "slic_assign",
+                                  "stencil"])
 def test_select_step_picks_reference_on_cpu(kind):
     assert tops.select_step(kind, platform="cpu", n_rows=256,
                             c=4).name == "reference"

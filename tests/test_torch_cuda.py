@@ -15,6 +15,8 @@ from repro_torch.kernels import defuzzify as KD
 from repro_torch.kernels import fcm_centers as KC
 from repro_torch.kernels import fcm_membership as KM
 from repro_torch.kernels import fcm_resident as KR
+from repro_torch.kernels import fcm_spatial as KSP
+from repro_torch.kernels import fcm_stencil as KST
 from repro_torch.kernels import histogram_bin as KB
 from repro_torch.kernels import slic_assign as KS
 from repro_torch.serving import FCMServeEngine
@@ -282,3 +284,101 @@ def test_fit_slic_repeats_bit_for_bit_on_fractional_features(dev):
     assert a.n_iters == host.n_iters
     np.testing.assert_allclose(a.centers.cpu().numpy(), host.centers.numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+# -- the spatial (FCM_S) kernels -------------------------------------------
+
+def _noisy_lanes(b, shape, seed):
+    """``b`` noisy phantom slices or volumes of ``shape``, float32."""
+    if len(shape) == 2:
+        imgs = [phantom.noisy_phantom_slice(*shape, noise=12.0, impulse=0.05,
+                                            seed=seed + i)[0]
+                for i in range(b)]
+    else:
+        imgs = [phantom.noisy_phantom_volume(*shape, seed=seed + i)[0]
+                for i in range(b)]
+    return np.stack(imgs).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,neighbors,alpha,m", [
+    ((37, 61), 4, 1.0, 2.0), ((37, 61), 8, 2.5, 1.6), ((1, 300), 8, 1.0, 2.0),
+    ((5, 19, 23), 6, 1.0, 2.0), ((5, 19, 23), 6, 0.0, 1.6)])
+def test_spatial_step_kernels_match_plain(dev, shape, neighbors, alpha, m):
+    x = torch.from_numpy(_noisy_lanes(3, shape, seed=len(shape))).to(dev)
+    v, _ = TS.stencil_lane_init(x, 4, 5e-3)
+    fn = KSP.spatial_partials_2d if len(shape) == 2 else KSP.spatial_partials_3d
+    args = (neighbors,) if len(shape) == 2 else ()
+    before = fn.launches
+    num, den = fn(x, v, m, alpha, *args)
+    assert fn.launches == before + 1
+    pnum, pden = KSP.spatial_partials_plain(x, v, m, alpha, neighbors)
+    np.testing.assert_allclose(num.cpu().numpy(), pnum.cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(den.cpu().numpy(), pden.cpu().numpy(),
+                               rtol=1e-5)
+    again = fn(x, v, m, alpha, *args)
+    assert torch.equal(again[0], num) and torch.equal(again[1], den)
+
+
+@pytest.mark.parametrize("shape,neighbors", [((37, 61), 8), ((64, 64), 4),
+                                             ((8, 16, 16), 6)])
+def test_stencil_whole_solve_matches_plain(dev, shape, neighbors):
+    x = torch.from_numpy(_noisy_lanes(3, shape, seed=7)).to(dev)
+    v0, tol = TS.stencil_lane_init(x, 4, 5e-3)
+    before = KST.stencil_solve.launches
+    v, _, it = KST.stencil_solve(x, v0, tol, 2.0, 1.0, neighbors, 300)
+    assert KST.stencil_solve.launches == before + 1
+    pv, _, pit = KST.stencil_solve_plain(x, v0, tol, 2.0, 1.0, neighbors, 300)
+    assert torch.equal(it, pit)
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    again = KST.stencil_solve(x, v0, tol, 2.0, 1.0, neighbors, 300)
+    assert torch.equal(again[0], v) and torch.equal(again[2], it)
+
+
+def test_stencil_lane_bits_do_not_depend_on_its_bucket(dev):
+    """A BrainWeb-sized slice gives the same bits alone and in a bucket of
+    8: its cluster size and reduction order come from its pixels alone."""
+    x = torch.from_numpy(_noisy_lanes(8, (217, 181), seed=3)).to(dev)
+    v0, tol = TS.stencil_lane_init(x, 4, 5e-3)
+    v, delta, it = KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)
+    v1, delta1, it1 = KST.stencil_solve(x[:1].contiguous(), v0[:1].contiguous(),
+                                        tol[:1].contiguous(), 2.0, 1.0, 8, 300)
+    assert torch.equal(v1[0], v[0]) and torch.equal(delta1[0], delta[0])
+    assert torch.equal(it1[0], it[0])
+
+
+@pytest.mark.parametrize("side", ["under", "past"])
+def test_auto_takes_the_whole_solve_under_the_bound_only(dev, side):
+    h = 64 if side == "under" else -(-(KST.STENCIL_MAX_PIXELS + 1) // 256)
+    img = _noisy_lanes(1, (h, 256), seed=11)[0]
+    counts = (KST.stencil_solve.launches, KSP.spatial_partials_2d.launches)
+    got = TS.solve(TS.spatial_problem(img, alpha=1.0, neighbors=8,
+                                      device=dev))
+    used = (KST.stencil_solve.launches - counts[0],
+            KSP.spatial_partials_2d.launches - counts[1])
+    assert used == ((1, 0) if side == "under" else (0, got.n_iters))
+    want = TS.solve(TS.spatial_problem(img, alpha=1.0, neighbors=8,
+                                       device="cpu"))
+    assert got.n_iters == want.n_iters
+    np.testing.assert_allclose(got.centers.cpu().numpy(),
+                               want.centers.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_spatial_route_on_the_card_matches_the_cpu_engine(dev):
+    from repro_torch.core.spatial import SpatialFCMConfig
+    imgs = list(_noisy_lanes(5, (64, 64), seed=20))
+    imgs.append(_noisy_lanes(1, (8, 32, 32), seed=30)[0])
+    scfg = SpatialFCMConfig(alpha=1.0, neighbors=8)
+    gpu = FCMServeEngine(batch_sizes=(1, 8), cache_size=0, spatial_cfg=scfg,
+                         device=dev)
+    cpu = FCMServeEngine(batch_sizes=(1, 8), cache_size=0, spatial_cfg=scfg,
+                         device="cpu")
+    before = KST.stencil_solve.launches
+    got = gpu.segment(imgs, method="spatial")
+    assert KST.stencil_solve.launches == before + 2      # two buckets
+    for g, c in zip(got, cpu.segment(imgs, method="spatial")):
+        assert g.n_iters == c.n_iters
+        np.testing.assert_array_equal(g.labels, c.labels)
+        np.testing.assert_allclose(g.centers, c.centers, rtol=RTOL,
+                                   atol=ATOL)

@@ -141,7 +141,7 @@ def test_engine_rejects_bad_input_without_consuming_ids():
     with pytest.raises(InvalidInput):
         eng.submit(np.zeros((0, 4), np.uint8))
     with pytest.raises(ValueError):
-        eng.submit(_slices(1)[0], method="spatial")
+        eng.submit(_slices(1)[0], method="no-such-route")
     assert eng.submit(_slices(1)[0]) == 0
     with pytest.raises(ValueError):
         FCMServeEngine(batch_sizes=(), device="cpu")
@@ -171,7 +171,7 @@ def test_program_cache_reused_and_evicted_on_reregistration():
     assert eng.stats()["compiled_programs"] == 1
     prog = next(iter(eng._programs.values()))
     TE.register_route(TE.ROUTES["histogram"])       # same spec, new gen
-    assert TE.METHODS == ("histogram", "pixel", "superpixel")
+    assert TE.METHODS == ("histogram", "pixel", "spatial", "superpixel")
     eng.segment(imgs)
     assert len(eng._programs) == 1
     assert next(iter(eng._programs.values())) is not prog

@@ -352,7 +352,7 @@ def test_pixel_and_superpixel_routes_match_the_jax_engine():
     assert ts["superpixel_compress_seconds"] > 0.0
     assert ts["pixel_compress_seconds"] == 0.0
     assert ts["method_requests"] == {"histogram": 0, "pixel": 6,
-                                     "superpixel": 3}
+                                     "spatial": 0, "superpixel": 3}
     trace = teng.tracer.traces()[-1]
     assert [c["name"] for c in trace["children"][0]["children"]] == \
         ["build", "solve", "materialize"]
