@@ -35,7 +35,10 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    RGB slices plus a 512x512 RGB image through the superpixel route,
    each with the launch counts set to 0 just before and read just after,
    against a CPU engine; time the 512x512 RGB image through both routes
-   with each route's per-class DSC;
+   with each route's per-class DSC; hold the batched fused-partials
+   kernel (lanes past the whole-solve bounds) against its plain version
+   and serve 16 slices at c = 12 and one 1100x1000 image (past 2^20
+   rows) through the pixel route against a CPU engine;
 7. spatial: hold the FCM_S step kernels (2-D and 3-D) and the stencil
    whole-solve against their plain versions (the 1000 KB image, noisy
    BrainWeb slices, the whole noisy 181x217x181 volume, degenerate
@@ -49,11 +52,21 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    throughput, p50 flush, per-class DSC and a profiled flush; and time
    the whole-solve against the step kernels at B=1 on 2-D images of
    2^16, 2^18 and 2^20 pixels, the sweep that sets the whole-solve's
-   dispatch bound.
+   dispatch bound;
+8. lm: hold the selective-scan kernel against its plain version at
+   (1, 4096, 8192, 16), (2, 128, 128, 4) and the ragged (1, 100, 96, 8);
+   run one full-width group of jamba-v0.1-52b (8 layers, bf16 compute on
+   float32 masters drawn on the card) through ``loss_fn`` on a seeded
+   (1, 4096) batch with the launch counts set to 0 just before and read
+   just after (7 scans), against the same forward with the plain scan
+   (loss and the first mamba mixer's output); and take three
+   ``make_train_step`` steps at the reduced config on the card and on
+   the CPU (a full-width group's train step needs about 208 GB).
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -1040,9 +1053,133 @@ def rgb512_comparison(FCMServeEngine, cfg, phantom, dev, card):
             f"route's, over {DSC_PARITY}")
 
 
-def routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs, gts,
-                vol_u8, big, phantom, dev, card):
-    """Phase 6; returns the streamed and SLIC kernels' entries."""
+def twelve_class_slices(n, h, w, seed):
+    """``n`` (h, w) uint8 slices of 12 intensity classes with a little
+    noise: a payload for c = 12 (with fewer classes than clusters, the
+    centers that split one class drift apart slowly and rounding decides
+    where they stop)."""
+    rng = np.random.default_rng(seed)
+    levels = np.linspace(8.0, 247.0, 12)
+    return [np.clip(levels[rng.integers(0, 12, (h, w))]
+                    + rng.normal(0, 2, (h, w)), 0, 255).astype(np.uint8)
+            for _ in range(n)]
+
+
+def fused_batched_cases(dev):
+    """(name, x (B, K, D), w (B, K), v (B, c, D), m) on the card: the
+    pixel route's c = 12 bucket, a lane past 2^20 rows, RGB, and a wide
+    D with the largest c."""
+    rng = np.random.default_rng(16)
+    sl = np.stack([s.reshape(-1) for s in twelve_class_slices(
+        16, *VOLUME[1:], seed=1)]).astype(np.float32)[..., None]
+    huge = phantom_of_pixels(1100 * 1000, rng)
+    rgb = _blobs(4, 512 * 512, 3, 12, 4)
+    wide = _blobs(2, 3001, 24, 32, 5)
+
+    def case(name, x, c, m, weighted=False):
+        b, k, _ = x.shape
+        w = (rng.uniform(0.5, 3.0, (b, k)) if weighted
+             else np.ones((b, k))).astype(np.float32)
+        lo, hi = x.min(axis=1), x.max(axis=1)
+        frac = (np.arange(c) + 0.5) / c
+        v = (lo[:, None, :] + frac[None, :, None]
+             * (hi - lo)[:, None, :]).astype(np.float32)
+        return name, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (x, w, v)), m
+
+    return [case("16 lanes x 39277 rows, c=12 (the pixel route's bucket)",
+                 sl, 12, 2.0),
+            case("1 lane x 1 100 000 rows, c=4 (past 2^20)", huge, 4, 2.0),
+            case("4 x 262144 x D=3, c=12", rgb, 12, 2.0, weighted=True),
+            case("2 x 3001 x D=24, c=32, m=2.5", wide, 32, 2.5)]
+
+
+def phantom_of_pixels(n, rng):
+    """One (1, n, 1) lane of phantom-like intensities (four classes)."""
+    means = np.array([5.0, 60.0, 110.0, 170.0])
+    return (means[rng.integers(0, 4, n)] + rng.normal(0, 4, n)).astype(
+        np.float32).reshape(1, n, 1)
+
+
+def check_fused_batched(KC, cases, card):
+    """The batched fused-partials kernel vs its plain version on each
+    case, twice and bit-equal; the first case timed. Returns its entry."""
+    worst = 0.0
+    for name, x, w, v, m in cases:
+        got = KC.fused_partials_batched(x, w, v, m)
+        torch.cuda.synchronize()
+        again = KC.fused_partials_batched(x, w, v, m)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"fused_partials_batched does not repeat bit for bit on "
+                f"{name}")
+        err, rel = _close_sums(got, KC.fused_partials_batched_plain(
+            x, w, v, m), f"fused_partials_batched {name}")
+        worst = max(worst, err)
+        print(f"  fused_partials_batched {name}: max abs err {err:.3g} "
+              f"(relative {rel:.3g}), repeats bit for bit")
+    name, x, w, v, m = cases[0]
+    b, k, d = x.shape
+    c = v.shape[1]
+    ms = time_ms(lambda: KC.fused_partials_batched(x, w, v, m))
+    plain_ms = time_ms(lambda: KC.fused_partials_batched_plain(x, w, v, m),
+                       reps=3, rounds=3)
+    # per row and center: the distance's 3D, the membership's 5, then
+    # u*u, the weight, D numerator terms and adds, the denominator add
+    bnd, by = bound_ms(4 * (b * k * d + b * k + 2 * b * c * d + b * c),
+                       b * k * c * (5 * d + 8))
+    print(f"  fused_partials_batched {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}) [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
+
+
+def past_bounds_route(FCMServeEngine, cfg, sizes, counters, phantom, dev,
+                      card):
+    """The pixel route where no whole-solve kernel holds the lanes: 16
+    slices of 12 classes at c = 12, and one image of 1 100 000 pixels at
+    c = 4, each against a CPU engine; returns the c = 12 run's launches."""
+    c12 = dataclasses.replace(cfg, n_clusters=12)
+    imgs = twelve_class_slices(16, *VOLUME[1:], seed=2)
+    eng = FCMServeEngine(c12, batch_sizes=sizes, cache_size=0, device=dev)
+    cpu = FCMServeEngine(c12, batch_sizes=sizes, cache_size=0, device="cpu")
+    for fn in counters.values():
+        fn.launches = 0
+    res = eng.segment(imgs, method="pixel")
+    launches = _counts(counters)
+    iters = max(r.n_iters for r in res)
+    print(f"  pixel route, 16 slices at c=12: one bucket, {iters} "
+          f"iterations, launches {launches}")
+    require(launches == {**{k: 0 for k in counters},
+                         "fcm_fused_partials_batched": iters, "labels": 1},
+            f"c=12 pixel route launches {launches}, expected {iters} "
+            f"batched fused + 1 labels")
+    _hold_to_cpu(res, cpu.segment(imgs, method="pixel"), "c=12 pixel")
+    lat = serve_timed(eng, imgs, reps=5, method="pixel")
+    print(f"  c=12 pixel route, 16 slices: labels and n_iters equal the CPU "
+          f"engine's; p50 flush {float(np.median(lat)) * 1e3:.2f} ms "
+          f"[{card}]")
+
+    img = phantom.phantom_slice(1100, 1000, seed=3)[0]
+    before = _counts(counters)
+    r = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0,
+                       device=dev).segment([img], method="pixel")
+    used = {k: v - before[k] for k, v in _counts(counters).items()
+            if v != before[k]}
+    require(used == {"fcm_fused_partials_batched": r[0].n_iters,
+                     "labels": 1},
+            f"1100x1000 pixel request launched {used}")
+    r_cpu = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0,
+                           device="cpu").segment([img], method="pixel")
+    _hold_to_cpu(r, r_cpu, "1100x1000")
+    print(f"  pixel route, one 1100x1000 image (past 2^20 rows): "
+          f"{r[0].n_iters} batched fused launches, equal to the CPU engine")
+    return launches
+
+
+def routes_path(KR, KS, KC, SV, SL, FCMServeEngine, job, counters, imgs,
+                gts, vol_u8, big, phantom, dev, card):
+    """Phase 6; returns the streamed, SLIC and batched fused kernels'
+    entries."""
     rgb512 = np.stack([phantom.phantom_slice_rgb(512, 512, noise=6.0,
                                                  seed=s)[0]
                        for s in range(4)]).reshape(4, -1, 3).astype(
@@ -1061,9 +1198,16 @@ def routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs, gts,
                           card)
     print("[routes] 512x512 RGB: pixels vs superpixels")
     rgb512_comparison(FCMServeEngine, job.fcm, phantom, dev, card)
+    print("[routes] batched fused partials (lanes past the whole-solve "
+          "bounds)")
+    k_fb = check_fused_batched(KC, fused_batched_cases(dev), card)
+    fb = past_bounds_route(FCMServeEngine, job.fcm, job.serving_batch_sizes,
+                           counters, phantom, dev, card)
     return {"fcm_streamed_solve": dict(launches=px["fcm_streamed_solve"],
                                        **k_str),
-            "slic_assign": dict(launches=sp["slic_assign"], **k_slic)}
+            "slic_assign": dict(launches=sp["slic_assign"], **k_slic),
+            "fcm_fused_partials_batched": dict(
+                launches=fb["fcm_fused_partials_batched"], **k_fb)}
 
 
 # ---------------------------------------------------------------------------
@@ -1521,6 +1665,221 @@ def spatial_path(SV, KSP, KST, FCMServeEngine, job, counters, big, big_gt,
                 launches=vol_launches["fcm_spatial_partials_3d"], **k_3d)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: Jamba's hybrid stack through loss_fn and make_train_step
+# ---------------------------------------------------------------------------
+
+ARCH = "jamba-v0.1-52b"
+#: the selective scan against its plain version: at full width, the
+#: small shape of the reduced config's train step, and a ragged shape the
+#: TPU kernel's tiling could not take
+SELSCAN_CASES = ((1, 4096, 8192, 16), (2, 128, 128, 4), (1, 100, 96, 8))
+#: max |y_kernel - y_plain| against max |y|: both walk the same float32
+#: recurrence; expf against PyTorch's exp and the order of the d_state sum
+#: differ by rounding, which the decay keeps from growing along S
+SELSCAN_TOL = 1e-4
+#: loss of the full-width forward with the kernel against the plain scan:
+#: bf16 activations round the two scans' float32 outputs, then 8 layers of
+#: bf16 matmuls and top-2 routing act on the differences
+LOSS_RTOL = 2e-3
+#: the first mamba mixer's output, kernel against plain scan: the same
+#: bf16 rounding of y (8 significant bits, 3.9e-3 relative) before one
+#: bf16 projection, against max |y|
+MIXER_TOL = 1e-2
+#: three reduced train steps, card against CPU, both float32 (TF32 off):
+#: losses and gradient norms, relative
+TRAIN_RTOL = 1e-4
+
+
+def selscan_inputs(b, s, di, ds, seed, dev):
+    """Seeded scan inputs on the card, as the mixer makes them: dt in
+    [1e-3, 0.1) (softplus of the projection), A = -exp(a_log) < 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u = torch.randn((b, s, di), generator=g, device=dev)
+    dt = torch.rand((b, s, di), generator=g, device=dev) * 0.099 + 1e-3
+    bm = torch.randn((b, s, ds), generator=g, device=dev)
+    cm = torch.randn((b, s, ds), generator=g, device=dev)
+    a = -(torch.rand((di, ds), generator=g, device=dev) * 3.5 + 0.5)
+    return u, dt, bm, cm, a
+
+
+def check_selective_scan(KSS, dev, card):
+    """8(a): the kernel against its plain version at SELSCAN_CASES, twice
+    and bit-equal; the full-width case timed beside its bound."""
+    worst_abs = worst_rel = 0.0
+    for i, shape in enumerate(SELSCAN_CASES):
+        ins = selscan_inputs(*shape, seed=i, dev=dev)
+        y = KSS.selective_scan(*ins)
+        torch.cuda.synchronize()
+        require(torch.equal(y, KSS.selective_scan(*ins)),
+                f"selective_scan does not repeat bit for bit at {shape}")
+        want = KSS.selective_scan_ref(*ins)
+        err = float((y - want).abs().max())
+        top = float(want.abs().max())
+        rel = err / max(top, 1e-30)
+        require(np.isfinite(err) and rel <= SELSCAN_TOL,
+                f"selective_scan at {shape}: max abs err {err:.3g} is "
+                f"{rel:.3g} of max|y| {top:.3g}, over {SELSCAN_TOL}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        print(f"  selective_scan (B, S, di, ds)={shape}: max abs err "
+              f"{err:.3g}, {rel:.3g} of max|y| {top:.3g}, repeats bit for "
+              f"bit")
+    b, s, di, ds = SELSCAN_CASES[0]
+    ins = selscan_inputs(b, s, di, ds, seed=0, dev=dev)
+    ms = time_ms(lambda: KSS.selective_scan(*ins), reps=10, rounds=5)
+    plain_ms = time_ms(lambda: KSS.selective_scan_ref(*ins), reps=1,
+                       rounds=3)
+    # u, dt, y: 12 B a (b, t, channel); B_t, C_t; A. Per state element:
+    # dt*a, exp, da*h, times B, add, times C (and its fold add), plus
+    # dt*u a channel
+    bnd, by = bound_ms(4 * (3 * b * s * di + 2 * b * s * ds + di * ds),
+                       6 * b * s * di * ds + b * s * di)
+    print(f"  selective_scan {SELSCAN_CASES[0]}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library -, bound {bnd:.5f} ms ({by}) "
+          f"[{card}]")
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=None)
+
+
+def jamba_forward(TC, TLM, TO, TT, L, S, counters, dev, card):
+    """8(b): one full-width group of jamba-v0.1-52b (8 layers, d_model
+    4096, 16 experts, vocab 65536), bf16 compute on float32 masters,
+    through loss_fn on a seeded (1, 4096) batch, with the kernel and
+    with the plain scan. Returns the kernel run's launches."""
+    cfg = dataclasses.replace(TC.get_config(ARCH), n_layers=8,
+                              mamba_pallas=True)
+    plain = dataclasses.replace(cfg, mamba_pallas=False)
+    t0 = time.perf_counter()
+    params = TLM.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in TO.tree_leaves(params))
+    print(f"  {cfg.name}, one group: {n_params / 1e9:.2f} B float32 "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 4096), generator=g,
+                           device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    with torch.no_grad():
+        TT.loss_fn(params, batch, cfg, 0.01)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        total, metrics = TT.loss_fn(params, batch, cfg, 0.01)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = _counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        require(launches == {**{k: 0 for k in counters},
+                             "selective_scan": 7},
+                f"the one-group forward launched {launches}, expected 7 "
+                f"selective scans")
+        runs = [first]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            TT.loss_fn(params, batch, cfg, 0.01)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        fwd = float(np.median(runs))
+        profile_call(lambda: TT.loss_fn(params, batch, cfg, 0.01), card,
+                     "of the one-group forward")
+        loss = float(metrics["loss"])
+        t0 = time.perf_counter()
+        _, pm = TT.loss_fn(params, batch, plain, 0.01)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        loss_p = float(pm["loss"])
+        rel = abs(loss - loss_p) / abs(loss_p)
+        require(np.isfinite(loss) and rel <= LOSS_RTOL,
+                f"full-width loss {loss!r} with the kernel, {loss_p!r} with "
+                f"the plain scan: {rel:.3g} relative, over {LOSS_RTOL}")
+        b0 = params["groups"][0]["b0"]
+        h = L.rmsnorm(b0["norm1"], L.embed(params["embed"], tokens,
+                                           cfg.dtype), cfg.norm_eps)
+        yk = S.mamba_forward(b0["mixer"], h, cfg).float()
+        yp = S.mamba_forward(b0["mixer"], h, plain).float()
+        m_err = float((yk - yp).abs().max())
+        m_top = float(yp.abs().max())
+        require(m_err <= MIXER_TOL * m_top,
+                f"first mamba mixer: max abs diff {m_err:.3g} over "
+                f"{MIXER_TOL} of max|y| {m_top:.3g}")
+    print(f"  loss_fn (1, 4096), bf16: kernel forward {fwd * 1e3:.1f} ms "
+          f"(median of 3: {[round(r * 1e3, 1) for r in runs]}), "
+          f"{4096 / fwd:.0f} tokens/s, peak {peak / 2**30:.2f} GiB "
+          f"allocated; launches {launches} [{card}]")
+    print(f"  loss {loss:.6f} with the kernel, {loss_p:.6f} with the plain "
+          f"scan ({plain_s * 1e3:.0f} ms), {rel:.3g} relative; aux "
+          f"{float(metrics['aux_loss']):.6f}; first mamba mixer max abs diff "
+          f"{m_err:.3g} of max|y| {m_top:.3g}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jamba_train_steps(TC, TO, TT, counters, dev, card):
+    """8(c): three make_train_step steps at the reduced config (one
+    group, d_model 64, float32) with the kernel, on the card and with
+    device="cpu", from the same parameters and batches."""
+    cfg = dataclasses.replace(TC.get_config(ARCH).reduced(),
+                              mamba_pallas=True)
+    tcfg = TT.TrainConfig()
+    state_cpu = TT.init_state(0, cfg, tcfg, device="cpu")
+    state = TO.tree_map(lambda t: t.to(dev), state_cpu)
+    step = TT.make_train_step(cfg, tcfg)
+    rng = np.random.default_rng(8)
+    for fn in counters.values():
+        fn.launches = 0
+    t_card = 0.0
+    for i in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        t0 = time.perf_counter()
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        t_card += time.perf_counter() - t0
+        state_cpu, mc = step(state_cpu, batch)
+        for k in ("loss", "grad_norm", "aux_loss"):
+            a, b = float(m[k]), float(mc[k])
+            require(np.isfinite(a) and abs(a - b) <= TRAIN_RTOL * abs(b),
+                    f"train step {i} {k}: {a!r} on the card, {b!r} on the "
+                    f"CPU")
+        print(f"  step {i}: loss {float(m['loss']):.6f} (CPU "
+              f"{float(mc['loss']):.6f}), grad norm "
+              f"{float(m['grad_norm']):.6f} (CPU "
+              f"{float(mc['grad_norm']):.6f})")
+    launches = _counts(counters)
+    require(launches["selective_scan"] > 0
+            and sum(launches.values()) == launches["selective_scan"],
+            f"train steps launched {launches}")
+    print(f"  3 reduced train steps (2, 128) on the card in "
+          f"{t_card * 1e3:.0f} ms, losses and grad norms within "
+          f"{TRAIN_RTOL} of the CPU's; launches {launches} (forward and "
+          f"its recompute) [{card}]")
+    return launches
+
+
+def lm_path(KSS, counters, dev, card):
+    """Phase 8; returns the selective scan's entry."""
+    from repro_torch import configs as TC
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as TLM
+    from repro_torch.models import ssm as S
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_loop as TT
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 matmuls in full
+    print("[lm] selective scan vs plain (8a)")
+    k_scan = check_selective_scan(KSS, dev, card)
+    print("[lm] full-width jamba-v0.1-52b, one group, loss_fn (8b)")
+    fwd = jamba_forward(TC, TLM, TO, TT, L, S, counters, dev, card)
+    print("[lm] reduced train steps, card vs CPU (8c)")
+    jamba_train_steps(TC, TO, TT, counters, dev, card)
+    return dict(launches=fwd["selective_scan"], **k_scan)
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1546,6 +1905,7 @@ def main(dev=None):
     from repro_torch.kernels import fcm_spatial as KSP
     from repro_torch.kernels import fcm_stencil as KST
     from repro_torch.kernels import histogram_bin as KB
+    from repro_torch.kernels import selective_scan as KSS
     from repro_torch.kernels import slic_assign as KS
     from repro_torch.serving import FCMServeEngine
     from repro_torch.superpixel import slic as SL
@@ -1692,12 +2052,14 @@ def main(dev=None):
                 "slic_assign": KS.slic_assign,
                 "fcm_stencil_solve": KST.stencil_solve,
                 "fcm_spatial_partials_2d": KSP.spatial_partials_2d,
-                "fcm_spatial_partials_3d": KSP.spatial_partials_3d}
+                "fcm_spatial_partials_3d": KSP.spatial_partials_3d,
+                "fcm_fused_partials_batched": KC.fused_partials_batched,
+                "selective_scan": KSS.selective_scan}
     paper = paper_path(SV, F, phantom, KM, KC, counters, dev, card)
 
     # -- 6. the pixel and superpixel routes ------------------------------
-    routes = routes_path(KR, KS, SV, SL, FCMServeEngine, job, counters, imgs,
-                         gts, vol_u8, big, phantom, dev, card)
+    routes = routes_path(KR, KS, KC, SV, SL, FCMServeEngine, job, counters,
+                         imgs, gts, vol_u8, big, phantom, dev, card)
 
     # -- 7. the spatial (FCM_S) route ------------------------------------
     t7 = time.perf_counter()
@@ -1705,6 +2067,11 @@ def main(dev=None):
     spatial = spatial_path(SV, KSP, KST, FCMServeEngine, job, counters,
                            big_img, big_gt, phantom, dev, card)
     print(f"[spatial] {time.perf_counter() - t7:.1f} s")
+
+    # -- 8. Jamba's hybrid stack: loss_fn and train steps -----------------
+    t8 = time.perf_counter()
+    k_scan = lm_path(KSS, counters, dev, card)
+    print(f"[lm] {time.perf_counter() - t8:.1f} s")
 
     kernels = [
         dict(name="histogram_bin", route="cuda",
@@ -1751,6 +2118,13 @@ def main(dev=None):
              source="src/repro_torch/csrc/fcm_spatial.cu",
              replaces="src/repro/kernels/fcm_spatial.py:184",
              **spatial["fcm_spatial_partials_3d"]),
+        dict(name="fcm_fused_partials_batched", route="cuda",
+             source="src/repro_torch/csrc/fcm_centers.cu",
+             replaces="src/repro/kernels/fcm_centers.py:98",
+             **routes["fcm_fused_partials_batched"]),
+        dict(name="selective_scan", route="cuda",
+             source="src/repro_torch/csrc/selective_scan.cu",
+             replaces="src/repro/kernels/selective_scan.py:57", **k_scan),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

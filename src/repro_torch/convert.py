@@ -3,7 +3,8 @@
 FCM has no weights: its state is the configuration (plain, FCM_S or
 superpixel), the problem arrays (rows or pixel grids, weights, init
 centers), the staged path's initial membership,
-the serving engine's histogram LRU, and a solve's result. These helpers
+the serving engine's histogram LRU, and a solve's result. The language
+models have parameters (:func:`lm_params_from_numpy`). These helpers
 take and give plain numpy and Python values, so neither side imports
 the other.
 """
@@ -101,3 +102,29 @@ def cache_to_numpy(engine) -> List[CacheEntry]:
     oldest first."""
     return [(k, np.array(v), np.array(h))
             for k, (v, h) in engine._cache.items()]
+
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """The port's language-model parameters from the JAX package's
+    parameter pytree as numpy arrays (e.g. ``jax.tree.map(np.asarray,
+    params)``): the same nested dicts with every leaf's dtype and layout
+    kept, except that ``tree["groups"]``, stacked on a leading
+    ``n_groups`` axis for the JAX package's scan, becomes a list of
+    ``cfg.n_groups`` group dicts. Leaves land on ``device`` (``None`` =
+    the card)."""
+    dev = DV.resolve_device(device)
+
+    def conv(a, index=()):
+        if isinstance(a, dict):
+            return {k: conv(v, index) for k, v in a.items()}
+        arr = np.asarray(a)
+        if index and arr.shape[:1] != (cfg.n_groups,):
+            raise ValueError(f"a params['groups'] leaf of shape {arr.shape} "
+                             f"does not lead with cfg.n_groups = "
+                             f"{cfg.n_groups}")
+        return torch.from_numpy(np.array(arr[index])).to(dev)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "groups"}
+    out["groups"] = [conv(tree["groups"], (g,))
+                     for g in range(cfg.n_groups)]
+    return out

@@ -15,7 +15,8 @@ Backends:
 - ``"auto"``: the registry's pick. On the card the whole-solve kernel
   when the problem fits it (<= 1024 rows), else the HBM-streamed
   whole-solve (<= 2^20 rows, c <= 8, D <= 16), else the fused kernel
-  for scalar rows; the plain loop on the CPU.
+  for scalar rows and the batched fused kernel for vector rows or
+  batched lanes (any rows and D, c <= 32); the plain loop on the CPU.
 - ``"reference"``: the plain loop, on whichever device the problem
   lives.
 - ``"resident"``: the whole-solve kernels, routed by size (resident,
@@ -32,7 +33,8 @@ Stencil (FCM_S) problems take ``auto`` (on the card the stencil
 whole-solve up to ``fcm_stencil.STENCIL_MAX_PIXELS`` pixels, c <= 8,
 else the step kernels under the host loop, c <= 32), ``reference``,
 ``resident`` (the whole-solve; on the CPU the plain loop) and ``fused``
-(the step kernels). Per-lane salvage is not ported yet.
+(the step kernels). :func:`solve_batched` re-solves poisoned lanes, and
+lanes a kernel left unconverged, on the plain loop (``salvage=True``).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``; with no card and no device named, it raises.
@@ -396,12 +398,14 @@ def flat_batched_solve(feats, w, c, m, eps, max_iters,
                        impl: str = "reference", active=None):
     """Batched flat solve: feats (B, K, D), w (B, K) -> (v (B, c, D),
     delta (B,), iters (B,) int32, total). ``impl="reference"`` is the
-    per-lane-masked plain loop; ``"resident"`` / ``"resident_streamed"``
-    run every lane's complete loop inside one whole-solve kernel launch
-    (rows held in registers vs re-read from device memory; their plain
-    version on the CPU). ``total`` is the loop's trip count, the
-    largest lane's iterations. ``active`` is the real-lane mask of
-    :func:`masked_while_centers` (reference impl only)."""
+    per-lane-masked plain loop; ``"fused_batched"`` the same loop with
+    the batched fused-partials kernel as its step (its plain version on
+    the CPU); ``"resident"`` / ``"resident_streamed"`` run every lane's
+    complete loop inside one whole-solve kernel launch (rows held in
+    registers vs re-read from device memory; their plain version on the
+    CPU). ``total`` is the loop's trip count, the largest lane's
+    iterations. ``active`` is the real-lane mask of
+    :func:`masked_while_centers` (the looped impls only)."""
     b, _, d = feats.shape
     lo, hi = weighted_support(feats, w)                      # (B, D) each
     v0 = linspace_from_support(lo, hi, c)                    # (B, c, D)
@@ -418,9 +422,13 @@ def flat_batched_solve(feats, w, c, m, eps, max_iters,
         v, delta, iters = solve_fn(v0, tol)
         return v, delta, iters, iters.max()
 
-    def flat_step(vflat):
-        return weighted_center_step(feats, w, vflat.reshape(b, c, d),
-                                    m).reshape(b, c * d)
+    if impl == "fused_batched":
+        flat_step = kops.build_step("flat", impl, feats=feats, weights=w,
+                                    m=m)
+    else:
+        def flat_step(vflat):
+            return weighted_center_step(feats, w, vflat.reshape(b, c, d),
+                                        m).reshape(b, c * d)
 
     v, delta, iters, it = masked_while_centers(
         flat_step, v0.reshape(b, c * d), tol, max_iters, active=active)
@@ -562,6 +570,12 @@ def solve(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
                                x=problem.features.contiguous(),
                                w=problem.weights, m=m)
         v, delta, it = while_centers(step, v0, tol, max_iters)
+    elif impl == "fused_batched":
+        lane_step = kops.build_step("flat", impl, feats=feats2[None],
+                                    weights=w[None], m=m)
+        v, delta, it = while_centers(
+            lambda v_: lane_step(v_.reshape(1, -1)).reshape(v_.shape), v0,
+            tol, max_iters)
     else:
         step = kops.build_step("flat", "reference", feats=feats2, weights=w,
                                m=m)
@@ -620,22 +634,50 @@ class BatchedFCMResult:
     total_iters: int              # the largest lane's iteration count
     #: (B,) bool — lane met its center-movement tolerance.
     converged: Optional[np.ndarray] = None
-    #: (B,) bool — lane's centers are all finite.
+    #: (B,) bool — lane's centers are all finite (after salvage).
     healthy: Optional[np.ndarray] = None
+    #: (B,) bool — lane was re-solved on the plain loop after the primary
+    #: impl left it poisoned or (a kernel impl) unconverged.
+    salvaged: Optional[np.ndarray] = None
+
+
+def _salvage_lanes(problem: FCMProblem, idx: np.ndarray, eps: float,
+                   max_iters: int):
+    """The lanes ``idx`` of a batched problem alone on the plain
+    per-lane-masked loop: ``(v, delta, iters, total)``."""
+    sel = torch.as_tensor(idx, device=problem.device)
+    if problem.stencil is not None:
+        return stencil_batched_solve(
+            problem.features[sel], problem.c, problem.m,
+            problem.stencil.alpha, problem.stencil.neighbors, eps,
+            max_iters)
+    feats, w = problem.rows()
+    v, delta, iters, total = flat_batched_solve(
+        feats[sel], w[sel], problem.c, problem.m, eps, max_iters)
+    return (v[..., 0] if problem.scalar else v), delta, iters, total
 
 
 def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
                   eps: Optional[float] = None,
                   max_iters: Optional[int] = None,
-                  backend: str = "auto", device=None) -> BatchedFCMResult:
+                  backend: str = "auto", device=None,
+                  salvage: bool = True) -> BatchedFCMResult:
     """Solve a stacked batch of independent problems (``batch=True``) on
     the problem's device (or ``device``): one whole-solve kernel launch
-    on the card (resident or streamed, by lane size; for stencil lanes
-    past the whole-solve's pixel bound, the step kernels once an
-    iteration), the per-lane-masked plain loop on the CPU. Each lane
-    freezes at its own convergence point, so its trajectory is what
-    :func:`solve` gives it alone. Every lane gets ``converged`` and
-    ``healthy`` flags."""
+    on the card (resident or streamed, by lane size; past their bounds
+    the batched fused kernel, and for stencil lanes past the
+    whole-solve's pixel bound the step kernels, once an iteration), the
+    per-lane-masked plain loop on the CPU. Each lane freezes at its own
+    convergence point, so its trajectory is what :func:`solve` gives it
+    alone. Every lane gets ``converged`` and ``healthy`` flags.
+
+    With ``salvage=True`` (the default), as in the JAX package, lanes
+    with non-finite centers, and lanes a kernel impl left unconverged,
+    are re-solved together on the plain per-lane-masked loop and
+    scattered back (``salvaged``, and the ``solver.salvaged_lanes``
+    counter); the other lanes' centers are untouched. An unconverged
+    lane of the plain loop is not re-solved: the same math would only
+    exhaust ``max_iters`` again."""
     if not problem.batch:
         raise ValueError("solve_batched() needs a batch=True problem "
                          "(see batch_problems())")
@@ -664,11 +706,33 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
     healthy = np.isfinite(cen.reshape(b, -1)).all(axis=1)
     converged = (final_delta < lane_tol) & np.isfinite(final_delta)
     total = int(total)
+
+    salvaged = np.zeros(b, dtype=bool)
+    bad = ~healthy if impl == "reference" else ~(healthy & converged)
+    if salvage and bad.any():
+        idx = np.nonzero(bad)[0]
+        v2, d2, i2, t2 = _salvage_lanes(problem, idx, eps, max_iters)
+        sel = torch.as_tensor(idx, device=v.device)
+        v = v.clone()
+        v[sel] = v2
+        n_iters = n_iters.copy()
+        n_iters[idx] = i2.cpu().numpy()
+        final_delta = final_delta.copy()
+        final_delta[idx] = d2.cpu().numpy()
+        total = max(total, int(t2))
+        healthy = np.isfinite(v.cpu().numpy().reshape(b, -1)).all(axis=1)
+        converged = (final_delta < lane_tol) & np.isfinite(final_delta)
+        salvaged[idx] = True
+        from repro_torch import obs
+        obs.default_registry().counter("solver.salvaged_lanes",
+                                       kind=kind).inc(len(idx))
+
     _record_telemetry(kind, impl, total, float(np.nanmax(final_delta)),
                       lane_iters=n_iters)
     return BatchedFCMResult(centers=v, n_iters=n_iters,
                             final_delta=final_delta, total_iters=total,
-                            converged=converged, healthy=healthy)
+                            converged=converged, healthy=healthy,
+                            salvaged=salvaged)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,13 @@
 //     registers and reduced at once, so the (c, N) array never exists
 //     (replaces src/repro/kernels/fcm_centers.py::fused_partials_pallas, one
 //     launch pair per FCM iteration).
+//   fcm_fused_partials_batched  the same fused sums over a bucket of lanes of
+//     vector rows, x (B, N, D) and w (B, N) -> num (B, c, D), den (B, c): the
+//     batched flat step the solver runs once an iteration under its
+//     per-lane-masked loop for lanes past the whole-solve kernels' bounds
+//     (c > 8, rows > 2^20 or D > 16). The TPU kernel takes one lane of scalar
+//     rows; the lane axis is the CUDA form of the JAX route's vmap, and the
+//     feature axis is walked in chunks of DCH, so D has no bound.
 //
 // The TPU kernels walk (block_rows, 128) tiles in order on one core and add
 // each tile into one (c, 128) accumulator that the grid carries from step to
@@ -22,6 +29,9 @@
 // spends about 10 float operations a pixel and cluster, still below the
 // card's float32 rate. Weights w (histogram counts) add 4 B a pixel; a null w
 // means unit weights and is not read.
+// fcm_fused_partials_batched reads 4 (D + 1) B a row (x and w) and spends
+// about c (3 D + 12) float operations on it: bytes bound it for the route's
+// shapes (a lane of 2^20 RGB rows at c = 12: 16.8 MB against 0.26 GFLOP).
 //
 // Determinism: no float atomics. Each thread adds its pixels in index order,
 // each warp folds its threads with a fixed shuffle tree, warp 0's threads add
@@ -160,6 +170,152 @@ int launch_fused(const void* x, const void* w, long long n, const void* v,
   return fold(part, n_blocks, c, num, den, stream);
 }
 
+// Batched vector rows. Grid (row blocks of a lane, feature chunks, lanes).
+// A thread takes a grid-stride share of its lane's rows; for each row it
+// forms the c squared distances over all D features (d outer, j inner, so
+// each d2_j adds its features in index order, as the plain version's sum),
+// the Eq. 4 membership, um_j = u_j^m w_i, and adds um_j x_id for the DCH
+// features of its block's chunk (and, in chunk 0, um_j to den_j). The
+// centers are read through the read-only cache: c * D floats a lane, no
+// shared-memory bound on D. acc holds num at [j * DCH + k], den at
+// [MAXC * DCH + j]; a block's partials leave compact, c * DCH numerators
+// then c denominators, and a fold launch adds the blocks in a fixed order.
+template <int MAXC, int DCH>
+__global__ void __launch_bounds__(kThreads)
+fused_partials_batched_kernel(const float* __restrict__ x,
+                              const float* __restrict__ w, long long n, int d,
+                              const float* __restrict__ v, int c, float m,
+                              float expo, float* __restrict__ part) {
+  constexpr int kAcc = MAXC * (DCH + 1);
+  __shared__ float warp_s[kWarps][kAcc];
+  const int blk = blockIdx.x, chunk = blockIdx.y, lane = blockIdx.z;
+  const int d0 = chunk * DCH;
+  const bool m_is_2 = (m == 2.0f);
+  const float* xl = x + (long long)lane * n * d;
+  const float* wl = w + (long long)lane * n;
+  const float* vl = v + (long long)lane * c * d;
+  float acc[kAcc];
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blk * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float* xi = xl + i * d;
+    float u[MAXC];
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j) u[j] = 0.f;
+    for (int f = 0; f < d; ++f) {
+      const float xf = __ldg(xi + f);
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        if (j < c) {
+          const float e = __ldg(vl + (long long)j * d + f) - xf;
+          u[j] = u[j] + e * e;
+        }
+      }
+    }
+    fcm::membership_from_d2<MAXC>(c, m_is_2, expo, u);
+    const float wi = wl[i];
+    float xk[DCH];
+#pragma unroll
+    for (int k = 0; k < DCH; ++k)
+      xk[k] = (d0 + k < d) ? __ldg(xi + d0 + k) : 0.f;
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j) {
+      if (j < c) {
+        const float um = (m_is_2 ? u[j] * u[j] : powf(u[j], m)) * wi;
+#pragma unroll
+        for (int k = 0; k < DCH; ++k)
+          acc[j * DCH + k] = acc[j * DCH + k] + um * xk[k];
+        acc[MAXC * DCH + j] = acc[MAXC * DCH + j] + um;
+      }
+    }
+  }
+  // the block's fold: a fixed shuffle tree in each warp, then the warps in
+  // warp order (as fcm::block_partials, over kAcc sums)
+  const int wid = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) {
+    const int j = a < MAXC * DCH ? a / DCH : a - MAXC * DCH;
+    if (j < c) {  // uniform across the block: every lane shuffles
+      float s = acc[a];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s = s + __shfl_down_sync(0xffffffffu, s, off);
+      if (lid == 0) warp_s[wid][a] = s;
+    }
+  }
+  __syncthreads();
+  const int n_out = c * DCH + c;
+  float* out = part + (((long long)lane * gridDim.y + chunk) * gridDim.x +
+                       blk) * n_out;
+  for (int t = threadIdx.x; t < n_out; t += blockDim.x) {
+    const int slot = t < c * DCH ? t : MAXC * DCH + (t - c * DCH);
+    float s = warp_s[0][slot];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) s = s + warp_s[q][slot];
+    out[t] = s;
+  }
+}
+
+// part (B, n_chunks, n_blocks, c * DCH + c) -> num (B, c, D), den (B, c):
+// one block a (chunk, lane), one warp an output, its lanes striding over the
+// blocks in order, then a fixed shuffle tree. Chunk 0 writes den.
+template <int DCH>
+__global__ void __launch_bounds__(kThreads)
+fold_batched_kernel(const float* __restrict__ part, int n_blocks, int c,
+                    int d, float* __restrict__ num, float* __restrict__ den) {
+  const int chunk = blockIdx.x, lane = blockIdx.y;
+  const int wid = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+  const int n_out = c * DCH + c;
+  const float* p = part + ((long long)lane * gridDim.x + chunk) *
+                              (long long)n_blocks * n_out;
+  for (int o = wid; o < n_out; o += kWarps) {  // uniform across the warp
+    float s = 0.f;
+    for (int b = lid; b < n_blocks; b += 32)
+      s = s + p[(long long)b * n_out + o];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s = s + __shfl_down_sync(0xffffffffu, s, off);
+    if (lid == 0) {
+      if (o < c * DCH) {
+        const int f = chunk * DCH + o % DCH;
+        if (f < d) num[((long long)lane * c + o / DCH) * d + f] = s;
+      } else if (chunk == 0) {
+        den[(long long)lane * c + (o - c * DCH)] = s;
+      }
+    }
+  }
+}
+
+// The feature chunk of a cluster tier: the (DCH + 1) * MAXC sums a thread
+// carries stay within a register budget that keeps the c = 32 tier free of
+// spills.
+constexpr int dchunk_of_tier(int tier) { return tier <= 8 ? 4 : 2; }
+
+template <int MAXC>
+int launch_fused_batched(const void* x, const void* w, int b, long long n,
+                         int d, const void* v, int c, float m, float expo,
+                         void* part, int n_blocks, void* num, void* den,
+                         void* stream) {
+  constexpr int DCH = dchunk_of_tier(MAXC);
+  const int n_chunks = (d + DCH - 1) / DCH;
+  if (n_chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_blocks, n_chunks, b);
+  fused_partials_batched_kernel<MAXC, DCH><<<grid, kThreads, 0,
+                                             (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, n, d, (const float*)v, c, m, expo,
+      (float*)part);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  fold_batched_kernel<DCH><<<dim3(n_chunks, b), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)part, n_blocks, c, d, (float*)num, (float*)den);
+  return (int)cudaGetLastError();
+}
+
 bool bad_args(long long n, int n_blocks) {
   return n < 1 || n_blocks < 1 || n_blocks > 65535;
 }
@@ -212,6 +368,43 @@ extern "C" int fcm_fused_partials(const void* x, const void* w, long long n,
     case 32:
       return launch_fused<32>(x, w, n, v, c, m, expo, part, n_blocks, num,
                               den, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The feature chunk DCH of fcm_fused_partials_batched for c clusters (0 when
+// no tier holds c): the wrapper sizes part as B * ceil(D / DCH) * n_blocks *
+// (c * DCH + c) floats.
+extern "C" int fcm_fused_batched_dchunk(int c) {
+  const int tier = fcm::tier_of(c);
+  return tier == 0 ? 0 : dchunk_of_tier(tier);
+}
+
+// x (B, N, D), w (B, N), v (B, c, D) float32 contiguous -> num (B, c, D),
+// den (B, c). Every lane holds N rows (zero-weight rows are inert); part is
+// scratch (see fcm_fused_batched_dchunk); 1 <= c <= 32, D >= 1, 1 <= B <=
+// 65535; expo is the float32 exponent -1/(m-1).
+extern "C" int fcm_fused_partials_batched(const void* x, const void* w, int b,
+                                          long long n, int d, const void* v,
+                                          int c, float m, float expo,
+                                          void* part, int n_blocks, void* num,
+                                          void* den, void* stream) {
+  if (bad_args(n, n_blocks) || b < 1 || b > 65535 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (fcm::tier_of(c)) {
+    case 4:
+      return launch_fused_batched<4>(x, w, b, n, d, v, c, m, expo, part,
+                                     n_blocks, num, den, stream);
+    case 8:
+      return launch_fused_batched<8>(x, w, b, n, d, v, c, m, expo, part,
+                                     n_blocks, num, den, stream);
+    case 16:
+      return launch_fused_batched<16>(x, w, b, n, d, v, c, m, expo, part,
+                                      n_blocks, num, den, stream);
+    case 32:
+      return launch_fused_batched<32>(x, w, b, n, d, v, c, m, expo, part,
+                                      n_blocks, num, den, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,4 +2,4 @@
 and the step dispatch registry."""
 from . import (defuzzify, fcm_centers, fcm_membership,  # noqa: F401
                fcm_resident, fcm_spatial, fcm_stencil, histogram_bin, ops,
-               slic_assign)
+               selective_scan, slic_assign)

@@ -46,6 +46,9 @@ SIGNATURES = {
     "fcm_membership": (_P, _L, _P, _I, _F, _F, _P, _P),
     "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P),
     "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _P, _I, _P, _P, _P),
+    "fcm_fused_partials_batched": (_P, _P, _I, _L, _I, _P, _I, _F, _F, _P,
+                                   _I, _P, _P, _P),
+    "fcm_fused_batched_dchunk": (_I,),
     "fcm_max_c": (),
     "fcm_streamed_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                            _P, _P, _P, _P),
@@ -64,6 +67,7 @@ SIGNATURES = {
                           _I, _P, _P, _P, _P),
     "fcm_stencil_max_pixels": (),
     "fcm_stencil_max_c": (),
+    "selective_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

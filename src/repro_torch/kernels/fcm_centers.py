@@ -11,6 +11,10 @@ version beside it:
   in registers and reduced at once, so the ``(c, N)`` array never exists
   (replaces ``repro/kernels/fcm_centers.py::fused_partials_pallas``; one
   call an iteration of ``backend="fused"``).
+* :func:`fused_partials_batched`, the same over a bucket of lanes of
+  vector rows, ``x`` (B, N, D) and ``w`` (B, N): the batched flat step
+  of lanes past the whole-solve kernels' bounds (c > 8, rows > 2^20 or
+  D > 16), once an iteration under the solver's per-lane-masked loop.
 
 Each block reduces a grid-stride share of the pixels to per-block
 partials in a scratch buffer, and a second launch folds them in a fixed
@@ -53,6 +57,18 @@ def fused_partials_plain(x: torch.Tensor, w: Optional[torch.Tensor],
     :func:`center_partials_plain`."""
     from repro_torch.core import fcm as F
     return center_partials_plain(x, F.update_membership(x, v, m), m, w)
+
+
+def fused_partials_batched_plain(x: torch.Tensor, w: torch.Tensor,
+                                 v: torch.Tensor, m: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_partials_batched`: the
+    sums of :func:`repro_torch.core.solver.weighted_center_step`, in its
+    order, before the division."""
+    from repro_torch.core import fcm as F
+    um = (F.update_membership(x, v, m) ** m) * w[:, None, :]   # (B, c, N)
+    num = (um[..., None] * x[:, None, :, :]).sum(dim=-2)
+    return num, um.sum(dim=-1)
 
 
 def _checked(what: str, x: torch.Tensor, w: Optional[torch.Tensor],
@@ -146,7 +162,58 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
     return num, den
 
 
+def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
+                           v: torch.Tensor, m: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (B, N, D), ``w`` (B, N), ``v`` (B, c, D), float32 -> ``(num
+    (B, c, D), den (B, c))``. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (and its fold) or raises."""
+    if x.dim() != 3 or w.dim() != 2 or v.dim() != 3:
+        raise ValueError("fused_partials_batched takes x (B, N, D), w (B, "
+                         "N), v (B, c, D)")
+    b, n, d = x.shape
+    c = v.shape[1]
+    if tuple(w.shape) != (b, n) or tuple(v.shape) != (b, c, d):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, v {tuple(v.shape)}")
+    if len({t.device for t in (x, w, v)}) != 1:
+        raise ValueError("fused_partials_batched inputs must share one "
+                         "device")
+    if x.device.type == "cpu":
+        return fused_partials_batched_plain(x, w, v, m)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_partials_batched runs on cpu or cuda, not "
+                         f"{x.device}")
+    if any(t.dtype != torch.float32 for t in (x, w, v)):
+        raise TypeError("the fused_partials_batched kernel takes float32 "
+                        "inputs")
+    if not all(t.is_contiguous() for t in (x, w, v)):
+        raise ValueError("the fused_partials_batched kernel needs "
+                         "contiguous inputs")
+    if not 1 <= c <= MAX_C or not 1 <= b <= 65535:
+        raise ValueError(f"the fused_partials_batched kernel takes 1 <= c "
+                         f"<= {MAX_C} and 1 <= B <= 65535, got c={c}, B={b}")
+    if n == 0 or d == 0:
+        return (torch.zeros((b, c, d), dtype=torch.float32, device=x.device),
+                torch.zeros((b, c), dtype=torch.float32, device=x.device))
+    lib = _build.library()
+    dch = lib.fcm_fused_batched_dchunk(c)
+    n_blocks = max(1, min(-(-n // THREADS), MAX_BLOCKS))
+    part = torch.empty((b * -(-d // dch) * n_blocks * c * (dch + 1),),
+                       dtype=torch.float32, device=x.device)
+    num = torch.empty((b, c, d), dtype=torch.float32, device=x.device)
+    den = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    _build.check(lib.fcm_fused_partials_batched(
+        x.data_ptr(), w.data_ptr(), b, n, d, v.data_ptr(), c,
+        float(np.float32(m)), exponent(m), part.data_ptr(), n_blocks,
+        num.data_ptr(), den.data_ptr(), _build.stream_of(x)),
+        "fcm_fused_partials_batched")
+    fused_partials_batched.launches += 1
+    return num, den
+
+
 #: kernel launches (each a reduction and its fold) since the counts were
 #: last set to 0
 center_partials.launches = 0
 fused_partials.launches = 0
+fused_partials_batched.launches = 0

@@ -3,7 +3,8 @@ registry the solver core routes through.
 
 The registry maps a step *kind* (``"flat"`` weighted-row update or
 whole-solve, ``"stencil"`` FCM_S update or whole-solve, ``"bin"`` ingest
-binning, ``"labels"`` defuzzify, ``"slic_assign"`` the SLIC assignment)
+binning, ``"labels"`` defuzzify, ``"slic_assign"`` the SLIC assignment,
+``"selscan"`` the Mamba selective scan)
 to its implementations
 (``"reference"`` plain PyTorch, a kernel on the card), and
 :func:`select_step` picks one by platform and problem shape. The
@@ -33,6 +34,7 @@ from . import fcm_resident as KR
 from . import fcm_spatial as KSP
 from . import fcm_stencil as KST
 from . import histogram_bin as KB
+from . import selective_scan as KSS
 from . import slic_assign as KS
 
 _D2_FLOOR = 1e-12
@@ -184,8 +186,10 @@ class StepImpl:
 _STEP_REGISTRY: Dict[Tuple[str, str], StepImpl] = {}
 
 #: the kernel implementations of each kind, tried in this order on the
-#: card (the JAX package's auto order: resident, resident_streamed, pallas)
-_KERNEL_IMPLS = ("resident", "resident_streamed", "fused", "cuda")
+#: card (the JAX package's auto order: resident, resident_streamed, pallas;
+#: then the batched fused step, where the JAX package runs its reference)
+_KERNEL_IMPLS = ("resident", "resident_streamed", "fused", "fused_batched",
+                 "cuda")
 
 
 def register_step(kind: str, name: str, *, platforms=("cpu", "cuda"),
@@ -232,12 +236,12 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
     exhausted; one with no fallback is returned as it is, and its
     kernel wrappers take their plain versions for CPU tensors (the
     JAX package's interpret mode). Otherwise the kernels win on
-    ``"cuda"`` in the order resident, resident_streamed, fused, when the
-    problem fits them, and the plain reference runs on the CPU. On
-    ``"cuda"`` a problem no kernel admits raises: the card never runs a
-    plain version the caller did not ask for. Vector-row labels are not
-    such a problem: no TPU kernel takes them, and the plain version is
-    their port (see the module docstring)."""
+    ``"cuda"`` in the order resident, resident_streamed, fused,
+    fused_batched, when the problem fits them, and the plain reference
+    runs on the CPU. On ``"cuda"`` a problem no kernel admits raises:
+    the card never runs a plain version the caller did not ask for.
+    Vector-row labels are not such a problem: no TPU kernel takes them,
+    and the plain version is their port (see the module docstring)."""
     kinds = sorted({k for k, _ in _STEP_REGISTRY})
     if kind not in kinds:
         raise ValueError(f"unknown step kind {kind!r}; one of {kinds}")
@@ -298,12 +302,13 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
         if kind == "flat":
             raise ValueError(
                 f"no flat kernel admits rows={n_rows}, c={c}, D={n_feat}"
-                f"{' in a batched solve' if batched else ''}: flat/resident "
-                f"holds rows <= {KR.MAX_ROWS}, c <= {KR.MAX_C}, D <= "
-                f"{KR.MAX_FEAT} a lane, flat/resident_streamed rows <= "
-                f"{KR.STREAM_MAX_ROWS}, c <= {KR.STREAM_MAX_C}, D <= "
-                f"{KR.STREAM_MAX_FEAT}, flat/fused scalar rows (D = 1) with "
-                f"c <= {KC.MAX_C} in unbatched solves")
+                f"{' in a batched solve' if batched else ''}: every flat "
+                f"kernel takes c <= {KC.MAX_C} (flat/resident holds rows <= "
+                f"{KR.MAX_ROWS}, c <= {KR.MAX_C}, D <= {KR.MAX_FEAT} a lane, "
+                f"flat/resident_streamed rows <= {KR.STREAM_MAX_ROWS}, c <= "
+                f"{KR.STREAM_MAX_C}, D <= {KR.STREAM_MAX_FEAT}, flat/fused "
+                f"and flat/fused_batched any rows and D with c <= "
+                f"{KC.MAX_C})")
         raise ValueError(f"no {kind!r} kernel admits D={n_feat} on cuda; "
                          f"pass prefer='reference' to run the plain "
                          f"version on the card")
@@ -367,6 +372,27 @@ def _flat_fused(x, w, m, **_):
     def step(v):
         num, den = KC.fused_partials(x, w, v[:, 0].contiguous(), m)
         return (num / torch.clamp(den, min=_D2_FLOOR))[:, None]
+    return step
+
+
+@register_step("flat", "fused_batched", platforms=("cuda",), batched=True,
+               max_c=KC.MAX_C)
+def _flat_fused_batched(feats, weights, m, **_):
+    """The batched fused-partials kernel once an iteration over ``(B, K,
+    D)`` rows with ``(B, K)`` weights: ``v (B, c * D) -> num / max(den,
+    1e-12)``, one launch (and its fold) for the whole bucket, under
+    :func:`repro_torch.core.solver.masked_while_centers`. It serves the
+    lanes no whole-solve kernel holds (c > 8, rows > 2^20 or D > 16),
+    where the JAX package runs its reference step."""
+    b, _, d = feats.shape
+    x, w = _f32(feats), _f32(weights)
+
+    def step(vflat):
+        c = vflat.shape[1] // d
+        num, den = KC.fused_partials_batched(
+            x, w, vflat.reshape(b, c, d).contiguous(), m)
+        return (num / torch.clamp(den[..., None], min=_D2_FLOOR)).reshape(
+            b, c * d)
     return step
 
 
@@ -450,3 +476,16 @@ def _slic_reference(gy, gx, sw, **_):
 def _slic_cuda(gy, gx, sw, **_):
     """One thread per pixel, the center table in shared memory."""
     return lambda img, centers: slic_assign(img, centers, gy, gx, sw)
+
+
+@register_step("selscan", "reference")
+def _selscan_reference(**_):
+    """The plain recurrence, one position at a time."""
+    return KSS.selective_scan_ref
+
+
+@register_step("selscan", "cuda", platforms=("cuda",))
+def _selscan_cuda(**_):
+    """A group of d_state lanes a (batch, channel), the state in
+    registers for the whole sequence."""
+    return KSS.selective_scan

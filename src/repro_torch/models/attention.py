@@ -1,0 +1,145 @@
+"""GQA attention: the plain and the chunked (flash-style) softmax cores,
+their dispatch, and the GQA mixer's train / prefill forward.
+
+Plain PyTorch ops that follow the JAX package's algorithm step for step
+(``repro/models/attention.py``), not a fused library kernel: the scores
+in float32, the max-subtracted exponentials in the compute dtype, the
+denominator summed in float32. Shapes: activations (B, S, D); q/k/v
+(B, H, S, hd). MLA and cross-attention are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import layers as L
+
+_NEG_INF = -1e30
+
+
+def _plain_attention(q, k, v, causal: bool, q_offset: int = 0,
+                     kv_len: Optional[torch.Tensor] = None):
+    """q (B,K,G,Sq,hd) grouped-query vs k/v (B,K,Skv,hd)."""
+    sq, hd = q.shape[3], q.shape[4]
+    skv = k.shape[2]
+    scores = torch.einsum("bkgqh,bkth->bkgqt", q, k).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(skv, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        scores = torch.where(mask, scores, _NEG_INF)
+    if kv_len is not None:
+        mask = torch.arange(skv, device=q.device)[None, :] < kv_len[:, None]
+        scores = torch.where(mask[:, None, None, None], scores, _NEG_INF)
+    # float32 row max and denominator, exponentials in the compute dtype
+    m = torch.amax(scores, dim=-1, keepdim=True).detach()
+    p = torch.exp((scores - m).to(q.dtype))
+    denom = torch.sum(p, dim=-1, keepdim=True, dtype=torch.float32)
+    w = p / denom.to(q.dtype)
+    return torch.einsum("bkgqt,bkth->bkgqh", w, v)
+
+
+def _flash_attention(q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
+    """Online-softmax chunked attention: O(Sq * ckv) live scores instead
+    of O(Sq * Skv); loops over q chunks and, inside, kv chunks."""
+    b, kh, g, sq, hd = q.shape
+    hd_v = v.shape[-1]
+    skv = k.shape[2]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"flash attention needs whole chunks: Sq={sq}, "
+                         f"Skv={skv}")
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs = []
+    for qi in range(sq // q_chunk):
+        q_blk = q[:, :, :, qi * q_chunk:(qi + 1) * q_chunk]
+        m = torch.full((b, kh, g, q_chunk), _NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, kh, g, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kh, g, q_chunk, hd_v), dtype=torch.float32,
+                          device=dev)
+        # causal: later kv chunks contribute nothing but are still walked
+        for kj in range(skv // kv_chunk):
+            kb = k[:, :, kj * kv_chunk:(kj + 1) * kv_chunk]
+            vb = v[:, :, kj * kv_chunk:(kj + 1) * kv_chunk]
+            s = torch.einsum("bkgqh,bkth->bkgqt", q_blk, kb)
+            s = s.to(torch.float32) * scale
+            if causal:
+                qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+                kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+                s = torch.where(kpos[None, :] <= qpos[:, None], s, _NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,bkth->bkgqh", p.to(vb.dtype), vb).to(torch.float32)
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    return torch.cat(outs, dim=3).to(q.dtype)
+
+
+def grouped_attention(q, k, v, causal: bool, q_offset: int = 0,
+                      kv_len=None, flash_threshold: int = 4096,
+                      q_chunk: int = 512, kv_chunk: int = 1024):
+    """Dispatch between the plain and flash paths. q (B,Hq,Sq,hd),
+    k/v (B,Hkv,Skv,hd); Hq % Hkv == 0. K/V are repeated to the full
+    query-head count first, as in the JAX package."""
+    b, hq, sq, hd = q.shape
+    hkv = k.shape[1]
+    if hkv != hq:
+        k = torch.repeat_interleave(k, hq // hkv, dim=1)
+        v = torch.repeat_interleave(v, hq // hkv, dim=1)
+    qg = q.reshape(b, hq, 1, sq, hd)
+    skv = k.shape[2]
+    flash_ok = (sq % min(q_chunk, sq) == 0
+                and skv % min(kv_chunk, skv) == 0 and skv > kv_chunk)
+    if not flash_ok or (sq * skv <= flash_threshold * flash_threshold
+                        and sq <= flash_threshold):
+        out = _plain_attention(qg, k, v, causal, q_offset, kv_len)
+    else:
+        if kv_len is not None:
+            raise ValueError("the flash path is for full-length "
+                             "prefill / train")
+        out = _flash_attention(qg, k, v, causal, q_chunk, kv_chunk)
+    return out.reshape(b, hq, sq, out.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def init_gqa(gen: torch.Generator, cfg):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": L.init_dense(gen, (d, hq, hd), d),
+        "wk": L.init_dense(gen, (d, hkv, hd), d),
+        "wv": L.init_dense(gen, (d, hkv, hd), d),
+        "wo": L.init_dense(gen, (hq, hd, d), hq * hd),
+    }
+
+
+def gqa_qkv(p, x, positions, cfg):
+    dtype = cfg.dtype
+    q = torch.einsum("bsd,dhk->bhsk", x, L.gathered(p["wq"], dtype))
+    k = torch.einsum("bsd,dhk->bhsk", x, L.gathered(p["wk"], dtype))
+    v = torch.einsum("bsd,dhk->bhsk", x, L.gathered(p["wv"], dtype))
+    q = L.apply_rope(q.transpose(1, 2), positions,
+                     cfg.rope_theta).transpose(1, 2)
+    k = L.apply_rope(k.transpose(1, 2), positions,
+                     cfg.rope_theta).transpose(1, 2)
+    return q, k, v
+
+
+def gqa_forward(p, x, positions, cfg, causal: bool = True):
+    """Train path (the JAX package's prefill also returns k and v)."""
+    q, k, v = gqa_qkv(p, x, positions, cfg)
+    out = grouped_attention(q, k, v, causal,
+                            flash_threshold=cfg.flash_threshold,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], cfg.dtype))

@@ -1,0 +1,112 @@
+"""Mixture-of-Experts FFN, on one device.
+
+Routers: ``"softmax"`` (learned top-k) and ``"fcm"``, the paper's fuzzy
+bridge: the router's columns are cluster centers over token embeddings
+and the gate is the FCM membership (Eq. 4, m = 2) cut to the top k.
+Dispatch is the JAX package's capacity-bounded first-come policy: each
+expert takes at most ``capacity`` (token, slot) pairs in token order,
+gathers their rows into a buffer, runs its SwiGLU, and the gated rows
+are added back per token. Expert parallelism over a tensor-parallel
+axis is not ported yet (``tp == 1``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+
+from . import layers as L
+
+
+def init_moe(gen: torch.Generator, cfg):
+    e = cfg.moe
+    d, f = cfg.d_model, e.d_ff_expert
+    p = {
+        "router": L.init_dense(gen, (d, e.n_experts), d),
+        "w_gate": L.init_dense(gen, (e.n_experts, d, f), d),
+        "w_up": L.init_dense(gen, (e.n_experts, d, f), d),
+        "w_down": L.init_dense(gen, (e.n_experts, f, d), f),
+    }
+    if e.n_shared > 0:
+        p["shared"] = L.init_mlp(gen, d, e.n_shared * f)
+    return p
+
+
+def _route(xf, router_w, cfg):
+    """Token -> (top-k ids (T, k), gates (T, k), aux load-balance loss).
+    xf (T, D)."""
+    e = cfg.moe
+    if e.router == "fcm":
+        # router columns are cluster centers; gate = fuzzy membership with
+        # m = 2 (Eq. 4 of the paper): u_e proportional to 1 / d2_e
+        centers = router_w.t().to(torch.float32)               # (E, D)
+        x32 = xf.to(torch.float32)
+        d2 = (torch.sum(x32 * x32, dim=-1, keepdim=True)
+              - 2.0 * (x32 @ centers.t())
+              + torch.sum(centers * centers, dim=-1)[None, :])
+        p = 1.0 / torch.clamp(d2, min=1e-6)
+        probs = p / torch.sum(p, dim=-1, keepdim=True)
+    else:
+        logits = xf.to(torch.float32) @ router_w.to(torch.float32)
+        probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, e.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    # Switch-style load-balance aux loss
+    density = torch.mean(Fn.one_hot(idx[:, 0], e.n_experts).to(
+        torch.float32), dim=0)
+    mean_prob = torch.mean(probs, dim=0)
+    aux = e.n_experts * torch.sum(density * mean_prob)
+    return idx, gates.to(xf.dtype), aux
+
+
+def _local_expert_ffn(xf, idx, gates, wg, wu, wd, e_start: int,
+                      capacity: int, dtype):
+    """Capacity-bounded dispatch for the experts [e_start, e_start +
+    E_loc). xf (T, D); idx / gates (T, K)."""
+    t, dmodel = xf.shape
+    k = idx.shape[1]
+    e_loc = wg.shape[0]
+    dev = xf.device
+    le = idx.reshape(-1) - e_start                           # (T*K,)
+    local = (le >= 0) & (le < e_loc)
+    le_c = torch.where(local, le, e_loc)                     # overflow bucket
+    # running rank within each expert (first-come capacity policy); the
+    # overflow bucket's column is dropped, as jax.nn.one_hot drops it
+    onehot = Fn.one_hot(le_c, e_loc + 1)[:, :e_loc].to(torch.int32)
+    rank = torch.cumsum(onehot, dim=0) - onehot              # entries before
+    pos = torch.sum(rank * onehot, dim=-1)                   # (T*K,)
+    keep = local & (pos < capacity)
+    slot = torch.where(keep, le_c * capacity + pos, e_loc * capacity)
+    # scatter token ids, gather rows: no (T*K, D) repeated-token matrix
+    tok_id = torch.arange(t * k, device=dev) // k
+    buf_tok = torch.full((e_loc * capacity + 1,), t, dtype=torch.long,
+                         device=dev)
+    buf_tok[slot] = torch.where(keep, tok_id, t)
+    xf_ext = torch.cat([xf.to(dtype),
+                        torch.zeros((1, dmodel), dtype=dtype, device=dev)])
+    xe = xf_ext[buf_tok[:-1]].reshape(e_loc, capacity, dmodel)
+    h = torch.einsum("ecd,edf->ecf", xe, wg.to(dtype))
+    u = torch.einsum("ecd,edf->ecf", xe, wu.to(dtype))
+    h = Fn.silu(h) * u
+    ye = torch.einsum("ecf,efd->ecd", h, wd.to(dtype))
+    rows = torch.cat([ye.reshape(-1, dmodel),
+                      torch.zeros((1, dmodel), dtype=dtype, device=dev)])
+    contrib = rows[slot] * torch.where(keep, gates.reshape(-1), 0.0)[:, None]
+    return contrib.reshape(t, k, dmodel).sum(dim=1)          # (T, D)
+
+
+def _capacity(e, t_local: int) -> int:
+    return int(max(e.top_k * t_local / e.n_experts * e.capacity_factor, 4))
+
+
+def moe_ffn(p, x, cfg):
+    """x (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+    e = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    idx, gates, aux = _route(xf, p["router"], cfg)
+    out = _local_expert_ffn(xf, idx, gates, p["w_gate"], p["w_up"],
+                            p["w_down"], 0, _capacity(e, t), cfg.dtype)
+    if "shared" in p:
+        out = out + L.mlp(p["shared"], x, cfg.dtype).reshape(t, d)
+    return out.reshape(b, s, d), aux

@@ -372,7 +372,7 @@ def _ingest_pixel(eng, img, rid) -> _PendingPixels:
         raise ValueError(
             f"pixel requests need (H, W) or channels-last "
             f"(H, W, D<=16) input, got shape {img.shape}; "
-            f"use method='histogram' for volumes")
+            f"use method='histogram' or 'spatial' for volumes")
     # a copy: the caller may reuse its buffer between submit() and flush()
     return _PendingPixels(rid, np.array(img))
 

@@ -144,15 +144,17 @@ def test_registry_kinds_and_names():
     names = {(i.kind, i.name) for i in tops.step_impls()}
     assert names == {("flat", "reference"), ("flat", "resident"),
                      ("flat", "resident_streamed"), ("flat", "fused"),
+                     ("flat", "fused_batched"),
                      ("bin", "reference"), ("bin", "cuda"),
                      ("labels", "reference"), ("labels", "cuda"),
                      ("slic_assign", "reference"), ("slic_assign", "cuda"),
                      ("stencil", "reference"), ("stencil", "fused"),
-                     ("stencil", "resident")}
+                     ("stencil", "resident"),
+                     ("selscan", "reference"), ("selscan", "cuda")}
 
 
 @pytest.mark.parametrize("kind", ["flat", "bin", "labels", "slic_assign",
-                                  "stencil"])
+                                  "stencil", "selscan"])
 def test_select_step_picks_reference_on_cpu(kind):
     assert tops.select_step(kind, platform="cpu", n_rows=256,
                             c=4).name == "reference"
@@ -171,16 +173,19 @@ def test_resident_falls_back_to_reference_off_the_card():
 
 
 def test_oversize_flat_problem_raises_on_cuda_naming_streamed():
-    """Vector rows beyond the streamed whole-solve's bounds raise on the
-    card (scalar rows take the fused kernel); it never runs the plain
-    loop silently. Vector labels are no such case: no TPU kernel takes
-    them, so the plain version is their port on the card too."""
+    """Vector rows beyond the streamed whole-solve's bounds take the
+    batched fused kernel on the card (scalar rows the fused kernel);
+    only c > 32, which no flat kernel holds, raises, naming every
+    kernel's bounds. The card never runs the plain loop silently.
+    Vector labels are no such case: no TPU kernel takes them, so the
+    plain version is their port on the card too."""
     big = KR.STREAM_MAX_ROWS + 1
+    assert tops.select_step("flat", platform="cuda", n_rows=big, c=4,
+                            n_feat=3).name == "fused_batched"
+    assert tops.select_step("flat", platform="cuda", n_rows=5000, c=4,
+                            n_feat=17).name == "fused_batched"
     with pytest.raises(ValueError, match="resident_streamed"):
-        tops.select_step("flat", platform="cuda", n_rows=big, c=4,
-                         n_feat=3)
-    with pytest.raises(ValueError, match="resident_streamed"):
-        tops.select_step("flat", platform="cuda", n_rows=5000, c=4,
+        tops.select_step("flat", platform="cuda", n_rows=5000, c=33,
                          n_feat=17)
     with pytest.raises(ValueError):
         tops.select_step("flat", prefer="resident", platform="cuda",
@@ -356,3 +361,71 @@ def test_convert_config_and_problem():
     np.testing.assert_allclose(got.centers.numpy(),
                                np.asarray(want.centers), rtol=RTOL,
                                atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# Per-lane salvage in solve_batched
+# ---------------------------------------------------------------------------
+
+def _salvage_counts(reg):
+    return {k: v for k, v in reg.snapshot()["counters"].items()
+            if k.startswith("solver.salvaged_lanes")}
+
+
+def test_solve_batched_salvages_a_nan_lane_as_jax_does():
+    """One lane with a NaN weight: its centers are non-finite, so both
+    packages re-solve it on the plain loop (which gives NaN again), flag
+    it and count it; the other lanes are untouched."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+    rng = np.random.default_rng(3)
+    hists = rng.integers(0, 50, (3, 256)).astype(np.float32)
+    hists[1, 40] = np.nan
+    vals = np.broadcast_to(np.arange(256, dtype=np.float32), (3, 256))
+    with jobs.scoped_registry() as jreg:
+        want = JS.solve_batched(JS.batch_problems(vals, hists, c=4),
+                                eps=5e-3, max_iters=40)
+    with tobs.scoped_registry() as treg:
+        got = TS.solve_batched(TS.batch_problems(vals, hists, c=4,
+                                                 device=CPU),
+                               eps=5e-3, max_iters=40)
+    assert want.salvaged.tolist() == got.salvaged.tolist() == [
+        False, True, False]
+    np.testing.assert_array_equal(got.n_iters, want.n_iters)
+    np.testing.assert_allclose(got.centers.numpy(), np.asarray(want.centers),
+                               rtol=RTOL, atol=ATOL, equal_nan=True)
+    assert got.healthy.tolist() == want.healthy.tolist() == [True, False,
+                                                              True]
+    assert _salvage_counts(treg) == _salvage_counts(jreg) == {
+        "solver.salvaged_lanes{kind=flat}": 1}
+    off = TS.solve_batched(TS.batch_problems(vals, hists, c=4, device=CPU),
+                           eps=5e-3, max_iters=40, salvage=False)
+    assert not off.salvaged.any() and not off.healthy[1]
+
+
+def test_solve_batched_salvages_lanes_a_kernel_left_unconverged(
+        monkeypatch):
+    """Lanes a kernel impl leaves unconverged re-solve on the plain loop,
+    as the JAX package re-solves its whole-solve kernel's; the port's
+    kernel impl runs its plain version on the CPU, forced by name."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+    rng = np.random.default_rng(4)
+    hists = rng.integers(0, 50, (2, 256)).astype(np.float32)
+    vals = np.broadcast_to(np.arange(256, dtype=np.float32), (2, 256))
+    with jobs.scoped_registry() as jreg:
+        want = JS.solve_batched(JS.batch_problems(vals, hists, c=4),
+                                eps=5e-3, max_iters=3, backend="resident",
+                                interpret=True)
+    monkeypatch.setattr(TS, "_select_impl",
+                        lambda problem, backend, batch=False: "fused_batched")
+    with tobs.scoped_registry() as treg:
+        got = TS.solve_batched(TS.batch_problems(vals, hists, c=4,
+                                                 device=CPU),
+                               eps=5e-3, max_iters=3)
+    assert want.salvaged.tolist() == got.salvaged.tolist() == [True, True]
+    np.testing.assert_array_equal(got.n_iters, want.n_iters)
+    np.testing.assert_allclose(got.centers.numpy(), np.asarray(want.centers),
+                               rtol=RTOL, atol=ATOL)
+    assert _salvage_counts(treg) == _salvage_counts(jreg) == {
+        "solver.salvaged_lanes{kind=flat}": 2}

@@ -18,6 +18,7 @@ from repro_torch.kernels import fcm_resident as KR
 from repro_torch.kernels import fcm_spatial as KSP
 from repro_torch.kernels import fcm_stencil as KST
 from repro_torch.kernels import histogram_bin as KB
+from repro_torch.kernels import selective_scan as KSS
 from repro_torch.kernels import slic_assign as KS
 from repro_torch.serving import FCMServeEngine
 from repro_torch.superpixel import slic as SL
@@ -80,6 +81,15 @@ def test_cuda_tensors_never_take_the_plain_version(dev):
                           torch.ones((1, 2000), device=dev),
                           torch.zeros((1, 4, 1), device=dev),
                           torch.ones(1, device=dev), 2.0, 10)
+    # past every whole-solve bound a batched lane now takes the batched
+    # fused kernel, which itself refuses what no kernel holds (c > 32)
+    from repro_torch.kernels import ops as tops
+    assert tops.select_step("flat", platform=dev.type, batched=True,
+                            n_rows=2000, c=12).name == "fused_batched"
+    with pytest.raises(ValueError, match="c <= 32"):
+        KC.fused_partials_batched(torch.zeros((1, 8, 2), device=dev),
+                                  torch.ones((1, 8), device=dev),
+                                  torch.zeros((1, 33, 2), device=dev), 2.0)
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(dev):
@@ -382,3 +392,74 @@ def test_spatial_route_on_the_card_matches_the_cpu_engine(dev):
         np.testing.assert_array_equal(g.labels, c.labels)
         np.testing.assert_allclose(g.centers, c.centers, rtol=RTOL,
                                    atol=ATOL)
+
+
+# -- lanes past the whole-solve bounds: the batched fused kernel ------------
+
+@pytest.mark.parametrize("b,k,d,c,m", [(3, 5000, 1, 12, 2.0),
+                                       (2, 3001, 3, 32, 2.0),
+                                       (2, 777, 24, 9, 2.5),
+                                       (1, (1 << 20) + 3, 1, 4, 2.0)])
+def test_batched_fused_kernel_matches_plain(dev, b, k, d, c, m):
+    rng = np.random.default_rng(k + c)
+    x = torch.from_numpy(_blobs(b, k, d, c, seed=k)).to(dev)
+    w = torch.from_numpy(rng.uniform(0.5, 3, (b, k)).astype(
+        np.float32)).to(dev)
+    v = torch.from_numpy(rng.uniform(0, 255, (b, c, d)).astype(
+        np.float32)).to(dev)
+    before = KC.fused_partials_batched.launches
+    num, den = KC.fused_partials_batched(x, w, v, m)
+    assert KC.fused_partials_batched.launches == before + 1
+    num2, den2 = KC.fused_partials_batched(x, w, v, m)
+    assert torch.equal(num, num2) and torch.equal(den, den2)
+    pn, pd = KC.fused_partials_batched_plain(x, w, v, m)
+    np.testing.assert_allclose(num.cpu().numpy(), pn.cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(den.cpu().numpy(), pd.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_twelve_cluster_pixel_route_on_the_card_matches_the_cpu(dev):
+    """c = 12: past the whole-solve kernels, the pixel route's bucket runs
+    the batched fused kernel once an iteration."""
+    import dataclasses
+    from repro_torch.core.fcm import FCMConfig
+    rng = np.random.default_rng(12)
+    levels = np.linspace(8.0, 247.0, 12)
+    imgs = [np.clip(levels[rng.integers(0, 12, (64, 64))]
+                    + rng.normal(0, 2, (64, 64)), 0, 255).astype(np.uint8)
+            for _ in range(3)]
+    cfg = FCMConfig(n_clusters=12)
+    gpu = FCMServeEngine(cfg, batch_sizes=(1, 8), cache_size=0, device=dev)
+    cpu = FCMServeEngine(cfg, batch_sizes=(1, 8), cache_size=0,
+                         device="cpu")
+    before = KC.fused_partials_batched.launches
+    got = gpu.segment(imgs, method="pixel")
+    assert KC.fused_partials_batched.launches - before == max(
+        r.n_iters for r in got)
+    for g, c in zip(got, cpu.segment(imgs, method="pixel")):
+        assert g.n_iters == c.n_iters
+        np.testing.assert_array_equal(g.labels, c.labels)
+        np.testing.assert_allclose(g.centers, c.centers, rtol=RTOL,
+                                   atol=ATOL)
+
+
+# -- the selective scan -------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,di,ds", [(2, 128, 128, 4), (1, 100, 96, 16),
+                                       (1, 512, 1024, 16), (3, 33, 5, 32)])
+def test_selective_scan_kernel_matches_plain(dev, b, s, di, ds):
+    rng = np.random.default_rng(s + di)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(0, 1, shape).astype(np.float32)).to(dev)
+    u, bm, cm = mk(b, s, di), mk(b, s, ds), mk(b, s, ds)
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (b, s, di)).astype(
+        np.float32)).to(dev)
+    a = -torch.from_numpy(rng.uniform(0.5, 4, (di, ds)).astype(
+        np.float32)).to(dev)
+    before = KSS.selective_scan.launches
+    y = KSS.selective_scan(u, dt, bm, cm, a)
+    assert KSS.selective_scan.launches == before + 1
+    want = KSS.selective_scan_ref(u, dt, bm, cm, a)
+    err = float((y - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err

@@ -7,8 +7,11 @@ import pathlib
 import pytest
 import torch
 
+from repro_torch import configs as TC
 from repro_torch.core import solver as TS
+from repro_torch.models import lm as TLM
 from repro_torch.serving import FCMServeEngine
+from repro_torch.training import train_loop as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -38,7 +41,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
-    assert {"fcm_engine.py", "solver.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"fcm_engine.py", "solver.py", "ops.py", "chip_smoke.py",
+            "ssm.py", "train_loop.py", "selective_scan.py"} <= names
     assert not _forbidden("repro_torch.core")
     assert _forbidden("repro.core.solver") and _forbidden("jax.numpy")
 
@@ -47,7 +51,10 @@ def test_scan_covers_the_port():
     lambda: FCMServeEngine(),
     lambda: TS.histogram_problem(torch.zeros(16)),
     lambda: TS.FCMProblem(features=torch.zeros(8)),
-], ids=["engine", "histogram_problem", "FCMProblem"])
+    lambda: TLM.init_params(0, TC.get_config("jamba-v0.1-52b").reduced()),
+    lambda: TT.init_state(0, TC.get_config("jamba-v0.1-52b").reduced()),
+], ids=["engine", "histogram_problem", "FCMProblem", "lm.init_params",
+        "train_loop.init_state"])
 def test_entry_points_raise_without_a_card(monkeypatch, make):
     """Asked for no device on a machine without CUDA, an entry point
     raises instead of running on the CPU."""

@@ -153,8 +153,9 @@ def test_dispatch_on_cuda_by_lane_size():
                 n_feat=16).name == "resident_streamed"
     big = KR.STREAM_MAX_ROWS + 1
     assert pick("flat", platform="cuda", n_rows=big, c=4).name == "fused"
-    with pytest.raises(ValueError, match="resident_streamed"):
-        pick("flat", platform="cuda", batched=True, n_rows=big, c=4)
+    # past the streamed bound, batched lanes take the batched fused kernel
+    assert pick("flat", platform="cuda", batched=True, n_rows=big,
+                c=4).name == "fused_batched"
     # named off the card, the streamed solve walks resident -> reference
     assert pick("flat", prefer="resident_streamed", platform="cpu",
                 batched=True, n_rows=39277, c=4).name == "reference"
@@ -368,3 +369,105 @@ def test_route_ingest_rejects_what_jax_rejects():
         with pytest.raises(ValueError):
             teng.submit(bad, method=method)
     assert teng.submit(np.zeros((4, 4), np.uint8), method="pixel") == 0
+
+
+def test_pixel_ingest_message_names_the_volume_routes():
+    """A (D, H, W) volume sent to the pixel route is refused with the
+    JAX package's message: both routes that take volumes."""
+    jeng, teng = _engines()
+    vol = np.zeros((4, 8, 40), np.uint8)
+    with pytest.raises(ValueError) as jerr:
+        jeng.submit(vol, method="pixel")
+    with pytest.raises(ValueError, match="'histogram' or 'spatial'") as terr:
+        teng.submit(vol, method="pixel")
+    assert str(terr.value) == str(jerr.value)
+
+
+# ---------------------------------------------------------------------------
+# Lanes past the whole-solve kernels' bounds: the batched fused step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_rows,c,d", [
+    (256, 9, 1), (256, 32, 1), (KR.STREAM_MAX_ROWS + 1, 4, 1),
+    (600, 4, 24), (KR.STREAM_MAX_ROWS + 1, 12, 3)])
+def test_batched_flat_lanes_past_the_bounds_pick_the_fused_kernel(
+        n_rows, c, d):
+    """On the card every batched flat lane with c <= 32 selects a kernel,
+    whatever its rows and D; the JAX package runs its reference there."""
+    assert tops.select_step("flat", platform="cuda", batched=True,
+                            n_rows=n_rows, c=c,
+                            n_feat=d).name == "fused_batched"
+    assert tops.select_step("flat", platform="cpu", batched=True,
+                            n_rows=n_rows, c=c,
+                            n_feat=d).name == "reference"
+    assert jops.select_step("flat", platform="tpu", batched=True,
+                            n_rows=n_rows, c=c,
+                            n_feat=d).name == "reference"
+
+
+def test_batched_flat_lanes_past_32_clusters_still_raise():
+    with pytest.raises(ValueError, match="c <= 32"):
+        tops.select_step("flat", platform="cuda", batched=True, n_rows=256,
+                         c=33)
+
+
+@pytest.mark.parametrize("b,k,d,c,m", [(3, 300, 1, 12, 2.0),
+                                       (2, 257, 5, 9, 2.5)])
+def test_batched_fused_plain_matches_jax_fused_partials(b, k, d, c, m):
+    """The batched kernel's plain version against the JAX package's
+    fused-partials oracle, lane by lane."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import fcm_centers as KC
+    rng = np.random.default_rng(b * k + d)
+    x = rng.uniform(0, 255, (b, k, d)).astype(np.float32)
+    w = rng.uniform(0.5, 3.0, (b, k)).astype(np.float32)
+    v = rng.uniform(0, 255, (b, c, d)).astype(np.float32)
+    num, den = KC.fused_partials_batched(torch.from_numpy(x),
+                                         torch.from_numpy(w),
+                                         torch.from_numpy(v), m)
+    for lane in range(b):
+        xl = x[lane, :, 0] if d == 1 else x[lane]
+        vl = v[lane, :, 0] if d == 1 else v[lane]
+        u = jref.membership_ref(xl, vl, m)
+        jnum, jden = jref.center_partials_ref(xl, u, m, w[lane])
+        np.testing.assert_allclose(num[lane].numpy().reshape(np.shape(jnum)),
+                                   np.asarray(jnum), rtol=1e-5)
+        np.testing.assert_allclose(den[lane].numpy(), np.asarray(jden),
+                                   rtol=1e-5)
+
+
+def test_fused_batched_solve_matches_jax_solve_batched():
+    """The looped batched solve with the batched fused step (its plain
+    version on the CPU) against the JAX package's batched reference:
+    c = 12, past every whole-solve kernel's cluster bound."""
+    feats, w = _blobs(3, 400, 3, seed=11, c=12)
+    v, delta, iters, _ = TS.flat_batched_solve(
+        torch.from_numpy(feats), torch.from_numpy(w), 12, 2.0, 5e-3, 300,
+        impl="fused_batched")
+    want = JS.solve_batched(JS.batch_problems(feats, w, c=12),
+                            eps=5e-3, max_iters=300)
+    np.testing.assert_array_equal(iters.numpy(), want.n_iters)
+    _assert_centers(v.numpy(), np.asarray(want.centers))
+
+
+def test_pixel_route_with_12_clusters_matches_the_jax_engine():
+    """c = 12, past the whole-solve kernels' c <= 8: served on the CPU
+    as the JAX engine serves it (on the card by the batched fused
+    kernel). The images hold 12 intensity or colour classes: with fewer
+    classes than clusters, centers that split one class move apart
+    slowly, and rounding of the row sums decides where they stop."""
+    rng = np.random.default_rng(12)
+    levels = np.linspace(8.0, 247.0, 12)
+    grey = [np.clip(levels[rng.integers(0, 12, (40, 36))]
+                    + rng.normal(0, 2, (40, 36)), 0, 255).astype(np.uint8)
+            for _ in range(2)]
+    rgb = [np.clip(_blobs(1, 36 * 32, 3, seed=20 + i, c=12)[0], 0,
+                   255).reshape(36, 32, 3).astype(np.uint8)
+           for i in range(2)]
+    cfg = dataclasses.replace(fcm_brainweb.make_config().fcm, n_clusters=12,
+                              max_iters=60)
+    jcfg = JFCMConfig(n_clusters=12, m=cfg.m, eps=cfg.eps, max_iters=60)
+    jeng = JAXEngine(jcfg, batch_sizes=(1, 8), cache_size=0)
+    teng = FCMServeEngine(cfg, batch_sizes=(1, 8), cache_size=0, device=CPU)
+    _assert_same(jeng.segment(grey + rgb, method="pixel"),
+                 teng.segment(grey + rgb, method="pixel"), "pixel")
