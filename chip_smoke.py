@@ -44,7 +44,9 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    BrainWeb slices, the whole noisy 181x217x181 volume, degenerate
    grids; ragged lanes and an 8x64x64 volume for the whole-solve), each
    case twice and bit-equal, a whole-solve lane alone bit-equal to
-   itself in its bucket; ``solve(spatial_problem)`` on the card (auto,
+   itself in its bucket, with each case's cluster size, form and shared
+   memory a block, and the bucket's active clusters and device time;
+   ``solve(spatial_problem)`` on the card (auto,
    resident, fused, reference) against ``device="cpu"`` with the launch
    counts set to 0 just before and read just after, labels equal up to
    float64-checked near-ties; serve 181 noisy slices, the 1000 KB image
@@ -54,7 +56,8 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    2^16, 2^18 and 2^20 pixels, the sweep that sets the whole-solve's
    dispatch bound;
 8. lm: hold the selective-scan kernel against its plain version at
-   (1, 4096, 8192, 16), (2, 128, 128, 4) and the ragged (1, 100, 96, 8);
+   (1, 4096, 8192, 16), (2, 128, 128, 4) and the ragged (1, 100, 96, 8),
+   with its chunk length, workspace and device time at full width;
    run one full-width group of jamba-v0.1-52b (8 layers, bf16 compute on
    float32 masters drawn on the card) through ``loss_fn`` on a seeded
    (1, 4096) batch with the launch counts set to 0 just before and read
@@ -655,6 +658,39 @@ def profile_call(fn, card, label):
     for dev_us, count, key in rows[:8]:
         print(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} "
               f"({dev_us / count:8.2f} us each) {key[:60]}")
+
+
+def device_ms(fn, calls=5):
+    """The profiler's device time of one call of ``fn``: each kernel's
+    mean time a launch over ``calls`` calls after a warm-up, times its
+    launches a call, summed; and each kernel's own, as {name: (us a
+    launch, launches a call)}. Launches a call are the profiler's count
+    over ``calls``, rounded and at least 1, since the profiler may drop
+    the events of some launches. None where it saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, per = 0.0, {}
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("Activity Buffer")):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            n = max(1, round(e.count / calls))
+            total += us / e.count * n
+            per[e.key] = (us / e.count, n)
+    return (total / 1e3 if total else None), per
+
+
+def _kernel_names(per):
+    return ", ".join(f"{k.split('(')[0].split('::')[-1][:40]} {us:.2f} us"
+                     f" x{n}" for k, (us, n) in per.items())
 
 
 def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
@@ -1383,9 +1419,15 @@ def check_stencil(KST, SV, noisy_imgs, phantom, dev, card):
               np.stack([const, two, *slices[:3]]), 2.0, 2.5, 4, 4),
              ("two 8x64x64 volumes, 6 nb", vols, 2.0, 1.0, 6, 4),
              ("4 noisy slices, c=8, m=1.6", slices[:4], 1.6, 1.0, 8, 8)]
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    forms = {KST.OFF_CHIP: "off chip", KST.ON_CHIP_X: "x on chip",
+             KST.ON_CHIP_X_EFF: "x and x_eff on chip"}
     worst, entry = 0.0, None
     for name, imgs, m, alpha, nb, c in cases:
         x = torch.from_numpy(imgs).to(dev)
+        grid = (1,) * (4 - x.dim()) + tuple(x.shape[1:])
+        plan = KST.stencil_plan(*grid, nb)
         v0, tol = SV.stencil_lane_init(x, c, 5e-3)
         v, delta, it = KST.stencil_solve(x, v0, tol, m, alpha, nb, 300)
         torch.cuda.synchronize()
@@ -1416,19 +1458,28 @@ def check_stencil(KST, SV, noisy_imgs, phantom, dev, card):
         worst = max(worst, err)
         line = (f"  stencil {name}: iters equal {sorted(set(it_np.tolist()))}"
                 f", max |dv| {err:.3g}, repeats bit for bit, lane 0 alone "
-                f"bit-equal")
+                f"bit-equal; {plan.ranks} blocks a lane, {forms[plan.form]}, "
+                f"{plan.smem_bytes} B of shared memory a block")
         if entry is None:
             b, n = x.shape[0], x[0].numel()
-            ms = time_ms(lambda: KST.stencil_solve(x, v0, tol, m, alpha, nb,
-                                                   300), reps=5, rounds=5)
+            call = lambda: KST.stencil_solve(  # noqa: E731
+                x, v0, tol, m, alpha, nb, 300)
+            ms = time_ms(call, reps=5, rounds=5)
+            dev_ms, per = device_ms(call)
             plain_ms = time_ms(lambda: KST.stencil_solve_plain(
                 x, v0, tol, m, alpha, nb, 300), reps=1, rounds=3)
             bnd, by = bound_ms(4 * (b * n + 2 * b * c + 3 * b),
                                _stencil_ops([n] * b, it_np.tolist(), c, nb))
-            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                         library_ms=None)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                     f"{bnd:.5f} ms ({by}) [{card}]")
+            active = lib.fcm_stencil_active_clusters(*grid, c, nb, plan.ranks,
+                                                     plan.form)
+            entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bnd, bound_by=by, library_ms=None)
+            line += (f"; {active} clusters active at once for {b} lanes; "
+                     f"kernel {ms:.4f} ms, device "
+                     + ("not measured" if dev_ms is None else
+                        f"{dev_ms:.4f} ms ({_kernel_names(per)})")
+                     + f", plain {plain_ms:.4f} ms, bound {bnd:.5f} ms ({by})"
+                     f" [{card}]")
         print(line)
     return dict(max_abs_err=worst, **entry)
 
@@ -1727,7 +1778,9 @@ def check_selective_scan(KSS, dev, card):
               f"bit")
     b, s, di, ds = SELSCAN_CASES[0]
     ins = selscan_inputs(b, s, di, ds, seed=0, dev=dev)
-    ms = time_ms(lambda: KSS.selective_scan(*ins), reps=10, rounds=5)
+    call = lambda: KSS.selective_scan(*ins)  # noqa: E731
+    ms = time_ms(call, reps=10, rounds=5)
+    dev_ms, per = device_ms(call)
     plain_ms = time_ms(lambda: KSS.selective_scan_ref(*ins), reps=1,
                        rounds=3)
     # u, dt, y: 12 B a (b, t, channel); B_t, C_t; A. Per state element:
@@ -1735,12 +1788,30 @@ def check_selective_scan(KSS, dev, card):
     # dt*u a channel
     bnd, by = bound_ms(4 * (3 * b * s * di + 2 * b * s * ds + di * ds),
                        6 * b * s * di * ds + b * s * di)
-    print(f"  selective_scan {SELSCAN_CASES[0]}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library -, bound {bnd:.5f} ms ({by}) "
-          f"[{card}]")
+    # the chunked design's own traffic besides: u and dt read again by the
+    # second walk; the end states written, read and rewritten by the carry,
+    # read by the second walk; the dt sums written and read
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = KSS.chunk_len(b, s, di, sm)
+    shapes = KSS.workspace_shapes(b, s, di, ds, chunk)
+    ws = sum(4 * int(np.prod(sh)) for sh in shapes) if shapes else 0
+    n_c = -(-s // chunk)
+    extra = 8 * b * s * di + (4 * 4 * int(np.prod(shapes[0]))
+                              + 2 * 4 * int(np.prod(shapes[1]))
+                              if shapes else 0)
+    print(f"  selective_scan {SELSCAN_CASES[0]}: chunks of L = {chunk} "
+          f"positions ({n_c} chunks, {sm} SMs), workspace {ws} B, "
+          f"{3 if shapes else 1} CUDA launches a call; the design moves "
+          f"{extra} B besides the bound's, {bound_ms(extra, 0)[0]:.5f} ms "
+          f"at the card's peak")
+    print(f"  selective_scan {SELSCAN_CASES[0]}: kernel {ms:.4f} ms, device "
+          + ("not measured" if dev_ms is None else
+             f"{dev_ms:.4f} ms ({_kernel_names(per)})")
+          + f", plain {plain_ms:.4f} ms, library -, bound {bnd:.5f} ms "
+          f"({by}) [{card}]")
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=None)
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
 
 
 def jamba_forward(TC, TLM, TO, TT, L, S, counters, dev, card):
@@ -1933,10 +2004,17 @@ def main(dev=None):
     require(lib.slic_max_center_bytes() == KS.MAX_CENTER_BYTES,
             "the SLIC kernel's center-table bound disagrees with "
             "slic_assign.MAX_CENTER_BYTES")
-    require((lib.fcm_stencil_max_pixels(), lib.fcm_stencil_max_c())
-            == (KST.MAX_PIXELS, KST.MAX_C)
+    require((lib.fcm_stencil_max_pixels(), lib.fcm_stencil_max_c(),
+             lib.fcm_stencil_max_cluster())
+            == (KST.MAX_PIXELS, KST.MAX_C, KST.MAX_CLUSTER)
             and KST.STENCIL_MAX_PIXELS <= KST.MAX_PIXELS,
             "the stencil whole-solve's bounds disagree with fcm_stencil's")
+    for grid in ((1, 217, 181, 8), (8, 64, 64, 6), (1, 512, 512, 8),
+                 (1, 1024, 1024, 8)):
+        plan = KST.stencil_plan(*grid)
+        require(lib.fcm_stencil_smem_bytes(*grid, plan.ranks, plan.form)
+                == plan.smem_bytes, f"the stencil kernel's shared memory at "
+                f"{grid} disagrees with fcm_stencil.stencil_plan's {plan}")
     require((lib.fcm_spatial_tile_w(), lib.fcm_spatial_tile_h())
             == (KSP.TILE_W, KSP.TILE_H),
             "the step kernels' tile disagrees with fcm_spatial.TILE_W/H")

@@ -1,0 +1,204 @@
+#!/usr/bin/env python3
+"""Times the selective-scan and the stencil whole-solve kernels of one
+source tree on the card, at the shapes their main paths give them, so
+that two commits can be compared on one card, in one run.
+
+    python3 kernel_ab.py [--tree DIR] [--label NAME]
+
+``--tree`` is the root of a checkout (default: the one holding this
+script); its ``src`` goes first on ``sys.path``, so its ``repro_torch``
+is imported and its kernels build into its own ``build/kernels``. Only
+the wrappers' public signatures are used, so an older checkout (for
+example a ``git archive`` of the parent commit, unpacked under
+``build/``) runs too. Compare two trees only within one call, in turns:
+parent, change, change, parent. Needs one CUDA card; prints the card's
+name and power limit, then one JSON line:
+
+    {"label": ..., "card": ..., "selective_scan": {...},
+     "stencil_solve": {...}}
+
+with, per kernel, the CUDA-event median of back-to-back wrapper calls
+(``ms``) and the profiler's device time a call (``device_ms``, every
+launch of the call summed). A tree whose stencil whole-solve takes a
+plan (``stencil_plan``) also times it at the fewest blocks that hold a
+217x181 lane and at the plan's, on the bucket and on one lane alone
+(``by_blocks``).
+
+The shapes: the selective scan at (B, S, d_inner, d_state) = (1, 4096,
+8192, 16), the width of jamba-v0.1-52b's mixers at train_4k's length,
+on the inputs ``chip_smoke.py`` phase 8a draws; the stencil whole-solve
+on the spatial route's bucket, 64 noisy 217x181 slices of the noisy
+181-slice phantom volume (8 neighbors, alpha 1, c = 4, m = 2, eps 5e-3),
+as phase 7 draws them, and on single noisy 2-D lanes (``b1_ms``): a
+217x181 slice, and 2^16 and 2^18 pixels, the whole-solve's side of phase
+7's dispatch sweep.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "?"
+
+
+def event_ms(torch, fn, reps, rounds):
+    """Median over ``rounds`` of the CUDA-event time of ``reps``
+    back-to-back calls, divided by ``reps``, after a warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        per.append(start.elapsed_time(stop) / reps)
+    return float(np.median(per))
+
+
+def device_ms(torch, fn, calls):
+    """The profiler's device time of one call: each kernel's mean time a
+    launch times its launches a call (the profiler's count over
+    ``calls``, rounded and at least 1: it may drop some launches'
+    events), summed; and the kernels it saw (name: launches a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and not e.key.startswith("Activity Buffer"):
+            n = max(1, round(e.count / calls))
+            total += us / e.count * n
+            names[e.key[:48]] = n
+    return (total / 1e3 if total else None), names
+
+
+def blocks_sweep(torch, KST, SV, phantom, bucket, dev):
+    """A tree with ``stencil_plan``: the whole-solve launched at other
+    cluster sizes than its plan's, the fewest blocks that hold a 217x181
+    lane with its x_eff and the plan's, on the bucket and on one lane
+    alone: {"bucket" | "alone": {blocks: ms}}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcm_membership import exponent
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    img = phantom.noisy_phantom_slice(217, 181, seed=217)[0]
+    alone = torch.from_numpy(img.astype(np.float32)[None]).to(dev)
+    plan = KST.stencil_plan(1, 217, 181, 8)
+    fewest = min(r for r in range(1, KST.MAX_CLUSTER + 1)
+                 if KST.onchip_bytes(1, 217, 181, 8, r, plan.form)
+                 <= KST.SMEM_BUDGET)
+    out = {}
+    for name, x in (("bucket", bucket), ("alone", alone)):
+        b = x.shape[0]
+        v0, tol = SV.stencil_lane_init(x, 4, 5e-3)
+        v = torch.empty((b, 4), device=dev)
+        delta = torch.empty((b,), device=dev)
+        iters = torch.empty((b,), dtype=torch.int32, device=dev)
+
+        def call(ranks):
+            err = lib.fcm_stencil_solve(
+                x.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, 1, 217, 181,
+                4, 8, 1.0, 2.0, 2.0, exponent(2.0), 300, ranks, plan.form,
+                v.data_ptr(), delta.data_ptr(), iters.data_ptr(), stream)
+            assert err == 0, err
+        out[name] = {r: event_ms(torch, lambda: call(r), 3, 3)
+                     for r in sorted({fewest, plan.ranks})}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core import solver as SV
+    from repro_torch.data import phantom
+    from repro_torch.kernels import fcm_stencil as KST
+    from repro_torch.kernels import selective_scan as KSS
+    import repro_torch
+    assert os.path.dirname(os.path.dirname(repro_torch.__file__)) == \
+        os.path.join(tree, "src"), repro_torch.__file__
+    card = card_line()
+    print(card)
+    dev = torch.device("cuda")
+    out = {"label": args.label or tree, "card": card}
+
+    # the selective scan, phase 8a's full-width inputs (seed 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    b, s, di, ds = 1, 4096, 8192, 16
+    u = torch.randn((b, s, di), generator=g, device=dev)
+    dt = torch.rand((b, s, di), generator=g, device=dev) * 0.099 + 1e-3
+    bm = torch.randn((b, s, ds), generator=g, device=dev)
+    cm = torch.randn((b, s, ds), generator=g, device=dev)
+    a = -(torch.rand((di, ds), generator=g, device=dev) * 3.5 + 0.5)
+    scan = lambda: KSS.selective_scan(u, dt, bm, cm, a)  # noqa: E731
+    before = KSS.selective_scan.launches
+    scan()
+    torch.cuda.synchronize()
+    assert KSS.selective_scan.launches == before + 1
+    dms, names = device_ms(torch, scan, 10)
+    out["selective_scan"] = dict(shape=[b, s, di, ds],
+                                 ms=event_ms(torch, scan, 10, 5),
+                                 device_ms=dms, kernels=names)
+
+    # the stencil whole-solve, phase 7's bucket of 64 noisy slices
+    vol, _ = phantom.noisy_phantom_volume(181, 217, 181)
+    pick = np.linspace(0, 180, 64).round().astype(int)
+    x = torch.from_numpy(vol[pick].astype(np.float32)).to(dev)
+    v0, tol = SV.stencil_lane_init(x, 4, 5e-3)
+    st = lambda: KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)  # noqa
+    _, _, it = st()
+    torch.cuda.synchronize()
+    dms, names = device_ms(torch, st, 5)
+    out["stencil_solve"] = dict(
+        shape=list(x.shape), iters=sorted(set(it.cpu().tolist())),
+        ms=event_ms(torch, st, 5, 5), device_ms=dms, kernels=names)
+    single = {}
+    for h, w in ((217, 181), (256, 256), (512, 512)):
+        img = phantom.noisy_phantom_slice(h, w, seed=h)[0]
+        x1 = torch.from_numpy(img.astype(np.float32)[None]).to(dev)
+        v1, tol1 = SV.stencil_lane_init(x1, 4, 5e-3)
+        single[h * w] = event_ms(torch, lambda: KST.stencil_solve(
+            x1, v1, tol1, 2.0, 1.0, 8, 300), 3, 3)
+    out["stencil_solve"]["b1_ms"] = single
+    if hasattr(KST, "stencil_plan"):
+        out["stencil_solve"]["by_blocks"] = blocks_sweep(
+            torch, KST, SV, phantom, x, dev)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -64,11 +64,18 @@ SIGNATURES = {
     "fcm_spatial_tile_w": (),
     "fcm_spatial_tile_h": (),
     "fcm_stencil_solve": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-                          _I, _P, _P, _P, _P),
+                          _I, _I, _I, _P, _P, _P, _P),
     "fcm_stencil_max_pixels": (),
     "fcm_stencil_max_c": (),
-    "selective_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "fcm_stencil_max_cluster": (),
+    "fcm_stencil_smem_bytes": (_I, _I, _I, _I, _I, _I),
+    "fcm_stencil_active_clusters": (_I, _I, _I, _I, _I, _I, _I),
+    "selective_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _P),
 }
+
+#: return types other than int
+RESTYPES = {"fcm_stencil_smem_bytes": _L}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -156,7 +163,7 @@ def library() -> ctypes.CDLL:
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
         return lib
 

@@ -486,6 +486,7 @@ def _selscan_reference(**_):
 
 @register_step("selscan", "cuda", platforms=("cuda",))
 def _selscan_cuda(**_):
-    """A group of d_state lanes a (batch, channel), the state in
-    registers for the whole sequence."""
+    """A chunked scan: one thread a (batch, chunk, channel) with the
+    d_state vector in registers, the chunks' end states carried across
+    in order."""
     return KSS.selective_scan

@@ -4,11 +4,18 @@ and A (di, ds), float32,
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t,   h_0 = 0,
     y_t = <h_t, C_t>  (over ds)                   -> y (B, S, di).
 
-:func:`selective_scan` launches the CUDA kernel (``csrc/selective_scan.cu``,
+:func:`selective_scan` launches the CUDA kernels (``csrc/selective_scan.cu``,
 replacing ``repro/kernels/selective_scan.py::selective_scan_pallas``) on
 CUDA tensors and runs :func:`selective_scan_ref`, the plain recurrence,
-on CPU tensors. The kernel takes any S and di (the TPU kernel's
+on CPU tensors. The kernels take any S and di (the TPU kernel's
 ``S % seq_blk`` and ``di % di_tile`` are VMEM tilings) and d_state <= 32.
+
+The kernels run a chunked scan: S is cut into chunks of
+:func:`chunk_len` positions, each walked from zero state (one launch),
+the chunks' end states carried across in order (a second), and each
+chunk walked again from its carried-in state to write y (a third); one
+chunk takes the last launch alone. A call is one count of
+``selective_scan.launches`` whatever its number of CUDA launches.
 """
 from __future__ import annotations
 
@@ -16,9 +23,40 @@ import torch
 
 from . import _build
 
-#: the largest d_state the kernel takes (one state element a lane of a
-#: group of at most one warp)
+#: the largest d_state the kernel takes (the state vector of one thread)
 MAX_STATE = 32
+#: the fewest positions a chunk holds (the carry costs a chunk's
+#: d_state loads and stores, worth it only over enough positions)
+MIN_CHUNK = 32
+#: the threads of the two walks an SM should be offered: enough chunks
+#: that B * d_inner * chunks reaches this times the SM count
+THREADS_PER_SM = 2048
+#: the most chunks a launch's grid takes (its y dimension)
+MAX_CHUNKS = 65535
+
+
+def chunk_len(b: int, s: int, di: int, sm_count: int) -> int:
+    """Positions a chunk of the scan, from the shape and the card's SM
+    count alone (never the values, so a shape's bits are fixed on a
+    card): enough chunks that ``b * di * chunks`` threads offer every SM
+    :data:`THREADS_PER_SM`, at least :data:`MIN_CHUNK` positions each,
+    at most ``s``."""
+    if min(b, s, di, sm_count) < 1:
+        raise ValueError(f"chunk_len takes positive sizes, got b={b}, "
+                         f"s={s}, di={di}, sm_count={sm_count}")
+    want = -(-sm_count * THREADS_PER_SM // (b * di))
+    chunk = max(MIN_CHUNK, -(-s // want), -(-s // MAX_CHUNKS))
+    return min(s, chunk)
+
+
+def workspace_shapes(b: int, s: int, di: int, ds: int, chunk: int):
+    """The kernels' workspace for a chunk length: ``((b, n_c - 1, ds,
+    di), (b, n_c - 1, di))`` float32 (end states, dt sums), ``None``
+    when the scan is one chunk."""
+    n_c = -(-s // chunk)
+    if n_c == 1:
+        return None
+    return (b, n_c - 1, ds, di), (b, n_c - 1, di)
 
 
 def selective_scan_ref(u, dt, bmat, cmat, a):
@@ -39,7 +77,7 @@ def selective_scan_ref(u, dt, bmat, cmat, a):
 def selective_scan(u, dt, bmat, cmat, a):
     """``u``, ``dt`` (B, S, di), ``bmat``, ``cmat`` (B, S, ds), ``a``
     (di, ds), float32 -> ``y`` (B, S, di) float32. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    plain version; a CUDA tensor launches the kernels or raises."""
     if u.dim() != 3 or bmat.dim() != 3 or a.dim() != 2:
         raise ValueError("selective_scan takes u, dt (B, S, di), bmat, "
                          "cmat (B, S, ds), a (di, ds)")
@@ -69,13 +107,22 @@ def selective_scan(u, dt, bmat, cmat, a):
     y = torch.empty((b, s, di), dtype=torch.float32, device=u.device)
     if s == 0 or di == 0:
         return y
+    chunk = chunk_len(b, s, di, torch.cuda.get_device_properties(
+        u.device).multi_processor_count)
+    shapes = workspace_shapes(b, s, di, ds, chunk)
+    hws, dws = (None, None) if shapes is None else (
+        torch.empty(sh, dtype=torch.float32, device=u.device)
+        for sh in shapes)
     _build.check(_build.library().selective_scan_f32(
         u.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-        a.data_ptr(), b, s, di, ds, y.data_ptr(), _build.stream_of(u)),
-        "selective_scan_f32")
+        a.data_ptr(), b, s, di, ds, chunk,
+        None if hws is None else hws.data_ptr(),
+        None if dws is None else dws.data_ptr(), y.data_ptr(),
+        _build.stream_of(u)), "selective_scan_f32")
     selective_scan.launches += 1
     return y
 
 
-#: kernel launches since the count was last set to 0
+#: wrapper calls that launched the kernels since the count was last set
+#: to 0
 selective_scan.launches = 0

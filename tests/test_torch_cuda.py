@@ -463,3 +463,87 @@ def test_selective_scan_kernel_matches_plain(dev, b, s, di, ds):
     want = KSS.selective_scan_ref(u, dt, bm, cm, a)
     err = float((y - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def _scan_inputs(b, s, di, ds, seed, dt_range=(1e-3, 0.1)):
+    rng = np.random.default_rng(seed)
+    f32 = lambda v: torch.from_numpy(v.astype(np.float32)).cuda()  # noqa
+    return (f32(rng.normal(0, 1, (b, s, di))),
+            f32(rng.uniform(*dt_range, (b, s, di))),
+            f32(rng.normal(0, 1, (b, s, ds))), f32(rng.normal(0, 1, (b, s, ds))),
+            -f32(rng.uniform(0.5, 4, (di, ds))))
+
+
+@pytest.mark.parametrize("b,s,di,ds", [
+    (1, 1, 64, 16),                  # S = 1: one chunk of one position
+    (1, 20, 200, 4),                 # S under MIN_CHUNK: one chunk, L = S
+    (1, 100, 96, 8),                 # S not a multiple of L: 4 chunks, last 4
+    (2, 300, 130, 16),               # B = 2, ragged channels and chunks
+    (1, 257, 64, 1), (1, 257, 64, 4), (1, 257, 64, 8), (1, 257, 64, 16),
+    (1, 257, 64, 32), (2, 1000, 48, 5)])
+def test_chunked_scan_matches_plain_and_repeats(dev, b, s, di, ds):
+    ins = _scan_inputs(b, s, di, ds, seed=s * di + ds)
+    before = KSS.selective_scan.launches
+    y = KSS.selective_scan(*ins)
+    assert KSS.selective_scan.launches == before + 1
+    assert torch.equal(y, KSS.selective_scan(*ins))
+    want = KSS.selective_scan_ref(*ins)
+    err = float((y - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_chunked_scan_where_the_decay_underflows_within_a_chunk(dev):
+    """dt up to 40 against A down to -4: exp(dt A) reaches 0 inside a
+    chunk and the carried-in state must vanish, not turn into NaN."""
+    ins = _scan_inputs(2, 500, 96, 16, seed=5, dt_range=(0.5, 40.0))
+    y = KSS.selective_scan(*ins)
+    want = KSS.selective_scan_ref(*ins)
+    assert torch.isfinite(y).all()
+    err = float((y - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+    assert torch.equal(y, KSS.selective_scan(*ins))
+
+
+def _fit_edge(w, neighbors=8):
+    """Rows h of a (h, w) lane: the last on the chip, the first off it."""
+    h = 1
+    while KST.stencil_plan(1, h + 1, w, neighbors).form != KST.OFF_CHIP:
+        h += 1
+    return h, h + 1
+
+
+@pytest.mark.parametrize("side", ["inside", "past"])
+def test_stencil_lanes_at_the_onchip_fit(dev, side):
+    inside, past = _fit_edge(512)
+    h = inside if side == "inside" else past
+    plan = KST.stencil_plan(1, h, 512, 8)
+    assert (plan.form == KST.OFF_CHIP) == (side == "past")
+    x = torch.from_numpy(_noisy_lanes(2, (h, 512), seed=h)).to(dev)
+    v0, tol = TS.stencil_lane_init(x, 4, 5e-3)
+    v, delta, it = KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)
+    pv, _, pit = KST.stencil_solve_plain(x, v0, tol, 2.0, 1.0, 8, 300)
+    assert torch.equal(it, pit)
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    again = KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)
+    assert torch.equal(again[0], v) and torch.equal(again[1], delta)
+
+
+@pytest.mark.parametrize("shape,neighbors,c,m", [
+    ((5, 19, 23), 6, 4, 2.0), ((8, 64, 64), 6, 8, 1.6),
+    ((217, 181), 8, 8, 1.6), ((37, 61), 4, 8, 1.6),
+    ((512, 512), 8, 4, 2.0)])       # x on chip, x_eff recomputed
+def test_stencil_forms_match_plain_and_lane_alone(dev, shape, neighbors, c,
+                                                  m):
+    x = torch.from_numpy(_noisy_lanes(3, shape, seed=len(shape) + c)).to(dev)
+    v0, tol = TS.stencil_lane_init(x, c, 5e-3)
+    v, delta, it = KST.stencil_solve(x, v0, tol, m, 1.0, neighbors, 300)
+    pv, _, pit = KST.stencil_solve_plain(x, v0, tol, m, 1.0, neighbors, 300)
+    assert torch.equal(it, pit)
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    v1, delta1, it1 = KST.stencil_solve(
+        x[1:2].contiguous(), v0[1:2].contiguous(), tol[1:2].contiguous(), m,
+        1.0, neighbors, 300)
+    assert torch.equal(v1[0], v[1]) and torch.equal(delta1[0], delta[1])
+    assert torch.equal(it1[0], it[1])

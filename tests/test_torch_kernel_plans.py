@@ -1,0 +1,195 @@
+"""The shape plans of the port's redesigned kernels, on the CPU.
+
+The chunked selective scan (``csrc/selective_scan.cu``) cuts S into
+chunks of :func:`chunk_len` positions, walks each chunk from zero state,
+carries the end states across the chunks with ``exp(A * sum dt)`` and
+walks each chunk again from its carried-in state. A float32 numpy model
+of that decomposition, in the kernel's order, is held here against the
+JAX package's oracle and the port's plain recurrence on the same seeded
+inputs, at ``chip_smoke.py``'s scan tolerance (1e-4 of max |y|).
+
+The stencil whole-solve (``csrc/fcm_stencil.cu``) takes its cluster size
+and form from :func:`stencil_plan`; its shared-memory count and the
+bands it implies are checked here. The kernels themselves run only on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import fcm_stencil as KST
+from repro_torch.kernels import selective_scan as KSS
+
+SCAN_TOL = 1e-4
+
+
+def _scan_data(b, s, di, ds, seed, dt_range=(1e-3, 0.1)):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, s, di)).astype(np.float32),
+            rng.uniform(*dt_range, (b, s, di)).astype(np.float32),
+            rng.normal(0, 1, (b, s, ds)).astype(np.float32),
+            rng.normal(0, 1, (b, s, ds)).astype(np.float32),
+            -rng.uniform(0.5, 4.0, (di, ds)).astype(np.float32))
+
+
+def chunked_scan_model(u, dt, bm, cm, a, chunk):
+    """The kernels' three launches in float32 numpy: walk every chunk but
+    the last from zero state (end state, dt sum), carry across the chunks,
+    walk every chunk again from its carried-in state."""
+    f32 = np.float32
+    b, s, di = u.shape
+    a2 = (a * f32(1.4426950408889634)).astype(f32)           # (di, ds)
+    n_c = -(-s // chunk)
+
+    def walk(k, h):
+        ys, dsum = [], np.zeros((b, di), f32)
+        for t in range(k * chunk, min(s, (k + 1) * chunk)):
+            da = np.exp2(dt[:, t, :, None] * a2).astype(f32)
+            dtu = (dt[:, t] * u[:, t])[..., None]
+            h = (da * h + dtu * bm[:, t, None, :]).astype(f32)
+            ys.append((h * cm[:, t, None, :]).sum(-1, dtype=f32))
+            dsum = (dsum + dt[:, t]).astype(f32)
+        return h, dsum, ys
+
+    zero = np.zeros((b, di, a.shape[1]), f32)
+    h_in = [zero]
+    for k in range(n_c - 1):
+        end, dsum, _ = walk(k, zero)
+        decay = np.exp2(a2 * dsum[..., None]).astype(f32)
+        h_in.append((decay * h_in[-1] + end).astype(f32))
+    ys = [y for k in range(n_c) for y in walk(k, h_in[k])[2]]
+    return np.stack(ys, axis=1)
+
+
+@pytest.mark.parametrize("b,s,di,ds,chunk,dt_range", [
+    (1, 1, 8, 4, None, (1e-3, 0.1)),        # S = 1: one chunk
+    (1, 20, 16, 4, 64, (1e-3, 0.1)),        # S < L
+    (1, 100, 12, 8, 32, (1e-3, 0.1)),       # S not a multiple of L
+    (2, 130, 10, 16, 64, (1e-3, 0.1)),      # B = 2
+    (1, 257, 6, 1, 32, (1e-3, 0.1)), (1, 96, 5, 32, 7, (1e-3, 0.1)),
+    (2, 200, 8, 16, 32, (0.5, 40.0))])      # the decay underflows in a chunk
+def test_chunked_scan_model_matches_jax_and_plain(b, s, di, ds, chunk,
+                                                  dt_range):
+    ins = _scan_data(b, s, di, ds, seed=s + di + ds, dt_range=dt_range)
+    chunk = chunk or KSS.chunk_len(b, s, di, 132)
+    got = chunked_scan_model(*ins, chunk)
+    want = np.asarray(jref.selective_scan_ref(*[jnp.asarray(x)
+                                                for x in ins]))
+    plain = KSS.selective_scan(*[torch.from_numpy(x)
+                                 for x in ins]).numpy()
+    top = float(np.abs(want).max())
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= SCAN_TOL * top
+    assert float(np.abs(plain - want).max()) <= SCAN_TOL * top
+
+
+@pytest.mark.parametrize("b,s,di,sm,want", [
+    (1, 4096, 8192, 132, 125),      # jamba's mixers at train_4k: 33 chunks
+    (2, 128, 128, 132, 32),         # the reduced train step: MIN_CHUNK
+    (1, 100, 96, 132, 32), (1, 1, 16, 132, 1), (1, 20, 200, 132, 20),
+    (4, 4096, 8192, 132, 456), (1, 4096, 8192, 66, 241)])
+def test_chunk_len_from_the_shape_and_the_sm_count(b, s, di, sm, want):
+    chunk = KSS.chunk_len(b, s, di, sm)
+    assert chunk == want
+    n_c = -(-s // chunk)
+    assert 1 <= chunk <= s and n_c <= KSS.MAX_CHUNKS
+    # enough chunks to offer every SM its threads, unless a chunk is
+    # already at the floor of MIN_CHUNK positions (or the whole sequence)
+    assert (b * di * n_c >= sm * KSS.THREADS_PER_SM
+            or chunk in (KSS.MIN_CHUNK, s))
+
+
+def test_chunk_len_caps_the_chunk_count_and_rejects_empty_shapes():
+    s = 10 * KSS.MAX_CHUNKS * KSS.MIN_CHUNK
+    assert -(-s // KSS.chunk_len(1, s, 1, 132)) <= KSS.MAX_CHUNKS
+    with pytest.raises(ValueError):
+        KSS.chunk_len(1, 0, 8, 132)
+
+
+def test_scan_workspace_holds_every_chunk_but_the_last():
+    assert KSS.workspace_shapes(1, 4096, 8192, 16, 125) == (
+        (1, 32, 16, 8192), (1, 32, 8192))
+    assert KSS.workspace_shapes(2, 64, 8, 4, 64) is None
+    assert KSS.workspace_shapes(2, 65, 8, 4, 64) == ((2, 1, 4, 8), (2, 1, 8))
+
+
+def test_the_route_bucket_lane_is_held_on_chip_in_eight_blocks():
+    """A 217x181 BrainWeb slice: 8 blocks of 28 rows, x with its two halo
+    rows and x_eff, 41 992 B each (two blocks share an SM)."""
+    plan = KST.stencil_plan(1, 217, 181, 8)
+    assert plan == KST.StencilPlan(8, KST.ON_CHIP_X_EFF,
+                                   4 * 181 * (28 + 2 + 28))
+
+
+def _plan_grids():
+    grids = [(1, h, w, nb) for h, w in ((1, 1), (1, 300), (37, 61),
+                                        (217, 181), (256, 256), (512, 512),
+                                        (880, 512), (881, 512),
+                                        (1024, 1024), (4000, 256))
+             for nb in (4, 8)]
+    return grids + [(d, h, w, 6) for d, h, w in ((1, 5, 7), (5, 19, 23),
+                                                 (8, 64, 64), (16, 128, 128),
+                                                 (64, 128, 128))]
+
+
+@pytest.mark.parametrize("grid", _plan_grids())
+def test_stencil_plan_follows_its_rule(grid):
+    depth, h, w, nb = grid
+    plan = KST.stencil_plan(*grid)
+    n = depth * h * w
+    top = min(KST.MAX_CLUSTER, depth if nb == 6 else h)
+
+    def fits(r, form):
+        return KST.onchip_bytes(depth, h, w, nb, r, form) <= KST.SMEM_BUDGET
+
+    if plan.form == KST.OFF_CHIP:
+        assert not any(fits(r, f) for r in range(1, top + 1)
+                       for f in (KST.ON_CHIP_X, KST.ON_CHIP_X_EFF))
+        assert plan.ranks == min(KST.MAX_CLUSTER,
+                                 -(-n // KST.PIXELS_PER_BLOCK))
+        assert plan.smem_bytes == 0
+        return
+    if plan.form == KST.ON_CHIP_X:     # x_eff fits no cluster
+        assert not any(fits(r, KST.ON_CHIP_X_EFF) for r in range(1, top + 1))
+    fewest = min(r for r in range(1, top + 1) if fits(r, plan.form))
+    assert plan.ranks == max(fewest, min(
+        top, -(-n // KST.PIXELS_PER_BLOCK)))
+    assert plan.smem_bytes == KST.onchip_bytes(depth, h, w, nb, plan.ranks,
+                                               plan.form) <= KST.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("grid", _plan_grids())
+def test_stencil_bands_cover_the_lane_once(grid):
+    """The kernel's split of the rows (planes) over the cluster: every
+    unit in exactly one band, every band with its halo inside the block's
+    shared memory."""
+    depth, h, w, nb = grid
+    plan = KST.stencil_plan(*grid)
+    if plan.form == KST.OFF_CHIP:
+        return
+    unit, n_units = (h * w, depth) if nb == 6 else (w, h)
+    per = -(-n_units // plan.ranks)
+    seen = []
+    for r in range(plan.ranks):
+        u0 = min(n_units, r * per)
+        u1 = min(n_units, u0 + per)
+        seen.extend(range(u0, u1))
+        held = (per + 2) * unit * 4 + (per * unit * 4 if plan.form ==
+                                       KST.ON_CHIP_X_EFF else 0)
+        assert held == plan.smem_bytes
+    assert seen == list(range(n_units))
+
+
+def test_the_onchip_fit_edge_at_512_columns():
+    """880 rows of 512 hold x alone in 8 blocks of 229 376 B; 881 do not
+    fit, and take the off-chip form."""
+    inside = KST.stencil_plan(1, 880, 512, 8)
+    assert inside == KST.StencilPlan(8, KST.ON_CHIP_X, 4 * 512 * (110 + 2))
+    assert KST.stencil_plan(1, 881, 512, 8).form == KST.OFF_CHIP
+
+
+def test_stencil_plan_rejects_an_empty_grid():
+    with pytest.raises(ValueError):
+        KST.stencil_plan(1, 0, 5, 8)
