@@ -8,7 +8,9 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
 
 1. card: require CUDA, print the card's name and power limit;
 2. build: compile every kernel under ``src/repro_torch/csrc`` for
-   ``sm_90a`` and print the build time and ptxas' register report;
+   ``sm_90a``, print the build time and ptxas' register report, and hold
+   the library's exported bounds and plan constants against the Python
+   plans (the stencil whole-solve's, the 3-D march's, the SLIC tile's);
 3. kernels: call each kernel's wrapper on tensors on the card at the
    serving path's shapes, hold the result against its plain PyTorch
    version on the same inputs, and time kernel, plain version and the
@@ -30,7 +32,8 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
 6. routes: hold the HBM-streamed whole-solve and the SLIC assignment
    kernels against their plain versions (BrainWeb slices, the 1000 KB
    image, 512x512 RGB, ragged and degenerate lanes; SLIC labels equal
-   up to float64-checked near-ties); serve the 181-slice volume, the
+   up to float64-checked near-ties; the SLIC tile, its cell window and
+   device time); serve the 181-slice volume, the
    1000 KB image and a bucket of RGB slices through the pixel route and
    RGB slices plus a 512x512 RGB image through the superpixel route,
    each with the launch counts set to 0 just before and read just after,
@@ -45,7 +48,8 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    grids; ragged lanes and an 8x64x64 volume for the whole-solve), each
    case twice and bit-equal, a whole-solve lane alone bit-equal to
    itself in its bucket, with each case's cluster size, form and shared
-   memory a block, and the bucket's active clusters and device time;
+   memory a block, and the bucket's active clusters and device time; the
+   3-D step's march plan for each volume and its device time;
    ``solve(spatial_problem)`` on the card (auto,
    resident, fused, reference) against ``device="cpu"`` with the launch
    counts set to 0 just before and read just after, labels equal up to
@@ -689,8 +693,13 @@ def device_ms(fn, calls=5):
 
 
 def _kernel_names(per):
-    return ", ".join(f"{k.split('(')[0].split('::')[-1][:40]} {us:.2f} us"
-                     f" x{n}" for k, (us, n) in per.items())
+    """Each kernel's bare name (no return type, namespace or arguments),
+    time a launch and launches a call."""
+    def bare(k):
+        k = k.replace("(anonymous namespace)::", "").removeprefix("void ")
+        return k.split("(")[0].split("::")[-1][:40]
+    return ", ".join(f"{bare(k)} {us:.2f} us x{n}"
+                     for k, (us, n) in per.items())
 
 
 def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
@@ -910,23 +919,35 @@ def check_slic(KS, SL, phantom, dev, card):
             timing = (img, cen, gy, gx, sw)
     img, cen, gy, gx, sw = timing
     h, w, d = img.shape
+    inv_sy, inv_sx = KS.cell_reciprocals(h, w, gy, gx)
+    mid = KS.tile_cell_window(h, w, gy, gx, h // KS.TILE_H // 2,
+                              w // KS.TILE_W // 2)
+    print(f"  slic_assign: tiles of {KS.TILE_W}x{KS.TILE_H} pixels, "
+          f"{-(-h // KS.TILE_H) * -(-w // KS.TILE_W)} blocks; a middle tile "
+          f"names cells {mid[0]}-{mid[1]} x {mid[2]}-{mid[3]}; windows of at "
+          f"most {KS.window_span(KS.TILE_H, inv_sy, gy)}x"
+          f"{KS.window_span(KS.TILE_W, inv_sx, gx)} cells, "
+          f"{KS.smem_bytes(h, w, d, gy, gx)} B a block")
     ms = time_ms(lambda: KS.slic_assign(img, cen, gy, gx, sw))
+    dev_ms, per = device_ms(lambda: KS.slic_assign(img, cen, gy, gx, sw))
     plain_ms = time_ms(lambda: KS.slic_assign_plain(img, cen, gy, gx, sw),
                        reps=5, rounds=3)
     # per pixel, nine candidates of D (subtract, square, add) and two
     # spatial terms of (subtract, square, weight, add)
     bnd, by = bound_ms(h * w * (4 * d + 4) + cen.numel() * 4,
                        9 * (3 * d + 8) * h * w)
-    print(f"  slic_assign: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library -, bound {bnd:.5f} ms ({by}) at 512x512 RGB, K={gy * gx}"
-          f" [{card}]")
+    print(f"  slic_assign: kernel {ms:.4f} ms, device "
+          + ("not measured" if dev_ms is None else
+             f"{dev_ms:.4f} ms ({_kernel_names(per)})")
+          + f", plain {plain_ms:.4f} ms, library -, bound {bnd:.5f} ms "
+          f"({by}) at 512x512 RGB, K={gy * gx} [{card}]")
     # a label map's error: the share of pixels whose label differs from
     # the plain version's over the four cases, each a checked near-tie
     print(f"  slic_assign: {n_diff} of {n_px} labels differ from the plain "
           f"version's, all near-ties")
     return dict(max_abs_err=n_diff / n_px, labels_differ=n_diff, ms=ms,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=None)
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=None)
 
 
 def _hold_to_cpu(res, res_cpu, what):
@@ -1383,19 +1404,28 @@ def check_spatial_steps(KSP, cases, card):
         e["max_rel_err"] = max(e["max_rel_err"], rel)
         line = (f"  spatial step {name}: max abs err {err:.3g} (relative "
                 f"{rel:.3g}), repeats bit for bit")
+        if key == "3d":
+            plan = KSP.spatial3d_plan(*x.shape[1:])
+            line += (f"; march: {plan.tile[0]}x{plan.tile[1]} columns a "
+                     f"block, {plan.runs} runs of {plan.z} planes, "
+                     f"{plan.rows * x.shape[0]} blocks and partial rows, "
+                     f"{plan.smem_bytes} B of staged tiles a block")
         if "ms" not in e and (name.startswith("1000 KB 4000")
                               or name.startswith("BrainWeb")):
             n = x[0].numel()
             c = v.shape[1]
             e["ms"] = time_ms(lambda: fn(x, v, m, alpha, *args))
+            e["device_ms"], per = device_ms(lambda: fn(x, v, m, alpha, *args))
             e["plain_ms"] = time_ms(lambda: KSP.spatial_partials_plain(
                 x, v, m, alpha, nb), reps=3, rounds=3)
             e["bound_ms"], e["bound_by"] = bound_ms(4 * (n + 3 * c),
                                                     _step_ops(n, c, nb))
             e["library_ms"] = None
-            line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
-                     f"ms, bound {e['bound_ms']:.5f} ms ({e['bound_by']}) "
-                     f"[{card}]")
+            line += (f"; kernel {e['ms']:.4f} ms, device "
+                     + ("not measured" if e["device_ms"] is None else
+                        f"{e['device_ms']:.4f} ms ({_kernel_names(per)})")
+                     + f", plain {e['plain_ms']:.4f} ms, bound "
+                     f"{e['bound_ms']:.5f} ms ({e['bound_by']}) [{card}]")
         print(line)
     return out["2d"], out["3d"]
 
@@ -2018,6 +2048,18 @@ def main(dev=None):
     require((lib.fcm_spatial_tile_w(), lib.fcm_spatial_tile_h())
             == (KSP.TILE_W, KSP.TILE_H),
             "the step kernels' tile disagrees with fcm_spatial.TILE_W/H")
+    for grid in ((181, 217, 181), (1, 1, 1), (37, 19, 23), (70, 9, 33),
+                 (1, 64, 64)):
+        plan = KSP.spatial3d_plan(*grid)
+        require((lib.fcm_spatial3d_tile_w(), lib.fcm_spatial3d_tile_h())
+                == plan.tile and lib.fcm_spatial3d_tile_bytes()
+                == plan.smem_bytes and lib.fcm_spatial3d_rows(*grid, plan.z)
+                == plan.rows, f"the 3-D march's grid at {grid} disagrees "
+                f"with fcm_spatial.spatial3d_plan's {plan}")
+    require((lib.slic_tile_w(), lib.slic_tile_h(), lib.slic_window_slack())
+            == (KS.TILE_W, KS.TILE_H, KS.WINDOW_SLACK),
+            "the SLIC kernel's tile or window slack disagrees with "
+            "slic_assign's TILE_W/TILE_H/WINDOW_SLACK")
 
     # -- 3. kernels against their plain versions ----------------------------
     job = fcm_brainweb.make_config()

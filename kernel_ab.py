@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Times the selective-scan and the stencil whole-solve kernels of one
-source tree on the card, at the shapes their main paths give them, so
-that two commits can be compared on one card, in one run.
+"""Times four kernels of one source tree on the card (rows 8, 10, 11
+and 12 of PERF.md's kernel table: the stencil whole-solve, the 3-D FCM_S
+step, the SLIC assignment and the selective scan), at the shapes their
+main paths give them, so that two commits can be compared on one card,
+in one run.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -15,14 +17,16 @@ parent, change, change, parent. Needs one CUDA card; prints the card's
 name and power limit, then one JSON line:
 
     {"label": ..., "card": ..., "selective_scan": {...},
-     "stencil_solve": {...}}
+     "stencil_solve": {...}, "spatial_step_3d": {...},
+     "slic_assign": {...}}
 
 with, per kernel, the CUDA-event median of back-to-back wrapper calls
 (``ms``) and the profiler's device time a call (``device_ms``, every
 launch of the call summed). A tree whose stencil whole-solve takes a
 plan (``stencil_plan``) also times it at the fewest blocks that hold a
 217x181 lane and at the plan's, on the bucket and on one lane alone
-(``by_blocks``).
+(``by_blocks``); a tree whose 3-D step takes a plan (``spatial3d_plan``)
+also times the step at other run lengths than its plan's (``by_z``).
 
 The shapes: the selective scan at (B, S, d_inner, d_state) = (1, 4096,
 8192, 16), the width of jamba-v0.1-52b's mixers at train_4k's length,
@@ -31,7 +35,12 @@ on the spatial route's bucket, 64 noisy 217x181 slices of the noisy
 181-slice phantom volume (8 neighbors, alpha 1, c = 4, m = 2, eps 5e-3),
 as phase 7 draws them, and on single noisy 2-D lanes (``b1_ms``): a
 217x181 slice, and 2^16 and 2^18 pixels, the whole-solve's side of phase
-7's dispatch sweep.
+7's dispatch sweep; the 3-D step (kernel and fold) on phase 7's noisy
+181x217x181 volume at B = 1 with its centers (0.6, 51.3, 105.4, 167.6),
+m = 2, alpha 1, the spatial route's volume past the whole-solve bound;
+the SLIC assignment on phase 6's 512x512 RGB phantom (noise 6, seed 0)
+with K = 256 seed centers and compactness 10, the superpixel route's
+request.
 """
 from __future__ import annotations
 
@@ -131,6 +140,31 @@ def blocks_sweep(torch, KST, SV, phantom, bucket, dev):
     return out
 
 
+def z_sweep(torch, KSP, x, v, runs_of):
+    """A tree with ``spatial3d_plan``: the 3-D step launched straight
+    through the library at run lengths ``runs_of``, its scratch
+    allocated once: {z: ms}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcm_membership import exponent
+    lib = _build.library()
+    b, depth, h, w = x.shape
+    c = v.shape[1]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    out = torch.empty((b, 2 * c), device=x.device)
+    res = {}
+    for z in runs_of:
+        rows = lib.fcm_spatial3d_rows(depth, h, w, z)
+        part = torch.empty((b, rows, 2 * c), device=x.device)
+
+        def call():
+            err = lib.fcm_spatial_partials_3d(
+                x.data_ptr(), v.data_ptr(), b, depth, h, w, c, 1.0, 2.0,
+                exponent(2.0), z, part.data_ptr(), out.data_ptr(), stream)
+            assert err == 0, err
+        res[z] = event_ms(torch, call, 10, 5)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
@@ -145,7 +179,10 @@ def main():
     from repro_torch.core import solver as SV
     from repro_torch.data import phantom
     from repro_torch.kernels import fcm_stencil as KST
+    from repro_torch.kernels import fcm_spatial as KSP
     from repro_torch.kernels import selective_scan as KSS
+    from repro_torch.kernels import slic_assign as KS
+    from repro_torch.superpixel import slic as SL
     import repro_torch
     assert os.path.dirname(os.path.dirname(repro_torch.__file__)) == \
         os.path.join(tree, "src"), repro_torch.__file__
@@ -196,6 +233,41 @@ def main():
     if hasattr(KST, "stencil_plan"):
         out["stencil_solve"]["by_blocks"] = blocks_sweep(
             torch, KST, SV, phantom, x, dev)
+
+    # the 3-D FCM_S step, phase 7's noisy volume at B = 1
+    vol3 = torch.from_numpy(phantom.noisy_phantom_volume(181, 217, 181)[0]
+                            .astype(np.float32)[None]).to(dev)
+    v3 = torch.tensor([[0.6, 51.3, 105.4, 167.6]], device=dev)
+    step = lambda: KSP.spatial_partials_3d(vol3, v3, 2.0, 1.0)  # noqa: E731
+    before = KSP.spatial_partials_3d.launches
+    step()
+    torch.cuda.synchronize()
+    assert KSP.spatial_partials_3d.launches == before + 1
+    dms, names = device_ms(torch, step, 10)
+    out["spatial_step_3d"] = dict(shape=list(vol3.shape),
+                                  ms=event_ms(torch, step, 10, 5),
+                                  device_ms=dms, kernels=names)
+    if hasattr(KSP, "spatial3d_plan"):
+        out["spatial_step_3d"]["plan"] = KSP.spatial3d_plan(181, 217,
+                                                            181)._asdict()
+        out["spatial_step_3d"]["by_z"] = z_sweep(torch, KSP, vol3, v3,
+                                                 (4, 8, 12, 16, 24, 32, 64))
+
+    # the SLIC assignment, phase 6's 512x512 RGB image, K = 256
+    rgb = phantom.phantom_slice_rgb(512, 512, noise=6.0, seed=0)[0]
+    img = torch.from_numpy(np.ascontiguousarray(rgb, np.float32)).to(dev)
+    gy, gx = SL.grid_shape(512, 512, 256)
+    sw = SL.spatial_weight(512, 512, gy, gx, 10.0)
+    cen = SL.seed_centers(img, gy, gx).contiguous()
+    assign = lambda: KS.slic_assign(img, cen, gy, gx, sw)  # noqa: E731
+    before = KS.slic_assign.launches
+    assign()
+    torch.cuda.synchronize()
+    assert KS.slic_assign.launches == before + 1
+    dms, names = device_ms(torch, assign, 20)
+    out["slic_assign"] = dict(shape=[512, 512, 3], k=gy * gx,
+                              ms=event_ms(torch, assign, 20, 5),
+                              device_ms=dms, kernels=names)
     print(json.dumps(out))
     return 0
 

@@ -57,12 +57,19 @@ SIGNATURES = {
     "fcm_streamed_max_feat": (),
     "slic_assign": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "slic_max_center_bytes": (),
+    "slic_tile_w": (),
+    "slic_tile_h": (),
+    "slic_window_slack": (),
     "fcm_spatial_partials_2d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
                                 _P, _P),
-    "fcm_spatial_partials_3d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
-                                _P, _P),
+    "fcm_spatial_partials_3d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I,
+                                _P, _P, _P),
     "fcm_spatial_tile_w": (),
     "fcm_spatial_tile_h": (),
+    "fcm_spatial3d_tile_w": (),
+    "fcm_spatial3d_tile_h": (),
+    "fcm_spatial3d_tile_bytes": (),
+    "fcm_spatial3d_rows": (_I, _I, _I, _I),
     "fcm_stencil_solve": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                           _I, _I, _I, _P, _P, _P, _P),
     "fcm_stencil_max_pixels": (),
@@ -75,7 +82,7 @@ SIGNATURES = {
 }
 
 #: return types other than int
-RESTYPES = {"fcm_stencil_smem_bytes": _L}
+RESTYPES = {"fcm_stencil_smem_bytes": _L, "fcm_spatial3d_rows": _L}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -13,17 +13,20 @@ version beside it:
 * :func:`spatial_partials_3d`, 6 neighbors over ``(B, D, H, W)`` lanes
   (replaces ``spatial_partials_pallas_3d``).
 
-One thread a pixel; a block stages a 32 x 8 tile of one slice and its
-one-pixel halo (and, in 3-D, the same tile of the slices above and
-below) in shared memory, reduces it to per-block partials, and a second
-launch folds each lane's partials in a fixed order: no float atomics,
-and a lane's bits depend on its own shape and values only. The grid is
-unpadded: each block masks its edge by coordinates, where the TPU
-kernels pad to (8, 128) tiles and carry a validity sheet.
+In 2-D, one thread a pixel: a block stages a 32 x 8 tile and its
+one-pixel halo in shared memory and reduces it to one partial row. In
+3-D, a block marches a 32 x 8 column of the volume along z over a run of
+planes (:func:`spatial3d_plan`), holding each column's z - 1, z, z + 1
+values in registers and one plane's tile and halo in shared memory, and
+leaves one partial row a run. A second launch folds each lane's rows in
+a fixed order: no float atomics, and a lane's bits depend on its own
+shape and values only. The grid is unpadded: each block masks its edge
+by coordinates, where the TPU kernels pad to (8, 128) tiles and carry a
+validity sheet.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +34,42 @@ import torch
 from . import _build
 from .fcm_membership import MAX_C, exponent
 
-#: the tile one block covers (csrc/fcm_spatial.cu): the partials scratch
-#: holds one (2c,) row per tile and lane
+#: the tile one block of the 2-D kernel covers (csrc/fcm_spatial.cu): the
+#: partials scratch holds one (2c,) row per tile and lane
 TILE_W, TILE_H = 32, 8
+#: the columns one block of the 3-D march covers, one thread a column
+MARCH_W, MARCH_H = 32, 8
+#: planes a block of the 3-D march walks (the last run of a lane may be
+#: shorter)
+Z_RUN = 16
+#: shared memory of the march's staged tiles: two planes of the tile with
+#: their one-pixel halo, float32
+MARCH_TILE_BYTES = 2 * (MARCH_H + 2) * (MARCH_W + 2) * 4
+
+
+class Spatial3dPlan(NamedTuple):
+    """How the 3-D march cuts a (depth, h, w) lane: ``tile`` (w, h)
+    columns a block, runs of ``z`` planes, ``runs`` of them, ``tiles`` a
+    plane, ``rows`` partial rows a lane (one a block: tiles * runs) and
+    the staged tiles' shared memory a block."""
+    tile: Tuple[int, int]
+    z: int
+    runs: int
+    tiles: int
+    rows: int
+    smem_bytes: int
+
+
+def spatial3d_plan(depth: int, h: int, w: int) -> Spatial3dPlan:
+    """The 3-D march's plan for one lane, from its shape alone (never
+    the bucket or the card), so a lane's bits do not depend on either."""
+    if min(depth, h, w) < 1:
+        raise ValueError(f"an empty volume has no plan: {(depth, h, w)}")
+    z = min(Z_RUN, depth)
+    runs = -(-depth // z)
+    tiles = -(-h // MARCH_H) * -(-w // MARCH_W)
+    return Spatial3dPlan((MARCH_W, MARCH_H), z, runs, tiles, tiles * runs,
+                         MARCH_TILE_BYTES)
 
 
 def spatial_partials_plain(x: torch.Tensor, v: torch.Tensor, m: float,
@@ -78,12 +114,11 @@ def _checked(what: str, x: torch.Tensor, v: torch.Tensor, rank: int) -> bool:
     return True
 
 
-def _buffers(x: torch.Tensor, c: int, depth: int, h: int, w: int):
-    """The per-tile partials scratch and the (B, 2c) output: each lane's
-    c numerators, then its c denominators."""
+def _buffers(x: torch.Tensor, c: int, n_rows: int):
+    """The partials scratch, ``n_rows`` (2c,) rows a lane, and the (B, 2c)
+    output: each lane's c numerators, then its c denominators."""
     b = x.shape[0]
-    n_tiles = depth * -(-h // TILE_H) * -(-w // TILE_W)
-    part = torch.empty((b, n_tiles, 2 * c), dtype=torch.float32,
+    part = torch.empty((b, n_rows, 2 * c), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((b, 2 * c), dtype=torch.float32, device=x.device)
     return part, out
@@ -101,7 +136,7 @@ def spatial_partials_2d(x: torch.Tensor, v: torch.Tensor, m: float,
         return spatial_partials_plain(x, v, m, alpha, neighbors)
     b, h, w = x.shape
     c = v.shape[1]
-    part, out = _buffers(x, c, 1, h, w)
+    part, out = _buffers(x, c, -(-h // TILE_H) * -(-w // TILE_W))
     _build.check(_build.library().fcm_spatial_partials_2d(
         x.data_ptr(), v.data_ptr(), b, h, w, c, neighbors,
         float(np.float32(alpha)), float(np.float32(m)), exponent(m),
@@ -121,10 +156,11 @@ def spatial_partials_3d(x: torch.Tensor, v: torch.Tensor, m: float,
         return spatial_partials_plain(x, v, m, alpha, 6)
     b, depth, h, w = x.shape
     c = v.shape[1]
-    part, out = _buffers(x, c, depth, h, w)
+    plan = spatial3d_plan(depth, h, w)
+    part, out = _buffers(x, c, plan.rows)
     _build.check(_build.library().fcm_spatial_partials_3d(
         x.data_ptr(), v.data_ptr(), b, depth, h, w, c,
-        float(np.float32(alpha)), float(np.float32(m)), exponent(m),
+        float(np.float32(alpha)), float(np.float32(m)), exponent(m), plan.z,
         part.data_ptr(), out.data_ptr(), _build.stream_of(x)),
         "fcm_spatial_partials_3d")
     spatial_partials_3d.launches += 1

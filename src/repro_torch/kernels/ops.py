@@ -474,7 +474,8 @@ def _slic_reference(gy, gx, sw, **_):
 
 @register_step("slic_assign", "cuda", platforms=("cuda",), batched=False)
 def _slic_cuda(gy, gx, sw, **_):
-    """One thread per pixel, the center table in shared memory."""
+    """A 32 x 8 tile of pixels a block, one thread a pixel, the tile's
+    cell window of centers in shared memory."""
     return lambda img, centers: slic_assign(img, centers, gy, gx, sw)
 
 

@@ -5,20 +5,85 @@ spatial squared distance over the centers of its 3x3 grid-cell
 neighbourhood.
 
 The CUDA kernel (``csrc/slic_assign.cu``) replaces the TPU's
-``repro/kernels/slic_assign.py::slic_assign_pallas``: one thread per
-pixel scores its nine candidates against the center table held in
-shared memory, in :func:`repro_torch.superpixel.slic.assign_ref`'s
+``repro/kernels/slic_assign.py::slic_assign_pallas``: a block owns a
+``TILE_W`` x ``TILE_H`` tile of the image, one thread a pixel, stages the
+center rows its pixels can name (the cell window of
+:func:`tile_cell_window`) in shared memory, and each thread scores
+its nine candidates in :func:`repro_torch.superpixel.slic.assign_ref`'s
 order, which is its plain version.
 """
 from __future__ import annotations
+
+import functools
+import math
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 
-#: shared memory a block may use on Hopper; the center table must fit
+#: shared memory a block may use on Hopper; a tile's center window must
+#: fit
 MAX_CENTER_BYTES = 232448
+#: the pixels one block covers, one thread each
+TILE_W, TILE_H = 32, 8
+#: cells a window may span along an axis beyond floor((t - 1) * inv):
+#: a neighbour cell each side, and one each for the float32 rule's
+#: truncation and rounding at the tile's two ends
+WINDOW_SLACK = 5
+
+
+def cell_reciprocals(h: int, w: int, gy: int, gx: int) -> Tuple[float, float]:
+    """The float32 reciprocals of the cell sizes, as assign_ref forms them:
+    a Python float, rounded once to float32."""
+    return (float(np.float32(1.0 / (h / gy))),
+            float(np.float32(1.0 / (w / gx))))
+
+
+def cell_of(p: int, inv: float, g: int) -> int:
+    """The cell of pixel coordinate ``p``: ``(int)(p * inv)`` in float32,
+    clipped to ``[0, g)``, the kernel's and assign_ref's rule."""
+    return min(max(int(np.float32(p) * np.float32(inv)), 0), g - 1)
+
+
+def tile_cell_window(h: int, w: int, gy: int, gx: int, ty: int,
+                     tx: int) -> Tuple[int, int, int, int]:
+    """``(cy0, cy1, cx0, cx1)``, inclusive: the grid cells whose centers
+    the pixels of tile ``(ty, tx)`` can name, the host twin of the
+    kernel's window. The cell rule is monotone in y and x, so the tile's
+    first and last pixels bound every pixel's cell; one neighbour cell
+    each side, clipped to the grid."""
+    inv_sy, inv_sx = cell_reciprocals(h, w, gy, gx)
+    y0, x0 = ty * TILE_H, tx * TILE_W
+    y1, x1 = min(y0 + TILE_H, h) - 1, min(x0 + TILE_W, w) - 1
+    return (max(cell_of(y0, inv_sy, gy) - 1, 0),
+            min(cell_of(y1, inv_sy, gy) + 1, gy - 1),
+            max(cell_of(x0, inv_sx, gx) - 1, 0),
+            min(cell_of(x1, inv_sx, gx) + 1, gx - 1))
+
+
+def window_span(t: int, inv: float, g: int) -> int:
+    """The most cells a tile of ``t`` pixels can name along an axis of
+    ``g`` cells with reciprocal ``inv``: what a block's shared memory is
+    sized for."""
+    return min(g, math.floor((t - 1) * inv) + WINDOW_SLACK)
+
+
+def smem_bytes(h: int, w: int, d: int, gy: int, gx: int) -> int:
+    """Shared memory a block takes: the largest center window, float32
+    (``h``, ``w`` set the cell reciprocals)."""
+    inv_sy, inv_sx = cell_reciprocals(h, w, gy, gx)
+    return 4 * (window_span(TILE_H, inv_sy, gy)
+                * window_span(TILE_W, inv_sx, gx) * (d + 2))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_params(h: int, w: int, d: int, gy: int, gx: int):
+    """The cell reciprocals and the shared memory a block takes, worked
+    out once a shape: SLIC's host loop launches the kernel about eleven
+    times a request at one shape."""
+    return (*cell_reciprocals(h, w, gy, gx), smem_bytes(h, w, d, gy, gx))
 
 
 def slic_assign_plain(img, centers, gy: int, gx: int, sw: float):
@@ -52,16 +117,15 @@ def slic_assign(img: torch.Tensor, centers: torch.Tensor, gy: int, gx: int,
         raise TypeError("the SLIC kernel takes float32 inputs")
     if not (img.is_contiguous() and centers.is_contiguous()):
         raise ValueError("the SLIC kernel needs contiguous inputs")
-    if centers.numel() * 4 > MAX_CENTER_BYTES:
-        raise ValueError(f"the SLIC kernel holds the center table in shared "
-                         f"memory: K (D + 2) * 4 B <= {MAX_CENTER_BYTES}, "
-                         f"got K={gy * gx}, D={d}")
     out = torch.empty((h, w), dtype=torch.int32, device=img.device)
     if h and w:
-        # The cell reciprocals as assign_ref forms them: a Python float,
-        # rounded once to float32.
-        inv_sy = float(np.float32(1.0 / (h / gy)))
-        inv_sx = float(np.float32(1.0 / (w / gx)))
+        inv_sy, inv_sx, need = _launch_params(h, w, d, gy, gx)
+        if need > MAX_CENTER_BYTES or h > 65535 * TILE_H:
+            raise ValueError(f"the SLIC kernel holds a tile's center window "
+                             f"in shared memory: needs {need} "
+                             f"B <= {MAX_CENTER_BYTES} and H <= "
+                             f"{65535 * TILE_H}, got H={h}, W={w}, D={d}, "
+                             f"K={gy * gx}")
         _build.check(_build.library().slic_assign(
             img.data_ptr(), h, w, d, centers.data_ptr(), gy, gx, inv_sy,
             inv_sx, float(np.float32(sw)), out.data_ptr(),

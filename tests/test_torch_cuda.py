@@ -223,7 +223,10 @@ def test_streamed_kernel_matches_plain(dev, b, k, d, c, m):
 
 @pytest.mark.parametrize("h,w,ch,segs", [(217, 181, 1, 256),
                                          (129, 131, 3, 100),
-                                         (64, 300, 3, 48)])
+                                         (64, 300, 3, 48),
+                                         (512, 512, 3, 256),
+                                         (300, 64, 3, 48),
+                                         (37, 61, 2, 20)])
 def test_slic_kernel_equals_plain(dev, h, w, ch, segs):
     img = phantom.phantom_slice_rgb(h, w, seed=h)[0][:, :, :ch]
     img = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(dev)
@@ -312,7 +315,9 @@ def _noisy_lanes(b, shape, seed):
 
 @pytest.mark.parametrize("shape,neighbors,alpha,m", [
     ((37, 61), 4, 1.0, 2.0), ((37, 61), 8, 2.5, 1.6), ((1, 300), 8, 1.0, 2.0),
-    ((5, 19, 23), 6, 1.0, 2.0), ((5, 19, 23), 6, 0.0, 1.6)])
+    ((5, 19, 23), 6, 1.0, 2.0), ((5, 19, 23), 6, 0.0, 1.6),
+    ((37, 19, 23), 6, 1.0, 2.0), ((70, 9, 33), 6, 2.5, 1.6),
+    ((1, 64, 64), 6, 1.0, 2.0)])
 def test_spatial_step_kernels_match_plain(dev, shape, neighbors, alpha, m):
     x = torch.from_numpy(_noisy_lanes(3, shape, seed=len(shape))).to(dev)
     v, _ = TS.stencil_lane_init(x, 4, 5e-3)
@@ -328,6 +333,19 @@ def test_spatial_step_kernels_match_plain(dev, shape, neighbors, alpha, m):
                                rtol=1e-5)
     again = fn(x, v, m, alpha, *args)
     assert torch.equal(again[0], num) and torch.equal(again[1], den)
+
+
+@pytest.mark.parametrize("shape", [(37, 19, 23), (70, 9, 33)])
+def test_spatial_3d_lane_bits_do_not_depend_on_its_bucket(dev, shape):
+    """A volume's partials are bit-equal alone and in a bucket of three:
+    its runs and tiles come from its shape alone."""
+    x = torch.from_numpy(_noisy_lanes(3, shape, seed=11)).to(dev)
+    v, _ = TS.stencil_lane_init(x, 4, 5e-3)
+    num, den = KSP.spatial_partials_3d(x, v, 2.0, 1.0)
+    for i in range(3):
+        n1, d1 = KSP.spatial_partials_3d(x[i:i + 1].contiguous(),
+                                         v[i:i + 1].contiguous(), 2.0, 1.0)
+        assert torch.equal(n1[0], num[i]) and torch.equal(d1[0], den[i])
 
 
 @pytest.mark.parametrize("shape,neighbors", [((37, 61), 8), ((64, 64), 4),

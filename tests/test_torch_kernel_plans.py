@@ -10,8 +10,14 @@ inputs, at ``chip_smoke.py``'s scan tolerance (1e-4 of max |y|).
 
 The stencil whole-solve (``csrc/fcm_stencil.cu``) takes its cluster size
 and form from :func:`stencil_plan`; its shared-memory count and the
-bands it implies are checked here. The kernels themselves run only on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+bands it implies are checked here.
+
+The 3-D FCM_S step (``csrc/fcm_spatial.cu``) marches tiles of columns
+along z in runs of planes from :func:`spatial3d_plan`; the SLIC
+assignment (``csrc/slic_assign.cu``) stages each tile's cell window
+(:func:`tile_cell_window`). Their coverage is checked here by mirroring
+the kernels' index rules. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +25,12 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import fcm_spatial as KSP
 from repro_torch.kernels import fcm_stencil as KST
 from repro_torch.kernels import selective_scan as KSS
+from repro_torch.kernels import slic_assign as KS
+from repro_torch.superpixel import slic as SL
 
 SCAN_TOL = 1e-4
 
@@ -193,3 +203,180 @@ def test_the_onchip_fit_edge_at_512_columns():
 def test_stencil_plan_rejects_an_empty_grid():
     with pytest.raises(ValueError):
         KST.stencil_plan(1, 0, 5, 8)
+
+
+# -- the 3-D FCM_S step's march ---------------------------------------------
+
+_VOLUMES = [(181, 217, 181), (1, 1, 1), (2, 2, 2), (5, 19, 23), (37, 19, 23),
+            (70, 9, 33), (KSP.Z_RUN + 1, 8, 32), (3 * KSP.Z_RUN, 9, 33),
+            (1, 64, 64), (1, 217, 181)]
+
+
+def _march_blocks(depth, h, w, plan):
+    """The kernel's blocks as it decodes them: (z0, z1, y0, y1, x0, x1)
+    for block (tile, run), tiles x fastest."""
+    tw, th = plan.tile
+    tiles_x = -(-w // tw)
+    for run in range(plan.runs):
+        for tile in range(plan.tiles):
+            ty, tx = divmod(tile, tiles_x)
+            z0 = run * plan.z
+            yield (z0, min(depth, z0 + plan.z), ty * th, min(h, ty * th + th),
+                   tx * tw, min(w, tx * tw + tw))
+
+
+@pytest.mark.parametrize("shape", _VOLUMES)
+def test_spatial3d_plan_covers_every_voxel_once(shape):
+    depth, h, w = shape
+    plan = KSP.spatial3d_plan(depth, h, w)
+    seen = np.zeros(shape, np.int32)
+    n = 0
+    for z0, z1, y0, y1, x0, x1 in _march_blocks(depth, h, w, plan):
+        assert z0 < z1 and y0 < y1 and x0 < x1      # no empty block
+        seen[z0:z1, y0:y1, x0:x1] += 1
+        n += 1
+    assert (seen == 1).all()
+    assert n == plan.rows == plan.tiles * plan.runs
+    assert 1 <= plan.z <= max(depth, 1) and plan.runs == -(-depth // plan.z)
+
+
+def test_spatial3d_plan_fills_the_card_with_the_route_volume():
+    """The spatial route's volume at B = 1: at least two blocks for each
+    of an H100's 132 SMs, and about 30x fewer partial rows than one
+    plane a block (30 408)."""
+    plan = KSP.spatial3d_plan(181, 217, 181)
+    assert plan.tiles == 6 * 28
+    assert plan.rows >= 2 * 132
+    assert plan.rows * 10 <= 181 * 6 * 28
+    assert plan.smem_bytes == 2 * 10 * 34 * 4
+
+
+def test_spatial3d_plan_depends_on_the_shape_alone():
+    a = KSP.spatial3d_plan(37, 19, 23)
+    assert a == KSP.spatial3d_plan(37, 19, 23)
+    assert a.z == KSP.spatial3d_plan(37, 5, 7).z
+    with pytest.raises(ValueError):
+        KSP.spatial3d_plan(0, 4, 4)
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records the 3-D step's run
+    length and lane count, and the scratch the wrapper passes."""
+    def __init__(self):
+        self.calls = []
+
+    def fcm_spatial_partials_3d(self, x, v, b, depth, h, w, c, alpha, m,
+                                expo, z_run, part, out, stream):
+        self.calls.append(dict(b=b, shape=(depth, h, w), c=c, z=z_run))
+        return 0
+
+
+@pytest.mark.parametrize("b,shape", [(1, (37, 19, 23)), (3, (37, 19, 23)),
+                                     (2, (181, 217, 181)), (1, (1, 1, 1))])
+def test_spatial3d_scratch_holds_the_plan_rows(monkeypatch, b, shape):
+    """The wrapper passes the plan's run length and sizes the partials
+    scratch to the plan's rows, the same for a lane alone and in a
+    bucket. The wrapper is driven past its device check with a fake
+    library; the rows it must allocate follow the kernel's rule, tiles
+    of the plane times runs of z planes."""
+    lib = _FakeLibrary()
+    scratch = []
+    real_buffers = KSP._buffers
+
+    def spy(x, c, n_rows):
+        part, out = real_buffers(x, c, n_rows)
+        scratch.append(tuple(part.shape))
+        return part, out
+    monkeypatch.setattr(KSP, "_checked", lambda *a: True)
+    monkeypatch.setattr(KSP, "_buffers", spy)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    depth, h, w = shape
+    x = torch.zeros((b,) + shape)
+    v = torch.zeros((b, 4))
+    before = KSP.spatial_partials_3d.launches
+    KSP.spatial_partials_3d(x, v, 2.0, 1.0)
+    assert KSP.spatial_partials_3d.launches == before + 1
+    KSP.spatial_partials_3d.launches = before
+    plan = KSP.spatial3d_plan(*shape)
+    rows = -(-h // 8) * -(-w // 32) * -(-depth // lib.calls[0]["z"])
+    assert lib.calls == [dict(b=b, shape=shape, c=4, z=plan.z)]
+    assert scratch == [(b, plan.rows, 8)] and plan.rows == rows
+
+
+# -- the SLIC assignment's cell windows ---------------------------------------
+
+_SLIC_SHAPES = [(512, 512, 256), (217, 181, 256), (129, 131, 100),
+                (64, 300, 48), (300, 64, 48), (1, 1, 1), (7, 500, 9)]
+
+
+def _candidates(h, w, gy, gx):
+    """Every pixel's nine candidate cells under assign_ref's rule:
+    ((H, W, 9) cell rows, (H, W, 9) cell columns)."""
+    inv_sy, inv_sx = KS.cell_reciprocals(h, w, gy, gx)
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    pcy = np.clip((yy * np.float32(inv_sy)).astype(np.int32), 0, gy - 1)
+    pcx = np.clip((xx * np.float32(inv_sx)).astype(np.int32), 0, gx - 1)
+    pcy, pcx = np.broadcast_arrays(pcy, pcx)
+    cy = np.stack([np.clip(pcy + dy, 0, gy - 1) for dy in (-1, 0, 1)
+                   for dx in (-1, 0, 1)], axis=-1)
+    cx = np.stack([np.clip(pcx + dx, 0, gx - 1) for dy in (-1, 0, 1)
+                   for dx in (-1, 0, 1)], axis=-1)
+    return cy, cx
+
+
+def _windows(h, w, gy, gx):
+    """Each pixel's tile window, ((H, W) cy0, cy1, cx0, cx1)."""
+    ty_n, tx_n = -(-h // KS.TILE_H), -(-w // KS.TILE_W)
+    win = np.array([[KS.tile_cell_window(h, w, gy, gx, ty, tx)
+                     for tx in range(tx_n)] for ty in range(ty_n)])
+    ty = np.arange(h)[:, None] // KS.TILE_H
+    tx = np.arange(w)[None, :] // KS.TILE_W
+    return [win[ty, tx, i] for i in range(4)]
+
+
+@pytest.mark.parametrize("h,w,segs", _SLIC_SHAPES)
+def test_tile_cell_window_holds_every_candidate(h, w, segs):
+    gy, gx = SL.grid_shape(h, w, segs)
+    cy, cx = _candidates(h, w, gy, gx)
+    cy0, cy1, cx0, cx1 = (a[..., None] for a in _windows(h, w, gy, gx))
+    assert ((cy >= cy0) & (cy <= cy1) & (cx >= cx0) & (cx <= cx1)).all()
+    # every window fits the shared memory the kernel sizes for it
+    inv_sy, inv_sx = KS.cell_reciprocals(h, w, gy, gx)
+    assert (cy1 - cy0 + 1).max() <= KS.window_span(KS.TILE_H, inv_sy, gy)
+    assert (cx1 - cx0 + 1).max() <= KS.window_span(KS.TILE_W, inv_sx, gx)
+    assert KS.smem_bytes(h, w, 3, gy, gx) <= KS.MAX_CENTER_BYTES
+
+
+@pytest.mark.parametrize("h,w,segs", _SLIC_SHAPES)
+def test_assign_ref_labels_lie_in_their_tile_window(h, w, segs):
+    """The plain version's labels on a seeded RGB image, seed and
+    drifted centers: each pixel's label is a cell of its tile's window,
+    and the cell rule of the window's twin is assign_ref's."""
+    rng = np.random.default_rng(h * w + segs)
+    img = torch.from_numpy(rng.uniform(0, 255, (h, w, 3)).astype(np.float32))
+    gy, gx = SL.grid_shape(h, w, segs)
+    sw = SL.spatial_weight(h, w, gy, gx, 10.0)
+    cen = SL.seed_centers(img, gy, gx)
+    cy0, cy1, cx0, cx1 = _windows(h, w, gy, gx)
+    for _ in range(2):
+        lab = SL.assign_ref(img, cen, gy, gx, sw).numpy()
+        ly, lx = lab // gx, lab % gx
+        assert ((ly >= cy0) & (ly <= cy1) & (lx >= cx0) & (lx <= cx1)).all()
+        cen = SL.update_centers(img, torch.from_numpy(lab), cen)[0]
+    inv_sy, _ = KS.cell_reciprocals(h, w, gy, gx)
+    ys = torch.arange(h, dtype=torch.float32)
+    want = torch.clamp((ys * inv_sy).to(torch.int32), 0, gy - 1)
+    assert [KS.cell_of(y, inv_sy, gy) for y in range(h)] == want.tolist()
+
+
+def test_the_route_image_window_is_three_by_three_cells():
+    """512x512 at K = 256: cells of 32 x 32 pixels, so a 32 x 8 tile
+    names one cell and its eight neighbours (four at a corner)."""
+    gy, gx = SL.grid_shape(512, 512, 256)
+    assert (gy, gx) == (16, 16)
+    assert KS.tile_cell_window(512, 512, gy, gx, 5, 3) == (0, 2, 2, 4)
+    assert KS.tile_cell_window(512, 512, gy, gx, 0, 0) == (0, 1, 0, 1)
+    assert KS.tile_cell_window(512, 512, gy, gx, 63, 15) == (14, 15, 14, 15)
+    assert KS.smem_bytes(512, 512, 3, gy, gx) == 4 * 5 * 5 * 5
