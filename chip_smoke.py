@@ -10,7 +10,8 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
 2. build: compile every kernel under ``src/repro_torch/csrc`` for
    ``sm_90a``, print the build time and ptxas' register report, and hold
    the library's exported bounds and plan constants against the Python
-   plans (the stencil whole-solve's, the 3-D march's, the SLIC tile's);
+   plans (the stencil whole-solve's, the 3-D march's, the SLIC tile's,
+   the streamed whole-solve's block shape and each tier's occupancy);
 3. kernels: call each kernel's wrapper on tensors on the card at the
    serving path's shapes, hold the result against its plain PyTorch
    version on the same inputs, and time kernel, plain version and the
@@ -22,7 +23,9 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    paper's largest Table 3 image (1000 KB) at batch 1;
 5. paper path: hold the membership, center-partials and fused-partials
    kernels against their plain versions at the 1000 KB image and at
-   ragged and degenerate shapes; ``solve`` one image with the auto,
+   ragged and degenerate shapes (the center partials also at their block
+   and grid-stride edges, one launch a call in the profile, and an
+   unaligned x bit-equal to an aligned copy); ``solve`` one image with the auto,
    fused and staged backends (and the whole-solve on its histogram) on
    the card and on the CPU, with the launch counts set to 0 just before
    and read just after; check iterations, centers, labels and DSC; time
@@ -31,16 +34,18 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    solve;
 6. routes: hold the HBM-streamed whole-solve and the SLIC assignment
    kernels against their plain versions (BrainWeb slices, the 1000 KB
-   image, 512x512 RGB, ragged and degenerate lanes; SLIC labels equal
-   up to float64-checked near-ties; the SLIC tile, its cell window and
+   image, 512x512 RGB, ragged and degenerate lanes, a bucket of more
+   blocks than the card holds; SLIC labels equal up to float64-checked
+   near-ties; the streamed kernel's occupancy on the card and each
+   case's plan and device time; the SLIC tile, its cell window and
    device time); serve the 181-slice volume, the
    1000 KB image and a bucket of RGB slices through the pixel route and
    RGB slices plus a 512x512 RGB image through the superpixel route,
    each with the launch counts set to 0 just before and read just after,
    against a CPU engine; time the 512x512 RGB image through both routes
    with each route's per-class DSC; hold the batched fused-partials
-   kernel (lanes past the whole-solve bounds) against its plain version
-   and serve 16 slices at c = 12 and one 1100x1000 image (past 2^20
+   kernel (lanes past the whole-solve bounds) against its plain version,
+   with its device time, and serve 16 slices at c = 12 and one 1100x1000 image (past 2^20
    rows) through the pixel route against a CPU engine;
 7. spatial: hold the FCM_S step kernels (2-D and 3-D) and the stencil
    whole-solve against their plain versions (the 1000 KB image, noisy
@@ -451,13 +456,35 @@ def _close_sums(got, want, what):
             max(e / max(top, 1e-30) for e, top in errs))
 
 
-def check_center_partials(KC, KM, cases):
+def center_partials_edges(KC, cases, dev):
+    """Row 5's own edge cases: pixel counts at its quad, block and
+    grid-stride edges (quads of four pixels, four quads a thread, 256
+    threads, at most 1024 blocks), with a ragged tail."""
+    x, v4 = cases[0][1], cases[0][3]
+    per_block = KC.QUAD * KC.QUADS_PER_THREAD * KC.THREADS
+    grid_edge = per_block * KC.MAX_BLOCKS
+    long = torch.cat([x] * (grid_edge // x.shape[0] + 1))[:grid_edge + 3]
+    out = [(f"N={n}", long[:n].contiguous(), None, v4, 2.0)
+           for n in (255, 257, per_block - 1, per_block + 1,
+                     4 * 1024 * 256 + 3)]
+    out.append((f"N={grid_edge + 3} (past the grid: threads stride)", long,
+                None, v4, 2.0))
+    out.append((f"N={grid_edge + 3}, weighted, m=2.5", long,
+                (torch.arange(long.shape[0], device=dev) % 7).to(
+                    torch.float32), v4, 2.5))
+    return out
+
+
+def check_center_partials(KC, KM, cases, dev):
     worst = 0.0
-    for name, x, w, v, m in cases:
+    for name, x, w, v, m in cases + center_partials_edges(KC, cases, dev):
         u = KM.membership_plain(x, v, m).contiguous()
+        before = KC.center_partials.launches
         got = KC.center_partials(x, u, m, w)
         torch.cuda.synchronize()
         again = KC.center_partials(x, u, m, w)
+        require(KC.center_partials.launches == before + 2,
+                f"center_partials did not count one launch a call on {name}")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"center_partials does not repeat bit for bit on {name}")
         err, rel = _close_sums(got, KC.center_partials_plain(x, u, m, w),
@@ -465,10 +492,30 @@ def check_center_partials(KC, KM, cases):
         worst = max(worst, err)
         print(f"  center_partials {name}: max abs err {err:.3g} (relative "
               f"{rel:.3g}), repeats bit for bit")
+    # the same pixels one float into a buffer: x's loads are scalar there
     name, x, w, v, m = cases[0]
+    for n in (8192, 8193):
+        buf = torch.empty(n + 1, device=dev)
+        buf[1:] = x[:n]
+        xa, xm = x[:n].contiguous(), buf[1:]
+        require(xm.data_ptr() % 16 != 0, "the unaligned view is aligned")
+        u = KM.membership_plain(xa, v, m).contiguous()
+        require(all(torch.equal(a, b) for a, b in zip(
+            KC.center_partials(xa, u, m), KC.center_partials(xm, u, m))),
+            f"center_partials at N={n}: an unaligned x gives other bits "
+            f"than an aligned copy")
+    print("  center_partials: x one float off 16-byte alignment (N = 8192, "
+          "8193) gives the aligned copy's bits")
     u = KM.membership(x, v, m)
     n, c = x.shape[0], v.shape[0]
-    ms = time_ms(lambda: KC.center_partials(x, u, m))
+    call = lambda: KC.center_partials(x, u, m)  # noqa: E731
+    ms = time_ms(call)
+    dms, per = device_ms(call)
+    require(dms is None or len(per) == 1 and next(iter(per.values()))[1] == 1,
+            f"center_partials launched more than one kernel a call: "
+            f"{_kernel_names(per)}")
+    print(f"  center_partials at {name}: device {_fmt_ms(dms)} a call "
+          f"({_kernel_names(per)})")
     plain_ms = time_ms(lambda: KC.center_partials_plain(x, u, m))
     # per pixel and center: u*u, times x, two adds
     bnd, by = bound_ms(4 * (n + c * n + 2 * c), 4 * n * c)
@@ -692,6 +739,10 @@ def device_ms(fn, calls=5):
     return (total / 1e3 if total else None), per
 
 
+def _fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
 def _kernel_names(per):
     """Each kernel's bare name (no return type, namespace or arguments),
     time a launch and launches a call."""
@@ -710,7 +761,7 @@ def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
     print("[paper] membership")
     k_mem = check_membership(KM, cases)
     print("[paper] center partials")
-    k_cen = check_center_partials(KC, KM, cases)
+    k_cen = check_center_partials(KC, KM, cases, dev)
     print("[paper] fused partials")
     k_fus = check_fused_partials(KC, cases)
     for name, k in (("fcm_membership", k_mem),
@@ -800,19 +851,43 @@ def streamed_cases(vol, big, rgb512):
          np.stack([const_lane, slice_lane]), holes, 4, 2.0),
         ("c=8, m=2.5, D=16", _blobs(2, 3000, 16, 8, 3),
          ones((2, 3000), np.float32), 8, 2.5),
+        ("2000 lanes x 2048 rows (more blocks than the card holds: rounds)",
+         _blobs(2000, 2048, 1, 4, 4), ones((2000, 2048), np.float32), 4,
+         2.0),
     ]
+
+
+def streamed_finding(KR, lib, b, k, d, c, m, dev, card):
+    """What the streamed kernel gets on this card at c, D and m: registers
+    a thread, blocks an SM, blocks resident at once, and the plan of a
+    bucket of ``b`` lanes of ``k`` rows (its rounds)."""
+    regs = lib.fcm_streamed_registers(c, d, m)
+    sms, blocks = KR.streamed_occupancy(dev, c, d, m)
+    plan = KR.streamed_plan(b, k, d, sms, blocks)
+    print(f"  streamed kernel at c={c}, D={d}, m={m}: {regs} registers a "
+          f"thread, {blocks} blocks of {plan.threads} threads an SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor; the plan assumes "
+          f"{KR.stream_min_blocks(c, d)}), {sms} SMs, {sms * blocks} blocks "
+          f"resident at once; a {b} x {k} bucket: {plan.ranks} blocks a "
+          f"lane, {plan.grid} blocks, {plan.rounds} round(s) [{card}]")
+    return plan
 
 
 def check_streamed(KR, SV, cases, dev, card):
     """Streamed whole-solve kernel vs its plain version on each case:
     equal iteration counts, centers within RTOL/ATOL, a second launch
-    bit-equal to the first; each case timed beside its bound and its
-    plain version. Returns the entry of the main path's case (the
-    first)."""
+    bit-equal to the first, lane 0 alone bit-equal; each case's plan,
+    and its time and device time beside its bound and its plain version.
+    Returns the entry of the main path's case (the first)."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
     worst, entry = 0.0, None
     for name, feats, w, c, m in cases:
         x = torch.from_numpy(np.ascontiguousarray(feats)).to(dev)
         wt = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+        if entry is None:
+            streamed_finding(KR, lib, *x.shape[:2], x.shape[2], c, m, dev,
+                             card)
         lo, hi = SV.weighted_support(x, wt)
         v0 = SV.linspace_from_support(lo, hi, c).contiguous()
         tol = SV._tol_from_range((hi - lo).max(dim=1).values,
@@ -845,9 +920,13 @@ def check_streamed(KR, SV, cases, dev, card):
         worst = max(worst, err)
         b, k, d = x.shape
         reps = 5 if b * k >= 1 << 20 else 20
-        ms = time_ms(lambda: KR.resident_streamed_solve(x, wt, v0, tol, m,
-                                                        300), reps=reps,
-                     rounds=5)
+
+        def call():
+            return KR.resident_streamed_solve(x, wt, v0, tol, m, 300)
+        ms = time_ms(call, reps=reps, rounds=5)
+        dms, per = device_ms(call)
+        plan = KR.streamed_plan(b, k, d,
+                                *KR.streamed_occupancy(dev, c, d, m))
         plain_ms = time_ms(lambda: KR.resident_streamed_solve_plain(
             x, wt, v0, tol, m, 300), reps=1, rounds=3)
         n_bytes = 4 * (b * k * d + b * k + 2 * b * c * d + 3 * b)
@@ -855,10 +934,15 @@ def check_streamed(KR, SV, cases, dev, card):
         # divide, square, weight, numerator 2D, denominator 1
         n_ops = int(it_np.sum()) * k * c * (5 * d + 7)
         bnd, by = bound_ms(n_bytes, n_ops)
+        require(dms is None or len(per) == 1,
+                f"streamed {name}: the profiler saw {_kernel_names(per)}")
         print(f"  streamed {name}: iters equal (max {int(it_np.max())}), "
               f"max |dv| {err:.3g}, repeats bit for bit, lane 0 alone "
-              f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bnd:.5f} ms ({by}) [{card}]")
+              f"bit-equal; plan {plan.ranks} blocks a lane, "
+              f"{plan.rows_per_thread} rows a thread, {plan.lanes_per_round} "
+              f"lanes a round, {plan.rounds} round(s); kernel {ms:.4f} ms, "
+              f"device {_fmt_ms(dms)}, plain {plain_ms:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}) [{card}]")
         if entry is None:
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                          library_ms=None)
@@ -1178,14 +1262,16 @@ def check_fused_batched(KC, cases, card):
     b, k, d = x.shape
     c = v.shape[1]
     ms = time_ms(lambda: KC.fused_partials_batched(x, w, v, m))
+    dms, per = device_ms(lambda: KC.fused_partials_batched(x, w, v, m))
     plain_ms = time_ms(lambda: KC.fused_partials_batched_plain(x, w, v, m),
                        reps=3, rounds=3)
     # per row and center: the distance's 3D, the membership's 5, then
     # u*u, the weight, D numerator terms and adds, the denominator add
     bnd, by = bound_ms(4 * (b * k * d + b * k + 2 * b * c * d + b * c),
                        b * k * c * (5 * d + 8))
-    print(f"  fused_partials_batched {name}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}) [{card}]")
+    print(f"  fused_partials_batched {name}: kernel {ms:.4f} ms, device "
+          f"{_fmt_ms(dms)} ({_kernel_names(per)}), plain {plain_ms:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}) [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=None)
 
@@ -2031,6 +2117,22 @@ def main(dev=None):
             == (KR.STREAM_MAX_ROWS, KR.STREAM_MAX_C, KR.STREAM_MAX_FEAT),
             "the streamed kernel's bounds disagree with fcm_resident's "
             "STREAM_MAX_*")
+    require((lib.fcm_streamed_threads(), lib.fcm_streamed_max_ranks())
+            == (KR.STREAM_THREADS, KR.STREAM_MAX_RANKS)
+            and all(lib.fcm_streamed_rows_per_block(d)
+                    == KR.stream_rows_per_block(d)
+                    for d in range(1, KR.STREAM_MAX_FEAT + 1)),
+            "the streamed kernel's block shape disagrees with "
+            "fcm_resident.streamed_plan's")
+    for c, d in ((4, 1), (4, 3), (4, 8), (4, 16), (8, 1), (8, 3), (8, 8),
+                 (8, 16)):
+        want = KR.stream_min_blocks(c, d)
+        got = min(lib.fcm_streamed_blocks_per_sm(c, d, m)
+                  for m in (2.0, 2.5))
+        require(lib.fcm_streamed_min_blocks(c, d) == want and got >= want,
+                f"the streamed kernel at c={c}, D={d}: __launch_bounds__ asks "
+                f"for {lib.fcm_streamed_min_blocks(c, d)} blocks an SM, the "
+                f"card holds {got}; the plan assumes {want}")
     require(lib.slic_max_center_bytes() == KS.MAX_CENTER_BYTES,
             "the SLIC kernel's center-table bound disagrees with "
             "slic_assign.MAX_CENTER_BYTES")

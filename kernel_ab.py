@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Times four kernels of one source tree on the card (rows 8, 10, 11
-and 12 of PERF.md's kernel table: the stencil whole-solve, the 3-D FCM_S
-step, the SLIC assignment and the selective scan), at the shapes their
-main paths give them, so that two commits can be compared on one card,
-in one run.
+"""Times six kernels of one source tree on the card (rows 5, 7, 8, 10,
+11 and 12 of PERF.md's kernel table: the center partials, the
+HBM-streamed whole-solve, the stencil whole-solve, the 3-D FCM_S step,
+the SLIC assignment and the selective scan), at the shapes their main
+paths give them, so that two commits can be compared on one card, in one
+run.
 
-    python3 kernel_ab.py [--tree DIR] [--label NAME]
+    python3 kernel_ab.py [--tree DIR] [--label NAME] [--rows 5,7,...]
 
 ``--tree`` is the root of a checkout (default: the one holding this
 script); its ``src`` goes first on ``sys.path``, so its ``repro_torch``
@@ -16,9 +17,12 @@ example a ``git archive`` of the parent commit, unpacked under
 parent, change, change, parent. Needs one CUDA card; prints the card's
 name and power limit, then one JSON line:
 
-    {"label": ..., "card": ..., "selective_scan": {...},
+    {"label": ..., "card": ..., "center_partials": {...},
+     "streamed_solve": {...}, "selective_scan": {...},
      "stencil_solve": {...}, "spatial_step_3d": {...},
      "slic_assign": {...}}
+
+(``--rows`` keeps only the rows it names.)
 
 with, per kernel, the CUDA-event median of back-to-back wrapper calls
 (``ms``) and the profiler's device time a call (``device_ms``, every
@@ -28,7 +32,21 @@ plan (``stencil_plan``) also times it at the fewest blocks that hold a
 (``by_blocks``); a tree whose 3-D step takes a plan (``spatial3d_plan``)
 also times the step at other run lengths than its plan's (``by_z``).
 
-The shapes: the selective scan at (B, S, d_inner, d_state) = (1, 4096,
+A tree whose streamed whole-solve takes a plan (``streamed_plan``)
+prints each case's plan and the kernel's registers and blocks an SM; for
+a tree with the earlier cluster form (one cluster of at most 8 blocks a
+lane) a probe built from that tree's source reads the same, and the
+8-block clusters the card seats at once (``cudaOccupancyMaxActiveClusters``).
+
+The shapes: the center partials at the paper's 1000 KB image (1 024 000
+pixels, c = 4, m = 2, phase 5's centers, u from the membership kernel),
+the staged path's reduction, back to back and with L2 flushed before
+each call (``cold_device_ms``); the streamed whole-solve on the pixel
+route's bucket, 64 phantom BrainWeb slices of 217x181 (39 277 rows, the
+slices phase 4 picks), and on single lanes, the 1000 KB image
+(1 024 000 rows) and the 512x512 RGB phantom (noise 6, seed 0; 262 144
+rows of D = 3), c = 4, m = 2, eps 5e-3, as phase 6 sets them up; the
+selective scan at (B, S, d_inner, d_state) = (1, 4096,
 8192, 16), the width of jamba-v0.1-52b's mixers at train_4k's length,
 on the inputs ``chip_smoke.py`` phase 8a draws; the stencil whole-solve
 on the spatial route's bucket, 64 noisy 217x181 slices of the noisy
@@ -165,11 +183,194 @@ def z_sweep(torch, KSP, x, v, runs_of):
     return res
 
 
+#: reads, for the earlier cluster form of csrc/fcm_streamed.cu, what its
+#: bucket tier (c <= 4, D = 1) gets: registers a thread, threads a block,
+#: blocks an SM and 8-block clusters the card seats at once
+CLUSTER_PROBE = r"""
+#include "%s"
+extern "C" int probe_cluster_form(int* out) {
+  const void* k = (const void*)streamed_solve_kernel<4, 1>;
+  const int threads = threads_for(4 * 2);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMaxCluster, 64, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMaxCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, k, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = threads;
+  out[2] = blocks;
+  out[3] = clusters;
+  return 0;
+}
+"""
+
+
+def cluster_form_finding(tree, lanes):
+    """The earlier cluster form's occupancy, read by a probe compiled from
+    ``tree``'s own csrc/fcm_streamed.cu: registers, threads, blocks an SM,
+    8-block clusters at once, and the waves of whole solves a bucket of
+    ``lanes`` lanes of 8 blocks takes."""
+    import ctypes
+    from repro_torch.kernels import _build
+    src = os.path.join(tree, "src", "repro_torch", "csrc", "fcm_streamed.cu")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    probe = _build.BUILD_DIR / "cluster_probe.cu"
+    probe.write_text(CLUSTER_PROBE % src)
+    lib_path = _build.BUILD_DIR / "cluster_probe.so"
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                          str(probe), "-o", str(lib_path)],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"the cluster-form probe did not build:\n"
+                           f"{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    vals = (ctypes.c_int * 4)()
+    err = lib.probe_cluster_form(vals)
+    if err != 0:
+        raise RuntimeError(f"the cluster-form probe failed: {err}")
+    regs, threads, blocks, clusters = list(vals)
+    return dict(registers=regs, threads=threads, blocks_per_sm=blocks,
+                clusters_of_8=clusters,
+                waves=-(-lanes // clusters) if clusters else None)
+
+
+def streamed_inputs(torch, SV, x, c, dev):
+    """(x, w, v0, tol) on the card for rows ``x`` (B, K, D), unit weights,
+    as chip_smoke.py phase 6 sets them up."""
+    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    wt = torch.ones(xt.shape[:2], device=dev)
+    lo, hi = SV.weighted_support(xt, wt)
+    v0 = SV.linspace_from_support(lo, hi, c).contiguous()
+    tol = SV._tol_from_range((hi - lo).max(dim=1).values, 5e-3).contiguous()
+    return xt, wt, v0, tol
+
+
+def row7(torch, tree, dev):
+    """The streamed whole-solve on the pixel route's bucket and two lone
+    lanes."""
+    from repro_torch.core import solver as SV
+    from repro_torch.data import phantom
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fcm_resident as KR
+    slices = [phantom.phantom_slice(217, 181, slice_pos=float(p), seed=z)[0]
+              for z, p in enumerate(np.linspace(0.3, 0.7, 181))]
+    pick = np.linspace(0, 180, 64).round().astype(int)
+    cases = {
+        "bucket_64x39277": np.stack([slices[i].reshape(-1) for i in pick])[
+            ..., None],
+        "lone_1000KB": phantom.phantom_of_bytes(1000 * 1024)[0].reshape(
+            1, -1, 1),
+        "lone_rgb512": phantom.phantom_slice_rgb(512, 512, noise=6.0,
+                                                 seed=0)[0].reshape(1, -1, 3),
+    }
+    out = {}
+    planned = hasattr(KR, "streamed_plan")
+    for name, feats in cases.items():
+        x, w, v0, tol = streamed_inputs(torch, SV, feats, 4, dev)
+
+        def call():
+            return KR.resident_streamed_solve(x, w, v0, tol, 2.0, 300)
+        before = KR.resident_streamed_solve.launches
+        _, _, it = call()
+        torch.cuda.synchronize()
+        assert KR.resident_streamed_solve.launches == before + 1
+        dms, names = device_ms(torch, call, 5)
+        b, k, d = x.shape
+        e = dict(shape=[b, k, d], iters=sorted(set(it.cpu().tolist())),
+                 ms=event_ms(torch, call, 5, 5), device_ms=dms, kernels=names)
+        if planned:
+            e["plan"] = KR.streamed_plan(
+                b, k, d, *KR.streamed_occupancy(dev, 4, d, 2.0))._asdict()
+        out[name] = e
+    if planned:
+        lib = _build.library()
+        out["kernel_c4_d1"] = dict(
+            registers=lib.fcm_streamed_registers(4, 1, 2.0),
+            threads=KR.STREAM_THREADS,
+            blocks_per_sm=lib.fcm_streamed_blocks_per_sm(4, 1, 2.0),
+            sm_count=torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+    else:
+        out["kernel_c4_d1"] = cluster_form_finding(tree, 64)
+    return out
+
+
+def kernel_ms(torch, fn, calls, keep):
+    """The profiler's device time a call of the kernels whose names hold
+    one of ``keep`` (each kernel's mean a launch times its launches a
+    call, summed)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and any(k in e.key for k in keep)):
+            total += us / e.count * max(1, round(e.count / calls))
+    return total / 1e3 if total else None
+
+
+def row5(torch, dev):
+    """The center partials at the 1000 KB image, c = 4: back to back
+    (x and u stay in L2) and with L2 flushed before each call (a 128 MB
+    buffer written), as the staged solve finds them after its other
+    passes."""
+    from repro_torch.data import phantom
+    from repro_torch.kernels import fcm_centers as KC
+    from repro_torch.kernels import fcm_membership as KM
+    x = torch.from_numpy(phantom.phantom_of_bytes(1000 * 1024)[0].reshape(
+        -1).astype(np.float32)).to(dev)
+    v = torch.tensor([0.6, 51.3, 105.4, 167.6], device=dev)
+    u = KM.membership(x, v, 2.0)
+    call = lambda: KC.center_partials(x, u, 2.0)  # noqa: E731
+    before = KC.center_partials.launches
+    call()
+    torch.cuda.synchronize()
+    assert KC.center_partials.launches == before + 1
+    dms, names = device_ms(torch, call, 20)
+    flush = torch.empty(32 << 20, device=dev)
+
+    def cold():
+        flush.zero_()
+        call()
+    cold_ms = kernel_ms(torch, cold, 20, ("center_partials", "fold_kernel"))
+    return dict(n=x.shape[0], c=4, ms=event_ms(torch, call, 20, 5),
+                device_ms=dms, cold_device_ms=cold_ms, kernels=names)
+
+
+ROWS = ("5", "7", "8", "10", "11", "12")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--rows", default=",".join(ROWS),
+                    help="the table rows to time, comma-separated")
     args = ap.parse_args()
+    rows = set(args.rows.split(","))
+    if not rows <= set(ROWS):
+        ap.error(f"--rows takes some of {','.join(ROWS)}")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, os.path.join(tree, "src"))
     import torch
@@ -191,83 +392,95 @@ def main():
     dev = torch.device("cuda")
     out = {"label": args.label or tree, "card": card}
 
-    # the selective scan, phase 8a's full-width inputs (seed 0)
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    b, s, di, ds = 1, 4096, 8192, 16
-    u = torch.randn((b, s, di), generator=g, device=dev)
-    dt = torch.rand((b, s, di), generator=g, device=dev) * 0.099 + 1e-3
-    bm = torch.randn((b, s, ds), generator=g, device=dev)
-    cm = torch.randn((b, s, ds), generator=g, device=dev)
-    a = -(torch.rand((di, ds), generator=g, device=dev) * 3.5 + 0.5)
-    scan = lambda: KSS.selective_scan(u, dt, bm, cm, a)  # noqa: E731
-    before = KSS.selective_scan.launches
-    scan()
-    torch.cuda.synchronize()
-    assert KSS.selective_scan.launches == before + 1
-    dms, names = device_ms(torch, scan, 10)
-    out["selective_scan"] = dict(shape=[b, s, di, ds],
-                                 ms=event_ms(torch, scan, 10, 5),
-                                 device_ms=dms, kernels=names)
+    if "5" in rows:
+        out["center_partials"] = row5(torch, dev)
+    if "7" in rows:
+        out["streamed_solve"] = row7(torch, tree, dev)
 
-    # the stencil whole-solve, phase 7's bucket of 64 noisy slices
-    vol, _ = phantom.noisy_phantom_volume(181, 217, 181)
-    pick = np.linspace(0, 180, 64).round().astype(int)
-    x = torch.from_numpy(vol[pick].astype(np.float32)).to(dev)
-    v0, tol = SV.stencil_lane_init(x, 4, 5e-3)
-    st = lambda: KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)  # noqa
-    _, _, it = st()
-    torch.cuda.synchronize()
-    dms, names = device_ms(torch, st, 5)
-    out["stencil_solve"] = dict(
-        shape=list(x.shape), iters=sorted(set(it.cpu().tolist())),
-        ms=event_ms(torch, st, 5, 5), device_ms=dms, kernels=names)
-    single = {}
-    for h, w in ((217, 181), (256, 256), (512, 512)):
-        img = phantom.noisy_phantom_slice(h, w, seed=h)[0]
-        x1 = torch.from_numpy(img.astype(np.float32)[None]).to(dev)
-        v1, tol1 = SV.stencil_lane_init(x1, 4, 5e-3)
-        single[h * w] = event_ms(torch, lambda: KST.stencil_solve(
-            x1, v1, tol1, 2.0, 1.0, 8, 300), 3, 3)
-    out["stencil_solve"]["b1_ms"] = single
-    if hasattr(KST, "stencil_plan"):
-        out["stencil_solve"]["by_blocks"] = blocks_sweep(
-            torch, KST, SV, phantom, x, dev)
+    if "12" in rows:
+        # the selective scan, phase 8a's full-width inputs (seed 0)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        b, s, di, ds = 1, 4096, 8192, 16
+        u = torch.randn((b, s, di), generator=g, device=dev)
+        dt = torch.rand((b, s, di), generator=g, device=dev) * 0.099 + 1e-3
+        bm = torch.randn((b, s, ds), generator=g, device=dev)
+        cm = torch.randn((b, s, ds), generator=g, device=dev)
+        a = -(torch.rand((di, ds), generator=g, device=dev) * 3.5 + 0.5)
+        scan = lambda: KSS.selective_scan(u, dt, bm, cm, a)  # noqa: E731
+        before = KSS.selective_scan.launches
+        scan()
+        torch.cuda.synchronize()
+        assert KSS.selective_scan.launches == before + 1
+        dms, names = device_ms(torch, scan, 10)
+        out["selective_scan"] = dict(shape=[b, s, di, ds],
+                                     ms=event_ms(torch, scan, 10, 5),
+                                     device_ms=dms, kernels=names)
 
-    # the 3-D FCM_S step, phase 7's noisy volume at B = 1
-    vol3 = torch.from_numpy(phantom.noisy_phantom_volume(181, 217, 181)[0]
-                            .astype(np.float32)[None]).to(dev)
-    v3 = torch.tensor([[0.6, 51.3, 105.4, 167.6]], device=dev)
-    step = lambda: KSP.spatial_partials_3d(vol3, v3, 2.0, 1.0)  # noqa: E731
-    before = KSP.spatial_partials_3d.launches
-    step()
-    torch.cuda.synchronize()
-    assert KSP.spatial_partials_3d.launches == before + 1
-    dms, names = device_ms(torch, step, 10)
-    out["spatial_step_3d"] = dict(shape=list(vol3.shape),
-                                  ms=event_ms(torch, step, 10, 5),
+    if "8" in rows:
+        # the stencil whole-solve, phase 7's bucket of 64 noisy slices
+        vol, _ = phantom.noisy_phantom_volume(181, 217, 181)
+        pick = np.linspace(0, 180, 64).round().astype(int)
+        x = torch.from_numpy(vol[pick].astype(np.float32)).to(dev)
+        v0, tol = SV.stencil_lane_init(x, 4, 5e-3)
+        st = lambda: KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)  # noqa
+        _, _, it = st()
+        torch.cuda.synchronize()
+        dms, names = device_ms(torch, st, 5)
+        out["stencil_solve"] = dict(
+            shape=list(x.shape), iters=sorted(set(it.cpu().tolist())),
+            ms=event_ms(torch, st, 5, 5), device_ms=dms, kernels=names)
+        single = {}
+        for h, w in ((217, 181), (256, 256), (512, 512)):
+            img = phantom.noisy_phantom_slice(h, w, seed=h)[0]
+            x1 = torch.from_numpy(img.astype(np.float32)[None]).to(dev)
+            v1, tol1 = SV.stencil_lane_init(x1, 4, 5e-3)
+            single[h * w] = event_ms(torch, lambda: KST.stencil_solve(
+                x1, v1, tol1, 2.0, 1.0, 8, 300), 3, 3)
+        out["stencil_solve"]["b1_ms"] = single
+        if hasattr(KST, "stencil_plan"):
+            out["stencil_solve"]["by_blocks"] = blocks_sweep(
+                torch, KST, SV, phantom, x, dev)
+
+    if "10" in rows:
+        # the 3-D FCM_S step, phase 7's noisy volume at B = 1
+        vol3 = torch.from_numpy(phantom.noisy_phantom_volume(181, 217, 181)[0]
+                                .astype(np.float32)[None]).to(dev)
+        v3 = torch.tensor([[0.6, 51.3, 105.4, 167.6]], device=dev)
+
+        def step():
+            return KSP.spatial_partials_3d(vol3, v3, 2.0, 1.0)
+        before = KSP.spatial_partials_3d.launches
+        step()
+        torch.cuda.synchronize()
+        assert KSP.spatial_partials_3d.launches == before + 1
+        dms, names = device_ms(torch, step, 10)
+        out["spatial_step_3d"] = dict(shape=list(vol3.shape),
+                                      ms=event_ms(torch, step, 10, 5),
+                                      device_ms=dms, kernels=names)
+        if hasattr(KSP, "spatial3d_plan"):
+            out["spatial_step_3d"]["plan"] = KSP.spatial3d_plan(181, 217,
+                                                                181)._asdict()
+            out["spatial_step_3d"]["by_z"] = z_sweep(
+                torch, KSP, vol3, v3, (4, 8, 12, 16, 24, 32, 64))
+
+    if "11" in rows:
+        # the SLIC assignment, phase 6's 512x512 RGB image, K = 256
+        rgb = phantom.phantom_slice_rgb(512, 512, noise=6.0, seed=0)[0]
+        img = torch.from_numpy(np.ascontiguousarray(rgb, np.float32)).to(dev)
+        gy, gx = SL.grid_shape(512, 512, 256)
+        sw = SL.spatial_weight(512, 512, gy, gx, 10.0)
+        cen = SL.seed_centers(img, gy, gx).contiguous()
+        assign = lambda: KS.slic_assign(img, cen, gy, gx, sw)  # noqa: E731
+        before = KS.slic_assign.launches
+        assign()
+        torch.cuda.synchronize()
+        assert KS.slic_assign.launches == before + 1
+        dms, names = device_ms(torch, assign, 20)
+        out["slic_assign"] = dict(shape=[512, 512, 3], k=gy * gx,
+                                  ms=event_ms(torch, assign, 20, 5),
                                   device_ms=dms, kernels=names)
-    if hasattr(KSP, "spatial3d_plan"):
-        out["spatial_step_3d"]["plan"] = KSP.spatial3d_plan(181, 217,
-                                                            181)._asdict()
-        out["spatial_step_3d"]["by_z"] = z_sweep(torch, KSP, vol3, v3,
-                                                 (4, 8, 12, 16, 24, 32, 64))
 
-    # the SLIC assignment, phase 6's 512x512 RGB image, K = 256
-    rgb = phantom.phantom_slice_rgb(512, 512, noise=6.0, seed=0)[0]
-    img = torch.from_numpy(np.ascontiguousarray(rgb, np.float32)).to(dev)
-    gy, gx = SL.grid_shape(512, 512, 256)
-    sw = SL.spatial_weight(512, 512, gy, gx, 10.0)
-    cen = SL.seed_centers(img, gy, gx).contiguous()
-    assign = lambda: KS.slic_assign(img, cen, gy, gx, sw)  # noqa: E731
-    before = KS.slic_assign.launches
-    assign()
-    torch.cuda.synchronize()
-    assert KS.slic_assign.launches == before + 1
-    dms, names = device_ms(torch, assign, 20)
-    out["slic_assign"] = dict(shape=[512, 512, 3], k=gy * gx,
-                              ms=event_ms(torch, assign, 20, 5),
-                              device_ms=dms, kernels=names)
     print(json.dumps(out))
     return 0
 

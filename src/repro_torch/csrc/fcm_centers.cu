@@ -20,8 +20,22 @@
 // each tile into one (c, 128) accumulator that the grid carries from step to
 // step; padding rows weigh 0. Hopper's blocks run in parallel and in no order,
 // so nothing carries between them: each block reduces its grid-stride share
-// of the pixels to 2c per-block partial sums, and a second launch folds the
-// per-block partials in a fixed order. The tail is masked, not padded.
+// of the pixels to 2c per-block partial sums, which are then folded in a
+// fixed order: by a second launch for the fused forms, and inside the one
+// launch for fcm_center_partials, whose last block to finish (an integer
+// ticket taken after a fence) folds every block's partials. The tail is
+// masked, not padded.
+//
+// fcm_center_partials reads its pixels in quads: thread t of the grid takes
+// quads t, t + G, ... (G the grid's threads), pixels 4q .. 4q + 3 of a quad
+// in order. x, each u row and w are loaded as one 16-byte vector a quad where
+// their address is 16-byte aligned (u rows need N % 4 == 0 as well), else as
+// four scalars; the last quad is masked. The order of the sums does not
+// depend on which loads were used, so a pixel array's bits are the same at
+// any alignment. The wrapper gives each thread about eight quads (125 blocks
+// at the 1000 KB image), four of them loaded at once: enough bytes in flight
+// for HBM's rate, and few enough blocks that the last block's fold is one
+// round of loads from L2.
 //
 // What bounds them on an H100: memory. fcm_center_partials reads 4 B of x and
 // 4c B of u a pixel (20.5 MB at the paper's 1000 KB image, c = 4: about 6 us
@@ -35,10 +49,11 @@
 //
 // Determinism: no float atomics. Each thread adds its pixels in index order,
 // each warp folds its threads with a fixed shuffle tree, warp 0's threads add
-// the eight warps in warp order, and the fold kernel adds the blocks with a
-// fixed lane stride and shuffle tree. The block count depends only on N (the
-// wrapper picks it), so a run repeats bit for bit. The order differs from the
-// plain version's, so sums agree to rounding, not bitwise.
+// the eight warps in warp order, and the fold (a launch of its own, or the
+// last block of fcm_center_partials) adds the blocks with a fixed lane stride
+// and shuffle tree. The block count depends only on N (the wrapper picks it),
+// so a run repeats bit for bit. The order differs from the plain version's,
+// so sums agree to rounding, not bitwise.
 //
 // Arithmetic per pixel and cluster, as the plain version: um = u * u when
 // m == 2, else powf(u, m); um = um * w; num += um * x; den += um.
@@ -51,34 +66,114 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <int MAXC>
+// four pixels p[i0 .. i0 + 3] (zeros past n): one 16-byte load when vec
+__device__ __forceinline__ void load_quad(const float* __restrict__ p,
+                                          long long i0, long long n, bool vec,
+                                          float (&q)[4]) {
+  if (vec && i0 + 4 <= n) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(p + i0));
+    q[0] = v.x;
+    q[1] = v.y;
+    q[2] = v.z;
+    q[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) q[e] = i0 + e < n ? __ldcs(p + i0 + e) : 0.f;
+  }
+}
+
+// One launch: each block reduces its quads to 2c partials in part; the last
+// block to finish folds all blocks' partials into num, den and sets the
+// ticket back to zero for the next launch on the stream. A thread loads
+// kAhead quads (x, w and every u row) before it adds any of them: at c <= 4
+// four of the eight quads the wrapper gives a thread, so 4 (c + 2) 16-byte
+// loads a thread are in flight at once. M2 (m == 2) is compile-time.
+template <int MAXC, bool M2>
 __global__ void __launch_bounds__(kThreads)
 center_partials_kernel(const float* __restrict__ x,
                        const float* __restrict__ u,
                        const float* __restrict__ w, long long n, int c,
-                       float m, float* __restrict__ part) {
-  const bool m_is_2 = (m == 2.0f);
+                       float m, bool vec_x, bool vec_u, bool vec_w,
+                       float* __restrict__ part, int* __restrict__ ticket,
+                       float* __restrict__ num_out,
+                       float* __restrict__ den_out) {
+  constexpr int kAhead = MAXC <= 4 ? 4 : MAXC <= 8 ? 2 : 1;
   float num[MAXC];
   float den[MAXC];
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) num[j] = den[j] = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float xi = x[i];
-    const float wi = w ? w[i] : 1.0f;
+  const long long n_quads = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long q0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+       q0 < n_quads; q0 += kAhead * stride) {
+    float xq[kAhead][4], wq[kAhead][4], uq[kAhead][MAXC][4];
 #pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      if (j < c) {
-        const float uj = u[(long long)j * n + i];
-        const float um = (m_is_2 ? uj * uj : powf(uj, m)) * wi;
-        num[j] = num[j] + um * xi;
-        den[j] = den[j] + um;
+    for (int a = 0; a < kAhead; ++a) {
+      const long long i0 = 4 * (q0 + a * stride);
+      load_quad(x, i0, n, vec_x, xq[a]);
+      if (w) {
+        load_quad(w, i0, n, vec_w, wq[a]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wq[a][e] = 1.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j)
+        if (j < c) load_quad(u + (long long)j * n, i0, n, vec_u, uq[a][j]);
+    }
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      const long long i0 = 4 * (q0 + a * stride);
+      const int valid = (int)max(0LL, min(4LL, n - i0));
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        if (j < c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (e < valid) {
+              const float uj = uq[a][j][e];
+              const float um = (M2 ? uj * uj : powf(uj, m)) * wq[a][e];
+              num[j] = num[j] + um * xq[a][e];
+              den[j] = den[j] + um;
+            }
+          }
+        }
       }
     }
   }
   fcm::block_partials<MAXC, kThreads>(num, den, c,
                                       part + (long long)blockIdx.x * 2 * c);
+  // block_partials ends with the partials' stores; after the barrier thread
+  // 0 takes the ticket with acquire-release semantics at gpu scope: it
+  // releases the block's partials, and the last block acquires everyone's
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = fcm::fetch_add_acq_rel(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // part (gridDim.x, 2c) -> num, den: one warp an output, its lanes striding
+  // over the blocks in order, then a fixed shuffle tree (the fold kernel's
+  // order), reading through L2
+  const int wid = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+  const int n_blocks = (int)gridDim.x;
+  for (int o = wid; o < 2 * c; o += kWarps) {  // uniform across the warp
+    float s = 0.f;
+#pragma unroll 8
+    for (int b = lid; b < n_blocks; b += 32)
+      s = s + __ldcg(part + (long long)b * 2 * c + o);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s = s + __shfl_down_sync(0xffffffffu, s, off);
+    if (lid == 0) {
+      if (o < c)
+        num_out[o] = s;
+      else
+        den_out[o - c] = s;
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0;
 }
 
 template <int MAXC>
@@ -148,15 +243,19 @@ int fold(const void* part, int n_blocks, int c, void* num, void* den,
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 template <int MAXC>
 int launch_center(const void* x, const void* u, const void* w, long long n,
-                  int c, float m, void* part, int n_blocks, void* num,
-                  void* den, void* stream) {
-  center_partials_kernel<MAXC><<<n_blocks, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+                  int c, float m, void* part, int n_blocks, void* ticket,
+                  void* num, void* den, void* stream) {
+  auto kernel = m == 2.0f ? center_partials_kernel<MAXC, true>
+                          : center_partials_kernel<MAXC, false>;
+  kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)u, (const float*)w, n, c, m,
-      (float*)part);
-  return fold(part, n_blocks, c, num, den, stream);
+      aligned16(x), aligned16(u) && n % 4 == 0, w && aligned16(w),
+      (float*)part, (int*)ticket, (float*)num, (float*)den);
+  return (int)cudaGetLastError();
 }
 
 template <int MAXC>
@@ -322,26 +421,27 @@ bool bad_args(long long n, int n_blocks) {
 
 }  // namespace
 
-// x (N,), u (c, N), w (N,) or null, float32 contiguous -> num (c,), den (c,).
-// part is scratch of n_blocks * 2c floats; 1 <= c <= 32.
+// x (N,), u (c, N), w (N,) or null, float32 contiguous -> num (c,), den (c,),
+// in one launch. part is scratch of n_blocks * 2c floats; ticket is one int
+// that is zero on entry and left zero on exit; 1 <= c <= 32.
 extern "C" int fcm_center_partials(const void* x, const void* u, const void* w,
                                    long long n, int c, float m, void* part,
-                                   int n_blocks, void* num, void* den,
-                                   void* stream) {
+                                   int n_blocks, void* ticket, void* num,
+                                   void* den, void* stream) {
   if (bad_args(n, n_blocks)) return (int)cudaErrorInvalidValue;
   switch (fcm::tier_of(c)) {
     case 4:
-      return launch_center<4>(x, u, w, n, c, m, part, n_blocks, num, den,
-                              stream);
+      return launch_center<4>(x, u, w, n, c, m, part, n_blocks, ticket, num,
+                              den, stream);
     case 8:
-      return launch_center<8>(x, u, w, n, c, m, part, n_blocks, num, den,
-                              stream);
+      return launch_center<8>(x, u, w, n, c, m, part, n_blocks, ticket, num,
+                              den, stream);
     case 16:
-      return launch_center<16>(x, u, w, n, c, m, part, n_blocks, num, den,
-                               stream);
+      return launch_center<16>(x, u, w, n, c, m, part, n_blocks, ticket, num,
+                               den, stream);
     case 32:
-      return launch_center<32>(x, u, w, n, c, m, part, n_blocks, num, den,
-                               stream);
+      return launch_center<32>(x, u, w, n, c, m, part, n_blocks, ticket, num,
+                               den, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

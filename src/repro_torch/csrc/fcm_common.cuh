@@ -3,8 +3,9 @@
 // c squared distances, computed in registers with the same float32
 // operations as the plain PyTorch version
 // (repro_torch.core.fcm.membership_from_d2), a block's fixed-order fold of
-// per-thread sums, and the cluster-count tiers the kernels are instantiated
-// for.
+// per-thread sums, the cluster-count tiers the kernels are instantiated
+// for, and the counter add that fcm_centers.cu and fcm_streamed.cu
+// synchronise blocks with.
 //
 // Arithmetic, as the plain version does it:
 //   d2_j = (v_j - x) * (v_j - x)                      ((v - x) ** 2)
@@ -121,6 +122,18 @@ __device__ __forceinline__ void block_partials(const float (&num)[MAXC],
     for (int q = 1; q < kWarps; ++q) s = s + warp_s[q][slot];
     out[t] = s;
   }
+}
+
+// atomicAdd with acquire-release semantics at gpu scope: it publishes what
+// the calling block stored before its last barrier, and sees what the blocks
+// that added before it published. Returns the old value.
+__device__ __forceinline__ int fetch_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 // The smallest instantiated tier that holds c clusters (0 if none does).

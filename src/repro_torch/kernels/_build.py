@@ -44,17 +44,24 @@ SIGNATURES = {
                            _P, _P, _P, _P),
     "fcm_resident_max_rows": (),
     "fcm_membership": (_P, _L, _P, _I, _F, _F, _P, _P),
-    "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P),
+    "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P,
+                            _P),
     "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _P, _I, _P, _P, _P),
     "fcm_fused_partials_batched": (_P, _P, _I, _L, _I, _P, _I, _F, _F, _P,
                                    _I, _P, _P, _P),
     "fcm_fused_batched_dchunk": (_I,),
     "fcm_max_c": (),
     "fcm_streamed_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                           _P, _P, _P, _P),
+                           _I, _I, _P, _P, _P, _P, _P, _P),
     "fcm_streamed_max_rows": (),
     "fcm_streamed_max_c": (),
     "fcm_streamed_max_feat": (),
+    "fcm_streamed_threads": (),
+    "fcm_streamed_max_ranks": (),
+    "fcm_streamed_rows_per_block": (_I,),
+    "fcm_streamed_min_blocks": (_I, _I),
+    "fcm_streamed_blocks_per_sm": (_I, _I, _F),
+    "fcm_streamed_registers": (_I, _I, _F),
     "slic_assign": (_P, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P),
     "slic_max_center_bytes": (),
     "slic_tile_w": (),
@@ -186,3 +193,23 @@ def stream_of(t) -> int:
     """PyTorch's current stream on ``t``'s device, as a raw handle."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+#: (device, stream) -> the int32 counters the kernels there share
+_counters = {}
+
+
+def zeroed_ints(t, n: int):
+    """At least ``n`` int32 counters on ``t``'s device that are zero when a
+    kernel on the current stream starts. The kernels that take them (the
+    streamed whole-solve's per-lane barriers, the center partials' ticket)
+    set every counter they touch back to zero before they exit, and
+    kernels on one stream run in turn, so one buffer, zeroed once, serves
+    every later launch on that stream."""
+    import torch
+    key = (t.device, stream_of(t))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=t.device)
+        _counters[key] = buf
+    return buf

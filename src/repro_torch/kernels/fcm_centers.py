@@ -17,10 +17,11 @@ version beside it:
   D > 16), once an iteration under the solver's per-lane-masked loop.
 
 Each block reduces a grid-stride share of the pixels to per-block
-partials in a scratch buffer, and a second launch folds them in a fixed
-order: no float atomics, so a run repeats bit for bit. ``w`` is the
-optional per-pixel weight (histogram counts); ``None`` means 1 and is
-not read.
+partials in a scratch buffer, which are folded in a fixed order: by a
+second launch for the fused forms, and by the last block to finish in
+:func:`center_partials`'s one launch. No float atomics, so a run repeats
+bit for bit. ``w`` is the optional per-pixel weight (histogram counts);
+``None`` means 1 and is not read.
 """
 from __future__ import annotations
 
@@ -37,6 +38,21 @@ from .fcm_membership import MAX_C, exponent
 #: only on N, so the summation order does too.
 THREADS = 256
 MAX_BLOCKS = 1024
+#: pixels a thread of :func:`center_partials` takes at a time (one
+#: 16-byte load of x and of each u row), and the quads a thread takes:
+#: 125 blocks at the 1000 KB image, so the last block's fold is one
+#: round of loads (PERF.md, PR 20)
+QUAD = 4
+QUADS_PER_THREAD = 8
+
+
+def center_blocks(n: int) -> int:
+    """:func:`center_partials`' block count for N pixels:
+    ``ceil(N / (QUAD * QUADS_PER_THREAD * THREADS))`` blocks, at most
+    :data:`MAX_BLOCKS` (past that, each thread strides over more
+    quads). It depends on N alone."""
+    return max(1, min(-(-n // (QUAD * QUADS_PER_THREAD * THREADS)),
+                      MAX_BLOCKS))
 
 
 def center_partials_plain(x: torch.Tensor, u: torch.Tensor, m: float,
@@ -104,8 +120,7 @@ def _zeros(x: torch.Tensor, c: int):
             torch.zeros((c,), dtype=torch.float32, device=x.device))
 
 
-def _outputs(x: torch.Tensor, c: int):
-    n_blocks = max(1, min(-(-x.shape[0] // THREADS), MAX_BLOCKS))
+def _outputs(x: torch.Tensor, c: int, n_blocks: int):
     part = torch.empty((n_blocks, 2 * c), dtype=torch.float32,
                        device=x.device)
     num = torch.empty((c,), dtype=torch.float32, device=x.device)
@@ -118,7 +133,8 @@ def center_partials(x: torch.Tensor, u: torch.Tensor, m: float,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` (N,), ``u`` (c, N), optional ``w`` (N,), float32 -> ``(num
     (c,), den (c,))``. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (and its fold) or raises."""
+    tensor launches the kernel (one launch, its fold included) or
+    raises."""
     if u.dim() != 2 or u.shape[1] != x.shape[-1]:
         raise ValueError(f"center_partials takes u (c, N) for x (N,), got "
                          f"{tuple(u.shape)} and {tuple(x.shape)}")
@@ -128,11 +144,12 @@ def center_partials(x: torch.Tensor, u: torch.Tensor, m: float,
     n = x.shape[0]
     if n == 0:
         return _zeros(x, c)
-    n_blocks, part, num, den = _outputs(x, c)
+    n_blocks, part, num, den = _outputs(x, c, center_blocks(n))
     _build.check(_build.library().fcm_center_partials(
         x.data_ptr(), u.data_ptr(), None if w is None else w.data_ptr(), n,
-        c, float(np.float32(m)), part.data_ptr(), n_blocks, num.data_ptr(),
-        den.data_ptr(), _build.stream_of(x)), "fcm_center_partials")
+        c, float(np.float32(m)), part.data_ptr(), n_blocks,
+        _build.zeroed_ints(x, 1).data_ptr(), num.data_ptr(), den.data_ptr(),
+        _build.stream_of(x)), "fcm_center_partials")
     center_partials.launches += 1
     return num, den
 
@@ -152,7 +169,8 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
     n = x.shape[0]
     if n == 0:
         return _zeros(x, c)
-    n_blocks, part, num, den = _outputs(x, c)
+    n_blocks, part, num, den = _outputs(
+        x, c, max(1, min(-(-n // THREADS), MAX_BLOCKS)))
     _build.check(_build.library().fcm_fused_partials(
         x.data_ptr(), None if w is None else w.data_ptr(), n, v.data_ptr(),
         c, float(np.float32(m)), exponent(m), part.data_ptr(), n_blocks,
@@ -212,8 +230,8 @@ def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
     return num, den
 
 
-#: kernel launches (each a reduction and its fold) since the counts were
-#: last set to 0
+#: wrapper calls that launched their kernel (for the fused forms, a
+#: reduction and its fold) since the counts were last set to 0
 center_partials.launches = 0
 fused_partials.launches = 0
 fused_partials_batched.launches = 0

@@ -7,16 +7,19 @@ Two CUDA kernels, one contract:
   (``repro/kernels/fcm_resident.py::resident_solve_pallas``): one block
   per lane holds the lane's rows in registers (up to 1024 rows).
 - ``csrc/fcm_streamed.cu`` replaces its HBM-streamed twin
-  (``resident_streamed_solve_pallas``): one thread-block cluster per
-  lane re-reads the rows from device memory (and L2) on every iteration
-  and reduces across its blocks through distributed shared memory (up
-  to 2^20 rows).
+  (``resident_streamed_solve_pallas``): a cooperative launch in which
+  each lane takes a group of blocks (:func:`streamed_plan`), re-reads
+  its rows from device memory (and L2) on every iteration and reduces
+  across its blocks through partials in device memory behind a per-lane
+  counter (up to 2^20 rows).
 
 Each iterates the weighted Eq. 4 -> Eq. 3 step until ``max|v' - v| <
 tol`` or ``max_iters``, with no launch between iterations. Each lane
 stops at its own convergence point, so its trajectory is a solo solve's.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +38,65 @@ MAX_FEAT = 8
 STREAM_MAX_ROWS = 1 << 20
 STREAM_MAX_C = 8
 STREAM_MAX_FEAT = 16
+#: threads a block of the streamed kernel, and the most blocks a lane takes
+#: (one an SM on any card of at least 128 SMs, whatever the occupancy)
+STREAM_THREADS = 256
+STREAM_MAX_RANKS = 128
+
+
+def stream_feat_tier(d: int) -> int:
+    """The feature tier the streamed kernel is instantiated for."""
+    return 1 if d <= 1 else 3 if d <= 3 else 8 if d <= 8 else 16
+
+
+def stream_rows_per_block(d: int) -> int:
+    """Rows a block of the streamed kernel takes, by feature tier: about
+    the same float work a block, and at D = 1 few enough blocks that a
+    64-lane bucket of BrainWeb slices (39 277 rows) is resident at once."""
+    return {1: 5120, 3: 2048, 8: 1024, 16: 512}[stream_feat_tier(d)]
+
+
+def stream_min_blocks(c: int, d: int) -> int:
+    """The blocks an SM the (c, D) tier's ``__launch_bounds__`` asks for,
+    from the sums a thread keeps in registers: the occupancy the plan
+    may assume."""
+    sums = (4 if c <= 4 else 8) * (stream_feat_tier(d) + 1)
+    return 4 if sums <= 16 else 2 if sums <= 36 else 1
+
+
+class StreamedPlan(NamedTuple):
+    """The streamed kernel's launch for a bucket of B lanes of K rows."""
+    ranks: int              # blocks a lane, from K and the feature tier
+    threads: int            # threads a block
+    rows_per_thread: int    # most rows a thread takes an iteration
+    lanes_per_round: int    # lanes whose blocks are resident together
+    rounds: int             # turns a group of blocks takes through lanes
+    grid: int               # blocks launched: lanes_per_round * ranks
+
+
+def streamed_plan(b: int, k: int, d: int, sm_count: int,
+                  blocks_per_sm: int) -> StreamedPlan:
+    """The streamed kernel's plan. A lane's block count, and with it the
+    slices of its rows and its reduction order, comes from its rows and
+    feature tier alone: a block for each :func:`stream_rows_per_block`
+    rows, at most :data:`STREAM_MAX_RANKS`. The grid is as many whole
+    lanes' groups of blocks as the card holds at once (``sm_count *
+    blocks_per_sm``, the occupancy the library reports) and at most B;
+    a bucket past that runs in rounds inside the launch, each group
+    taking every ``lanes_per_round``-th lane."""
+    if min(b, k, d, sm_count, blocks_per_sm) < 1:
+        raise ValueError(f"streamed_plan takes positive sizes, got b={b}, "
+                         f"k={k}, d={d}, sm_count={sm_count}, "
+                         f"blocks_per_sm={blocks_per_sm}")
+    ranks = min(STREAM_MAX_RANKS, -(-k // stream_rows_per_block(d)))
+    resident = sm_count * blocks_per_sm
+    if ranks > resident:
+        raise ValueError(f"a lane of {k} rows takes {ranks} blocks, more "
+                         f"than the {resident} the card holds at once")
+    lanes = min(b, resident // ranks)
+    per = -(-k // ranks)
+    return StreamedPlan(ranks, STREAM_THREADS, -(-per // STREAM_THREADS),
+                        lanes, -(-b // lanes), lanes * ranks)
 
 
 def resident_solve_plain(x, w, v0, tol, m: float, max_iters: int):
@@ -84,21 +146,55 @@ def _check_inputs(what, x, w, v0, tol):
     return b, k, d, c
 
 
-def _launch(fn_name, counter, x, w, v0, tol, m, max_iters, b, k, d, c):
-    v = torch.empty((b, c, d), dtype=torch.float32, device=x.device)
-    delta = torch.empty((b,), dtype=torch.float32, device=x.device)
-    iters = torch.empty((b,), dtype=torch.int32, device=x.device)
-    if b:
-        # The exponents as float32, computed as the reference does: the
-        # Python float -1/(m-1), then rounded once.
-        m32 = float(np.float32(m))
-        expo = float(np.float32(-1.0 / (m - 1.0)))
-        fn = getattr(_build.library(), fn_name)
-        _build.check(fn(
-            x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k,
-            d, c, m32, expo, int(max_iters), v.data_ptr(), delta.data_ptr(),
-            iters.data_ptr(), _build.stream_of(x)), fn_name)
-        counter.launches += 1
+
+
+def _exponents(m):
+    """m and the exponent -1/(m-1) as float32, computed as the reference
+    does: the Python float -1/(m-1), then rounded once."""
+    return float(np.float32(m)), float(np.float32(-1.0 / (m - 1.0)))
+
+
+def _outputs(x, b, c, d):
+    return (torch.empty((b, c, d), dtype=torch.float32, device=x.device),
+            torch.empty((b,), dtype=torch.float32, device=x.device),
+            torch.empty((b,), dtype=torch.int32, device=x.device))
+
+
+#: (device, c, D, m == 2) -> (SM count, blocks an SM) of the streamed
+#: kernel, asked of the card once
+_occupancy = {}
+
+
+def streamed_occupancy(device, c: int, d: int, m: float):
+    """The SM count of ``device`` and the blocks an SM the streamed kernel
+    that c, D and m launch holds there
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    m32 = float(np.float32(m))
+    key = (device, c, d, m32 == 2.0)
+    if key not in _occupancy:
+        blocks = _build.library().fcm_streamed_blocks_per_sm(c, d, m32)
+        if blocks < 1:
+            raise RuntimeError(f"fcm_streamed_blocks_per_sm: CUDA error "
+                               f"{-blocks}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _occupancy[key] = (sms, blocks)
+    return _occupancy[key]
+
+
+def _launch_streamed(x, w, v0, tol, m, max_iters, b, k, d, c):
+    v, delta, iters = _outputs(x, b, c, d)
+    if not b:
+        return v, delta, iters
+    plan = streamed_plan(b, k, d, *streamed_occupancy(x.device, c, d, m))
+    part = torch.empty((b * 2 * plan.ranks * c * (d + 1),),
+                       dtype=torch.float32, device=x.device)
+    sync = _build.zeroed_ints(x, 2 * b)
+    _build.check(_build.library().fcm_streamed_solve(
+        x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k, d,
+        c, *_exponents(m), int(max_iters), plan.ranks, plan.lanes_per_round,
+        part.data_ptr(), sync.data_ptr(), v.data_ptr(), delta.data_ptr(),
+        iters.data_ptr(), _build.stream_of(x)), "fcm_streamed_solve")
+    resident_streamed_solve.launches += 1
     return v, delta, iters
 
 
@@ -117,8 +213,15 @@ def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
             f"D <= {MAX_FEAT} a lane; got rows={k}, c={c}, D={d} (larger "
             f"flat problems take the HBM-streamed whole-solve, "
             f"resident_streamed_solve)")
-    return _launch("fcm_resident_solve", resident_solve, x, w, v0, tol, m,
-                   max_iters, b, k, d, c)
+    v, delta, iters = _outputs(x, b, c, d)
+    if b:
+        _build.check(_build.library().fcm_resident_solve(
+            x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k,
+            d, c, *_exponents(m), int(max_iters), v.data_ptr(),
+            delta.data_ptr(), iters.data_ptr(), _build.stream_of(x)),
+            "fcm_resident_solve")
+        resident_solve.launches += 1
+    return v, delta, iters
 
 
 #: kernel launches since the count was last set to 0
@@ -142,8 +245,7 @@ def resident_streamed_solve(x: torch.Tensor, w: torch.Tensor,
             f"flat/resident_streamed holds rows <= {STREAM_MAX_ROWS}, c <= "
             f"{STREAM_MAX_C}, D <= {STREAM_MAX_FEAT} a lane and 65535 "
             f"lanes; got rows={k}, c={c}, D={d}, B={b}")
-    return _launch("fcm_streamed_solve", resident_streamed_solve, x, w, v0,
-                   tol, m, max_iters, b, k, d, c)
+    return _launch_streamed(x, w, v0, tol, m, max_iters, b, k, d, c)
 
 
 #: kernel launches since the count was last set to 0

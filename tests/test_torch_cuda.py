@@ -131,7 +131,14 @@ def test_membership_kernel_matches_plain(dev, n, c, m):
 
 @pytest.mark.parametrize("n,c,m,weighted", [(1, 2, 2.0, False),
                                             (8193, 4, 2.0, False),
-                                            (300000, 8, 2.5, True)])
+                                            (300000, 8, 2.5, True),
+                                            (255, 4, 2.0, False),
+                                            (257, 4, 2.0, True),
+                                            (4097, 4, 2.0, False),
+                                            (4 * 1024 * 256 + 3, 4, 2.0,
+                                             False),
+                                            (16 * 1024 * 256 + 3, 32, 2.5,
+                                             True)])
 def test_center_partials_kernel_matches_plain(dev, n, c, m, weighted):
     x, v = _paper_pixels(dev, n, c, seed=n)
     u = KM.membership_plain(x, v, m).contiguous()
@@ -146,7 +153,22 @@ def test_center_partials_kernel_matches_plain(dev, n, c, m, weighted):
     np.testing.assert_allclose(den.cpu().numpy(), pden.cpu().numpy(),
                                rtol=1e-5)
     again = KC.center_partials(x, u, m, w)
+    assert KC.center_partials.launches == before + 2
     assert torch.equal(again[0], num) and torch.equal(again[1], den)
+
+
+@pytest.mark.parametrize("n", [8192, 8193])
+def test_center_partials_bits_do_not_depend_on_alignment(dev, n):
+    """x one float into its buffer takes scalar loads where an aligned
+    copy takes 16-byte ones; the sums are added in one order either way."""
+    x, v = _paper_pixels(dev, n, 4, seed=n)
+    buf = torch.empty(n + 1, device=dev)
+    buf[1:] = x
+    u = KM.membership_plain(x, v, 2.0).contiguous()
+    assert buf[1:].data_ptr() % 16 != 0
+    got = KC.center_partials(buf[1:], u, 2.0)
+    want = KC.center_partials(x, u, 2.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("n,c,m,weighted", [(1, 2, 2.0, False),
@@ -202,7 +224,15 @@ def _blobs(b, k, d, c, seed):
 @pytest.mark.parametrize("b,k,d,c,m", [(2, 1025, 1, 4, 2.0),
                                        (3, 4099, 3, 4, 2.0),
                                        (1, 70000, 1, 4, 2.0),
-                                       (2, 3000, 16, 8, 2.5)])
+                                       (2, 3000, 16, 8, 2.5),
+                                       # the 1000 KB image's rows
+                                       (1, 1024000, 1, 4, 2.0),
+                                       # one row past the most blocks a
+                                       # lane takes (128 of 5120 rows)
+                                       (1, 128 * 5120 + 1, 1, 4, 2.0),
+                                       # more blocks than the card holds:
+                                       # lanes taken in rounds
+                                       (2000, 1100, 1, 4, 2.0)])
 def test_streamed_kernel_matches_plain(dev, b, k, d, c, m):
     x = torch.from_numpy(_blobs(b, k, d, c, seed=k + d)).to(dev)
     w = torch.ones((b, k), device=dev)
@@ -219,6 +249,26 @@ def test_streamed_kernel_matches_plain(dev, b, k, d, c, m):
                                rtol=RTOL, atol=ATOL)
     again = KR.resident_streamed_solve(x, w, v0, tol, m, 300)
     assert torch.equal(again[0], v) and torch.equal(again[2], it)
+
+
+def test_streamed_lane_bits_are_its_own_in_a_bucket(dev):
+    """The 1000 KB image's lane alone and as lane 0 of a bucket of three:
+    the same blocks, slices and reduction order, so the same bits."""
+    img = phantom.phantom_of_bytes(1000 * 1024)[0].reshape(-1)
+    rng = np.random.default_rng(3)
+    lanes = np.stack([img, img[::-1], np.clip(
+        img + rng.normal(0, 3, img.shape), 0, 255)]).astype(np.float32)
+    x = torch.from_numpy(lanes[..., None]).to(dev)
+    w = torch.ones(x.shape[:2], device=dev)
+    lo, hi = TS.weighted_support(x, w)
+    v0 = TS.linspace_from_support(lo, hi, 4).contiguous()
+    tol = TS._tol_from_range((hi - lo).max(dim=1).values, 5e-3).contiguous()
+    v, delta, it = KR.resident_streamed_solve(x, w, v0, tol, 2.0, 300)
+    v1, delta1, it1 = KR.resident_streamed_solve(
+        x[:1].contiguous(), w[:1].contiguous(), v0[:1].contiguous(),
+        tol[:1].contiguous(), 2.0, 300)
+    assert torch.equal(v1[0], v[0]) and torch.equal(it1[0], it[0])
+    assert torch.equal(delta1[0], delta[0])
 
 
 @pytest.mark.parametrize("h,w,ch,segs", [(217, 181, 1, 256),

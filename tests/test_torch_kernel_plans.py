@@ -15,9 +15,13 @@ bands it implies are checked here.
 The 3-D FCM_S step (``csrc/fcm_spatial.cu``) marches tiles of columns
 along z in runs of planes from :func:`spatial3d_plan`; the SLIC
 assignment (``csrc/slic_assign.cu``) stages each tile's cell window
-(:func:`tile_cell_window`). Their coverage is checked here by mirroring
-the kernels' index rules. The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(:func:`tile_cell_window`). The HBM-streamed whole-solve
+(``csrc/fcm_streamed.cu``) gives each lane a group of blocks and the
+groups rounds of lanes from :func:`streamed_plan`; the center partials
+(``csrc/fcm_centers.cu``) take quads of pixels over
+:func:`center_blocks` blocks. Their coverage is checked here by
+mirroring the kernels' index rules. The kernels themselves run only on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +30,8 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build
+from repro_torch.kernels import fcm_centers as KC
+from repro_torch.kernels import fcm_resident as KR
 from repro_torch.kernels import fcm_spatial as KSP
 from repro_torch.kernels import fcm_stencil as KST
 from repro_torch.kernels import selective_scan as KSS
@@ -380,3 +386,174 @@ def test_the_route_image_window_is_three_by_three_cells():
     assert KS.tile_cell_window(512, 512, gy, gx, 0, 0) == (0, 1, 0, 1)
     assert KS.tile_cell_window(512, 512, gy, gx, 63, 15) == (14, 15, 14, 15)
     assert KS.smem_bytes(512, 512, 3, gy, gx) == 4 * 5 * 5 * 5
+
+
+# -- the HBM-streamed whole-solve's plan -------------------------------------
+
+#: an H100's SM count
+H100_SMS = 132
+
+
+def _lane_rows(k, ranks, ahead):
+    """The rows of a lane in the order the kernel adds them: for each rank
+    (block), each thread's rows, r0 + t, r0 + t + 256, ..., taken ``ahead``
+    rows at a time as the kernel's row loop steps."""
+    per = -(-k // ranks)
+    t_n = KR.STREAM_THREADS
+    out = []
+    for rank in range(ranks):
+        r0 = min(k, rank * per)
+        r1 = min(k, r0 + per)
+        for t in range(t_n):
+            for base in range(r0 + t, r1, ahead * t_n):
+                out.extend(r for r in (base + q * t_n for q in range(ahead))
+                           if r < r1)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 255, 5120, 5121, 39277, 262144,
+                                1024000, 1 << 20])
+@pytest.mark.parametrize("d", [1, 3, 16])
+def test_streamed_plan_covers_every_row_of_a_lane_once(k, d):
+    plan = KR.streamed_plan(1, k, d, H100_SMS, KR.stream_min_blocks(4, d))
+    assert 1 <= plan.ranks <= min(k, KR.STREAM_MAX_RANKS)
+    per = -(-k // plan.ranks)
+    assert plan.rows_per_thread == -(-per // KR.STREAM_THREADS)
+    if k <= 39277:               # the full mirror; the index rule is linear
+        for ahead in (1, 2, 4):
+            rows = _lane_rows(k, plan.ranks, ahead)
+            assert sorted(rows) == list(range(k))
+    else:                        # the slices alone at the large sizes
+        edges = [min(k, r * per) for r in range(plan.ranks)] + [k]
+        assert edges[0] == 0 and all(a <= b for a, b in zip(edges,
+                                                             edges[1:]))
+        assert all(b - a <= per for a, b in zip(edges, edges[1:]))
+
+
+@pytest.mark.parametrize("k,d", [(39277, 1), (1024000, 1), (262144, 3),
+                                 (3000, 16), (5000, 2), (1, 1)])
+def test_streamed_blocks_a_lane_depend_on_its_rows_alone(k, d):
+    """The same ranks, so the same slices and reduction order, for a lane
+    alone and in a bucket, on any card and at any occupancy."""
+    ranks = {KR.streamed_plan(b, k, d, sms, blocks).ranks
+             for b in (1, 3, 64, 2000)
+             for sms, blocks in ((132, 1), (114, 2), (132, 4), (132, 8))}
+    assert ranks == {min(KR.STREAM_MAX_RANKS,
+                         -(-k // KR.stream_rows_per_block(d)))}
+
+
+@pytest.mark.parametrize("b,k,d", [(1, 1024000, 1), (64, 39277, 1),
+                                   (2000, 2048, 1), (4, 262144, 3),
+                                   (181, 39277, 1), (2, 3000, 16),
+                                   (65535, 1, 1), (7, 655361, 8)])
+@pytest.mark.parametrize("sms,blocks", [(132, 4), (132, 1), (114, 2),
+                                        (132, 8)])
+def test_streamed_grid_never_exceeds_the_occupancy(b, k, d, sms, blocks):
+    plan = KR.streamed_plan(b, k, d, sms, blocks)
+    assert plan.grid == plan.lanes_per_round * plan.ranks
+    assert plan.grid <= sms * blocks
+    assert 1 <= plan.lanes_per_round <= b
+    # rounds of groups: every lane exactly once, each group's lanes in turn
+    seen = [lane for g in range(plan.lanes_per_round)
+            for lane in range(g, b, plan.lanes_per_round)]
+    assert sorted(seen) == list(range(b))
+    assert plan.rounds == -(-b // plan.lanes_per_round)
+    # as many lanes at once as the card holds
+    assert (plan.lanes_per_round == b
+            or (plan.lanes_per_round + 1) * plan.ranks > sms * blocks)
+
+
+def test_the_route_bucket_fits_the_card_in_one_wave():
+    """64 BrainWeb slices of 217x181 (39 277 rows): 8 blocks of 256
+    threads a lane, 512 blocks, within 132 SMs x the 4 blocks an SM the
+    c = 4, D = 1 kernel's launch bounds ask for."""
+    blocks = KR.stream_min_blocks(4, 1)
+    plan = KR.streamed_plan(64, 39277, 1, H100_SMS, blocks)
+    assert blocks == 4
+    assert plan == KR.StreamedPlan(8, 256, 20, 64, 1, 512)
+
+
+def test_a_lone_large_lane_spreads_past_eight_blocks():
+    for k, d, want in ((1 << 20, 1, 128), (1024000, 1, 128),
+                       (262144, 3, 128), (39277, 3, 20)):
+        plan = KR.streamed_plan(1, k, d, H100_SMS,
+                                KR.stream_min_blocks(4, d))
+        assert plan.ranks == want > 8
+        assert plan.rounds == 1
+
+
+def test_streamed_plan_refuses_a_lane_the_card_cannot_hold():
+    with pytest.raises(ValueError, match="holds at once"):
+        KR.streamed_plan(1, 1 << 20, 1, 100, 1)
+    with pytest.raises(ValueError):
+        KR.streamed_plan(0, 5, 1, 132, 4)
+
+
+class _FakeStreamedLibrary:
+    """Stands in for the kernel library: records what the streamed
+    wrapper passes."""
+    def __init__(self):
+        self.calls = []
+
+    def fcm_streamed_solve(self, x, w, v0, tol, b, k, d, c, m, expo,
+                           max_iters, ranks, lanes, part, sync, v, delta,
+                           iters, stream):
+        self.calls.append(dict(b=b, k=k, d=d, c=c, ranks=ranks, lanes=lanes))
+        return 0
+
+
+@pytest.mark.parametrize("b,k,d,c", [(1, 39277, 1, 4), (64, 39277, 1, 4),
+                                     (3, 20000, 3, 8), (700, 5121, 1, 4)])
+def test_streamed_wrapper_launches_the_plan(monkeypatch, b, k, d, c):
+    """The wrapper passes the plan's blocks a lane and lanes a round,
+    sizes the partials for them and takes two counters a lane. It is
+    driven past its device check with a fake library and occupancy."""
+    lib = _FakeStreamedLibrary()
+    sizes = []
+    real_empty = torch.empty
+
+    def spy_empty(shape, **kw):
+        sizes.append(tuple(shape))
+        return real_empty(shape, **kw)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "_counters", {})
+    monkeypatch.setattr(KR, "streamed_occupancy",
+                        lambda dev, c, d, m: (H100_SMS, 4))
+    monkeypatch.setattr(KR.torch, "empty", spy_empty)
+    x = real_empty((b, k, d))
+    before = KR.resident_streamed_solve.launches
+    KR._launch_streamed(x, real_empty((b, k)), real_empty((b, c, d)),
+                        real_empty((b,)), 2.0, 300, b, k, d, c)
+    assert KR.resident_streamed_solve.launches == before + 1
+    KR.resident_streamed_solve.launches = before
+    plan = KR.streamed_plan(b, k, d, H100_SMS, 4)
+    assert lib.calls == [dict(b=b, k=k, d=d, c=c, ranks=plan.ranks,
+                              lanes=plan.lanes_per_round)]
+    assert (b * 2 * plan.ranks * c * (d + 1),) in sizes
+    counters = _build._counters[(x.device, 0)]
+    assert counters.numel() >= 2 * b and not counters.any()
+
+
+# -- the center partials' quads ---------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 3, 4, 255, 257, 1023, 1025, 4097, 8193,
+                               4 * 1024 * 256 + 3, 16 * 1024 * 256,
+                               16 * 1024 * 256 + 3])
+def test_center_partials_quads_cover_every_pixel_once(n):
+    """Thread t of the grid takes quads t, t + G, ... (G the grid's
+    threads), pixels 4q .. 4q + 3 masked at N: every pixel once, each
+    thread's pixels in index order, a block count from N alone."""
+    blocks = KC.center_blocks(n)
+    assert 1 <= blocks <= KC.MAX_BLOCKS
+    assert blocks == min(KC.MAX_BLOCKS, -(-n // (
+        KC.QUAD * KC.QUADS_PER_THREAD * KC.THREADS)))
+    g = blocks * KC.THREADS
+    n_quads = -(-n // KC.QUAD)
+    q = np.arange(n_quads)
+    owner = q % g                                  # the thread of each quad
+    pix = (KC.QUAD * q[:, None] + np.arange(KC.QUAD)).ravel()
+    keep = pix < n
+    assert np.array_equal(np.sort(pix[keep]), np.arange(n))
+    # a thread's quads rise with its stride, so its pixels are in order
+    assert np.all(np.diff(q[owner == 0]) == g)
