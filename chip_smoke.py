@@ -10,8 +10,10 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
 2. build: compile every kernel under ``src/repro_torch/csrc`` for
    ``sm_90a``, print the build time and ptxas' register report, and hold
    the library's exported bounds and plan constants against the Python
-   plans (the stencil whole-solve's, the 3-D march's, the SLIC tile's,
-   the streamed whole-solve's block shape and each tier's occupancy);
+   plans (the stencil whole-solve's, the 3-D and 2-D marches', the SLIC
+   tile's, the streamed whole-solve's block shape and each tier's
+   occupancy, the batched fused partials' tiers, feature chunks and rows
+   a thread);
 3. kernels: call each kernel's wrapper on tensors on the card at the
    serving path's shapes, hold the result against its plain PyTorch
    version on the same inputs, and time kernel, plain version and the
@@ -44,8 +46,9 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    each with the launch counts set to 0 just before and read just after,
    against a CPU engine; time the 512x512 RGB image through both routes
    with each route's per-class DSC; hold the batched fused-partials
-   kernel (lanes past the whole-solve bounds) against its plain version,
-   with its device time, and serve 16 slices at c = 12 and one 1100x1000 image (past 2^20
+   kernel (lanes past the whole-solve bounds) against its plain version
+   on four cases, each with its plan, device time and one kernel a call,
+   and serve 16 slices at c = 12 and one 1100x1000 image (past 2^20
    rows) through the pixel route against a CPU engine;
 7. spatial: hold the FCM_S step kernels (2-D and 3-D) and the stencil
    whole-solve against their plain versions (the 1000 KB image, noisy
@@ -54,7 +57,9 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    case twice and bit-equal, a whole-solve lane alone bit-equal to
    itself in its bucket, with each case's cluster size, form and shared
    memory a block, and the bucket's active clusters and device time; the
-   3-D step's march plan for each volume and its device time;
+   3-D step's march plan for each volume and its device time; the 2-D
+   step's plan for each image, and its device time (one kernel a call) on
+   the 1000 KB image with 8 and 4 neighbors and on a noisy slice;
    ``solve(spatial_problem)`` on the card (auto,
    resident, fused, reference) against ``device="cpu"`` with the launch
    counts set to 0 just before and read just after, labels equal up to
@@ -511,9 +516,7 @@ def check_center_partials(KC, KM, cases, dev):
     call = lambda: KC.center_partials(x, u, m)  # noqa: E731
     ms = time_ms(call)
     dms, per = device_ms(call)
-    require(dms is None or len(per) == 1 and next(iter(per.values()))[1] == 1,
-            f"center_partials launched more than one kernel a call: "
-            f"{_kernel_names(per)}")
+    _one_kernel(per, "center_partials")
     print(f"  center_partials at {name}: device {_fmt_ms(dms)} a call "
           f"({_kernel_names(per)})")
     plain_ms = time_ms(lambda: KC.center_partials_plain(x, u, m))
@@ -711,36 +714,51 @@ def profile_call(fn, card, label):
               f"({dev_us / count:8.2f} us each) {key[:60]}")
 
 
+#: profiler windows device_ms tries before it gives up on a time
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, calls=5):
     """The profiler's device time of one call of ``fn``: each kernel's
     mean time a launch over ``calls`` calls after a warm-up, times its
     launches a call, summed; and each kernel's own, as {name: (us a
     launch, launches a call)}. Launches a call are the profiler's count
     over ``calls``, rounded and at least 1, since the profiler may drop
-    the events of some launches. None where it saw no device time."""
+    the events of some launches. Each call is synchronized. A window in
+    which the profiler recorded no device event at all (rare: it
+    happened once in a whole run, and not in 160 windows of a fresh
+    process on the card) is tried again with twice the calls, up to
+    PROFILE_TRIES windows; None when every window lost them, which
+    _fmt_ms reports as such. A host or event time never stands in for
+    it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, per = 0.0, {}
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("Activity Buffer")):
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            n = max(1, round(e.count / calls))
-            total += us / e.count * n
-            per[e.key] = (us / e.count, n)
-    return (total / 1e3 if total else None), per
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        total, per = 0.0, {}
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.key.startswith("Activity Buffer")):
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0:
+                n = max(1, round(e.count / calls))
+                total += us / e.count * n
+                per[e.key] = (us / e.count, n)
+        if total:
+            return total / 1e3, per
+        calls *= 2
+    return None, {}
 
 
 def _fmt_ms(ms):
-    return "not measured" if ms is None else f"{ms:.5f} ms"
+    return (f"not measured (the profiler recorded no device event in "
+            f"{PROFILE_TRIES} windows)" if ms is None else f"{ms:.5f} ms")
 
 
 def _kernel_names(per):
@@ -1242,36 +1260,56 @@ def phantom_of_pixels(n, rng):
         np.float32).reshape(1, n, 1)
 
 
+def _one_kernel(per, what):
+    """Fail unless the profiler saw one kernel launched once a call."""
+    require(not per or (len(per) == 1
+                        and next(iter(per.values()))[1] == 1),
+            f"{what} launched more than one kernel a call: "
+            f"{_kernel_names(per)}")
+
+
 def check_fused_batched(KC, cases, card):
     """The batched fused-partials kernel vs its plain version on each
-    case, twice and bit-equal; the first case timed. Returns its entry."""
+    case, twice and bit-equal, with its plan and device time (one kernel
+    a call); the first case timed against its bound. Returns its
+    entry."""
     worst = 0.0
     for name, x, w, v, m in cases:
+        before = KC.fused_partials_batched.launches
         got = KC.fused_partials_batched(x, w, v, m)
         torch.cuda.synchronize()
         again = KC.fused_partials_batched(x, w, v, m)
+        require(KC.fused_partials_batched.launches == before + 2,
+                f"fused_partials_batched did not count one launch a call on "
+                f"{name}")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"fused_partials_batched does not repeat bit for bit on "
                 f"{name}")
         err, rel = _close_sums(got, KC.fused_partials_batched_plain(
             x, w, v, m), f"fused_partials_batched {name}")
         worst = max(worst, err)
+        b, k, d = x.shape
+        plan = KC.batched_plan(b, k, d, v.shape[1])
+        dms, per = device_ms(lambda: KC.fused_partials_batched(x, w, v, m))
+        _one_kernel(per, f"fused_partials_batched {name}")
         print(f"  fused_partials_batched {name}: max abs err {err:.3g} "
-              f"(relative {rel:.3g}), repeats bit for bit")
+              f"(relative {rel:.3g}), repeats bit for bit; plan tier "
+              f"{plan.tier}, {plan.chunks} chunk(s) of {plan.dch} "
+              f"feature(s), {plan.rows_per_thread} rows a thread, "
+              f"{plan.blocks} blocks a lane and chunk, {plan.grid} blocks; "
+              f"device {_fmt_ms(dms)} ({_kernel_names(per)}) [{card}]")
     name, x, w, v, m = cases[0]
     b, k, d = x.shape
     c = v.shape[1]
     ms = time_ms(lambda: KC.fused_partials_batched(x, w, v, m))
-    dms, per = device_ms(lambda: KC.fused_partials_batched(x, w, v, m))
     plain_ms = time_ms(lambda: KC.fused_partials_batched_plain(x, w, v, m),
                        reps=3, rounds=3)
     # per row and center: the distance's 3D, the membership's 5, then
     # u*u, the weight, D numerator terms and adds, the denominator add
     bnd, by = bound_ms(4 * (b * k * d + b * k + 2 * b * c * d + b * c),
                        b * k * c * (5 * d + 8))
-    print(f"  fused_partials_batched {name}: kernel {ms:.4f} ms, device "
-          f"{_fmt_ms(dms)} ({_kernel_names(per)}), plain {plain_ms:.4f} ms, "
-          f"bound {bnd:.5f} ms ({by}) [{card}]")
+    print(f"  fused_partials_batched {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}) [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=None)
 
@@ -1434,6 +1472,8 @@ def spatial_step_cases(big, noisy_sl, noisy_vol, dev):
         ("1x300, alpha 0", t(rng.integers(0, 256, (1, 1, 300))), v4, 2.0,
          0.0, 4),
         ("300x1", t(rng.integers(0, 256, (1, 300, 1))), v4, 2.0, 1.0, 8),
+        ("2x300, no interior row", t(rng.integers(0, 256, (1, 2, 300))), v4,
+         2.0, 1.0, 8),
         ("BrainWeb volume 181x217x181, 6 nb", vol, v4, 2.0, 1.0, 6),
         ("volume, alpha 2.5, m 1.6", vol, v_on, 1.6, 2.5, 6),
         ("2x2x2", t(rng.integers(0, 256, (1, 2, 2, 2))), v4, 2.0, 1.0, 6),
@@ -1496,21 +1536,33 @@ def check_spatial_steps(KSP, cases, card):
                      f"block, {plan.runs} runs of {plan.z} planes, "
                      f"{plan.rows * x.shape[0]} blocks and partial rows, "
                      f"{plan.smem_bytes} B of staged tiles a block")
+        else:
+            plan = KSP.spatial2d_plan(*x.shape[1:])
+            line += (f"; march: tasks of {plan.tile[0]} columns x "
+                     f"{plan.run} rows, {plan.strips} strips x {plan.runs} "
+                     f"runs, {plan.warps} a block, {plan.blocks * x.shape[0]} "
+                     f"blocks")
+            if name.startswith(("1000 KB, 4 nb", "noisy 217x181, 8 nb")):
+                dms, per = device_ms(lambda: fn(x, v, m, alpha, *args))
+                _one_kernel(per, f"spatial step {name}")
+                line += f"; device {_fmt_ms(dms)} ({_kernel_names(per)})"
         if "ms" not in e and (name.startswith("1000 KB 4000")
                               or name.startswith("BrainWeb")):
             n = x[0].numel()
             c = v.shape[1]
             e["ms"] = time_ms(lambda: fn(x, v, m, alpha, *args))
             e["device_ms"], per = device_ms(lambda: fn(x, v, m, alpha, *args))
+            if key == "2d":
+                _one_kernel(per, f"spatial step {name}")
             e["plain_ms"] = time_ms(lambda: KSP.spatial_partials_plain(
                 x, v, m, alpha, nb), reps=3, rounds=3)
             e["bound_ms"], e["bound_by"] = bound_ms(4 * (n + 3 * c),
                                                     _step_ops(n, c, nb))
             e["library_ms"] = None
             line += (f"; kernel {e['ms']:.4f} ms, device "
-                     + ("not measured" if e["device_ms"] is None else
-                        f"{e['device_ms']:.4f} ms ({_kernel_names(per)})")
-                     + f", plain {e['plain_ms']:.4f} ms, bound "
+                     + _fmt_ms(e["device_ms"])
+                     + f" ({_kernel_names(per)}), plain "
+                     f"{e['plain_ms']:.4f} ms, bound "
                      f"{e['bound_ms']:.5f} ms ({e['bound_by']}) [{card}]")
         print(line)
     return out["2d"], out["3d"]
@@ -2147,9 +2199,30 @@ def main(dev=None):
         require(lib.fcm_stencil_smem_bytes(*grid, plan.ranks, plan.form)
                 == plan.smem_bytes, f"the stencil kernel's shared memory at "
                 f"{grid} disagrees with fcm_stencil.stencil_plan's {plan}")
-    require((lib.fcm_spatial_tile_w(), lib.fcm_spatial_tile_h())
-            == (KSP.TILE_W, KSP.TILE_H),
-            "the step kernels' tile disagrees with fcm_spatial.TILE_W/H")
+    require((lib.fcm_spatial2d_strip_w(), lib.fcm_spatial2d_warps(),
+             lib.fcm_spatial2d_max_warp_rows())
+            == (KSP.STRIP_W, KSP.STRIP_WARPS, KSP.MAX_WARP_ROWS),
+            "the 2-D march's strip, warps or rows disagree with "
+            "fcm_spatial's STRIP_W/STRIP_WARPS/MAX_WARP_ROWS")
+    for grid in ((4000, 256), (217, 181), (512, 512), (1, 1), (2, 300),
+                 (300, 1), (1024, 1024)):
+        plan = KSP.spatial2d_plan(*grid)
+        require(lib.fcm_spatial2d_blocks(*grid, plan.run) == plan.blocks,
+                f"the 2-D march's blocks at {grid} disagree with "
+                f"fcm_spatial.spatial2d_plan's {plan}")
+    require((lib.fcm_batched_threads(), lib.fcm_batched_max_blocks())
+            == (KC.THREADS, KC.BATCHED_MAX_BLOCKS),
+            "the batched fused kernel's threads or most blocks disagree "
+            "with fcm_centers' THREADS/BATCHED_MAX_BLOCKS")
+    for c in (1, 4, 5, 8, 9, 12, 13, 16, 17, 32):
+        for d in (1, 2, 3, 16, 24, 500):
+            plan = KC.batched_plan(1, 39277, d, c)
+            require((lib.fcm_batched_tier(c, d), lib.fcm_batched_dchunk(c, d),
+                     lib.fcm_batched_rows_per_thread(c, d))
+                    == (plan.tier, plan.dch, plan.rows_per_thread),
+                    f"the batched fused kernel's tier, feature chunk or "
+                    f"rows a thread at c={c}, D={d} disagree with "
+                    f"fcm_centers.batched_plan's {plan}")
     for grid in ((181, 217, 181), (1, 1, 1), (37, 19, 23), (70, 9, 33),
                  (1, 64, 64)):
         plan = KSP.spatial3d_plan(*grid)

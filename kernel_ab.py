@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times six kernels of one source tree on the card (rows 5, 7, 8, 10,
-11 and 12 of PERF.md's kernel table: the center partials, the
-HBM-streamed whole-solve, the stencil whole-solve, the 3-D FCM_S step,
-the SLIC assignment and the selective scan), at the shapes their main
-paths give them, so that two commits can be compared on one card, in one
-run.
+"""Times eight kernels of one source tree on the card (rows 5, 6b, 7, 8,
+9, 10, 11 and 12 of PERF.md's kernel table: the center partials, the
+batched fused partials, the HBM-streamed whole-solve, the stencil
+whole-solve, the 2-D and 3-D FCM_S steps, the SLIC assignment and the
+selective scan), at the shapes their main paths give them, so that two
+commits can be compared on one card, in one run.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--rows 5,7,...]
 
@@ -18,15 +18,20 @@ parent, change, change, parent. Needs one CUDA card; prints the card's
 name and power limit, then one JSON line:
 
     {"label": ..., "card": ..., "center_partials": {...},
-     "streamed_solve": {...}, "selective_scan": {...},
-     "stencil_solve": {...}, "spatial_step_3d": {...},
+     "fused_partials_batched": {...}, "streamed_solve": {...},
+     "selective_scan": {...}, "stencil_solve": {...},
+     "spatial_step_2d": {...}, "spatial_step_3d": {...},
      "slic_assign": {...}}
 
 (``--rows`` keeps only the rows it names.)
 
 with, per kernel, the CUDA-event median of back-to-back wrapper calls
 (``ms``) and the profiler's device time a call (``device_ms``, every
-launch of the call summed). A tree whose stencil whole-solve takes a
+launch of the call summed; a profiler window that recorded no device
+event is tried again with twice the calls, and ``None`` means three
+windows lost them all). A tree whose batched fused partials or 2-D step
+take a plan (``batched_plan``, ``spatial2d_plan``) also prints it for
+each case. A tree whose stencil whole-solve takes a
 plan (``stencil_plan``) also times it at the fewest blocks that hold a
 217x181 lane and at the plan's, on the bucket and on one lane alone
 (``by_blocks``); a tree whose 3-D step takes a plan (``spatial3d_plan``)
@@ -38,7 +43,14 @@ a tree with the earlier cluster form (one cluster of at most 8 blocks a
 lane) a probe built from that tree's source reads the same, and the
 8-block clusters the card seats at once (``cudaOccupancyMaxActiveClusters``).
 
-The shapes: the center partials at the paper's 1000 KB image (1 024 000
+The shapes: the batched fused partials on ``chip_smoke.py``'s four
+``fused_batched_cases`` (imported from it: the pixel route's c = 12
+bucket of 16 x 39 277 rows, one lane of 1 100 000 rows at c = 4,
+4 x 262 144 RGB rows at c = 12, 2 x 3001 rows of D = 24 at c = 32); the
+2-D step on the 1000 KB image with 8 and 4 neighbors and on a noisy
+217x181 slice with 8, at c = 4, and on the 1000 KB image with 8 at
+c = 8, 12 and 32; the
+center partials at the paper's 1000 KB image (1 024 000
 pixels, c = 4, m = 2, phase 5's centers, u from the membership kernel),
 the staged path's reduction, back to back and with L2 flushed before
 each call (``cold_device_ms``); the streamed whole-solve on the pixel
@@ -99,28 +111,43 @@ def event_ms(torch, fn, reps, rounds):
     return float(np.median(per))
 
 
+def profiled(torch, fn, calls, tries=3):
+    """The device events of ``calls`` calls of ``fn`` under torch.profiler,
+    each call synchronized, as (key, device us, count) rows. A window
+    whose events all went missing is tried again with twice the calls, up
+    to ``tries`` windows; [] when every window lost them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                    and not e.key.startswith("Activity Buffer")):
+                rows.append((e.key, us, e.count))
+        if rows:
+            return rows, calls
+        calls *= 2
+    return [], calls
+
+
 def device_ms(torch, fn, calls):
     """The profiler's device time of one call: each kernel's mean time a
     launch times its launches a call (the profiler's count over
     ``calls``, rounded and at least 1: it may drop some launches'
     events), summed; and the kernels it saw (name: launches a call)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    rows, calls = profiled(torch, fn, calls)
     total, names = 0.0, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0 and not e.key.startswith("Activity Buffer"):
-            n = max(1, round(e.count / calls))
-            total += us / e.count * n
-            names[e.key[:48]] = n
+    for key, us, count in rows:
+        n = max(1, round(count / calls))
+        total += us / count * n
+        names[key[:48]] = n
     return (total / 1e3 if total else None), names
 
 
@@ -313,20 +340,9 @@ def kernel_ms(torch, fn, calls, keep):
     """The profiler's device time a call of the kernels whose names hold
     one of ``keep`` (each kernel's mean a launch times its launches a
     call, summed)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
-                and any(k in e.key for k in keep)):
-            total += us / e.count * max(1, round(e.count / calls))
+    rows, calls = profiled(torch, fn, calls)
+    total = sum(us / count * max(1, round(count / calls))
+                for key, us, count in rows if any(k in key for k in keep))
     return total / 1e3 if total else None
 
 
@@ -358,7 +374,71 @@ def row5(torch, dev):
                 device_ms=dms, cold_device_ms=cold_ms, kernels=names)
 
 
-ROWS = ("5", "7", "8", "10", "11", "12")
+def row6b(torch, dev):
+    """The batched fused partials on chip_smoke.py's four
+    ``fused_batched_cases``: the pixel route's c = 12 bucket (16
+    twelve-class 217x181 slices), one lane of 1 100 000 phantom rows at
+    c = 4, 4 x 262 144 RGB rows at c = 12 (weighted) and 2 x 3001 rows of
+    D = 24 at c = 32, m = 2.5."""
+    from repro_torch.kernels import fcm_centers as KC
+    import chip_smoke
+    out = {}
+    for key, (_, xt, wt, vt, m) in zip(
+            ("bucket_16x39277_c12", "lone_1100000_c4", "rgb_4x262144_c12",
+             "wide_2x3001_d24_c32"), chip_smoke.fused_batched_cases(dev)):
+        b, k, d = xt.shape
+        c = vt.shape[1]
+        call = lambda: KC.fused_partials_batched(xt, wt, vt, m)  # noqa
+        before = KC.fused_partials_batched.launches
+        call()
+        torch.cuda.synchronize()
+        assert KC.fused_partials_batched.launches == before + 1
+        dms, names = device_ms(torch, call, 10)
+        e = dict(shape=[b, k, d], c=c, ms=event_ms(torch, call, 10, 5),
+                 device_ms=dms, kernels=names)
+        if hasattr(KC, "batched_plan"):
+            e["plan"] = KC.batched_plan(b, k, d, c)._asdict()
+        out[key] = e
+    return out
+
+
+def row9(torch, phantom, dev):
+    """The 2-D FCM_S step on the 1000 KB image (4000x256) with 8 and 4
+    neighbors, and on the middle slice of the noisy 181x217x181 phantom
+    with 8, centers (0.6, 51.3, 105.4, 167.6), m = 2, alpha 1 (phase 7's
+    step cases); then the 1000 KB image with 8 neighbors at c = 8, 12
+    and 32 (centers evenly over 0-255), the larger cluster tiers."""
+    from repro_torch.kernels import fcm_spatial as KSP
+    big = phantom.phantom_of_bytes(1000 * 1024)[0].reshape(1, -1, 256)
+    noisy = phantom.noisy_phantom_volume(181, 217, 181)[0][90][None]
+    v4 = torch.tensor([[0.6, 51.3, 105.4, 167.6]], device=dev)
+
+    def spread(c):
+        return torch.linspace(2.5, 252.5, c, device=dev)[None].contiguous()
+    out = {}
+    for name, img, nb, v in (("1000KB_8nb", big, 8, v4),
+                             ("1000KB_4nb", big, 4, v4),
+                             ("noisy_217x181_8nb", noisy, 8, v4),
+                             ("1000KB_8nb_c8", big, 8, spread(8)),
+                             ("1000KB_8nb_c12", big, 8, spread(12)),
+                             ("1000KB_8nb_c32", big, 8, spread(32))):
+        x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(dev)
+        call = lambda: KSP.spatial_partials_2d(x, v, 2.0, 1.0, nb)  # noqa
+        before = KSP.spatial_partials_2d.launches
+        call()
+        torch.cuda.synchronize()
+        assert KSP.spatial_partials_2d.launches == before + 1
+        dms, names = device_ms(torch, call, 10)
+        e = dict(shape=list(x.shape), neighbors=nb, c=v.shape[1],
+                 ms=event_ms(torch, call, 10, 5), device_ms=dms,
+                 kernels=names)
+        if hasattr(KSP, "spatial2d_plan"):
+            e["plan"] = KSP.spatial2d_plan(*x.shape[1:])._asdict()
+        out[name] = e
+    return out
+
+
+ROWS = ("5", "6b", "7", "8", "9", "10", "11", "12")
 
 
 def main():
@@ -394,6 +474,10 @@ def main():
 
     if "5" in rows:
         out["center_partials"] = row5(torch, dev)
+    if "6b" in rows:
+        out["fused_partials_batched"] = row6b(torch, dev)
+    if "9" in rows:
+        out["spatial_step_2d"] = row9(torch, phantom, dev)
     if "7" in rows:
         out["streamed_solve"] = row7(torch, tree, dev)
 

@@ -13,18 +13,18 @@
 //     batched flat step the solver runs once an iteration under its
 //     per-lane-masked loop for lanes past the whole-solve kernels' bounds
 //     (c > 8, rows > 2^20 or D > 16). The TPU kernel takes one lane of scalar
-//     rows; the lane axis is the CUDA form of the JAX route's vmap, and the
-//     feature axis is walked in chunks of DCH, so D has no bound.
+//     rows; the lanes are the CUDA form of the JAX route's vmap, on a 1-D
+//     grid, so a bucket of any size launches once.
 //
 // The TPU kernels walk (block_rows, 128) tiles in order on one core and add
 // each tile into one (c, 128) accumulator that the grid carries from step to
 // step; padding rows weigh 0. Hopper's blocks run in parallel and in no order,
-// so nothing carries between them: each block reduces its grid-stride share
-// of the pixels to 2c per-block partial sums, which are then folded in a
-// fixed order: by a second launch for the fused forms, and inside the one
-// launch for fcm_center_partials, whose last block to finish (an integer
-// ticket taken after a fence) folds every block's partials. The tail is
-// masked, not padded.
+// so nothing carries between them: each block reduces its share of the
+// pixels to per-block partial sums, which are then folded in a fixed order:
+// by a second launch for fcm_fused_partials, and inside the one launch for
+// fcm_center_partials and fcm_fused_partials_batched, whose last block to
+// finish (an integer ticket taken after a fence; one a lane in the batched
+// form) folds every block's partials. The tail is masked, not padded.
 //
 // fcm_center_partials reads its pixels in quads: thread t of the grid takes
 // quads t, t + G, ... (G the grid's threads), pixels 4q .. 4q + 3 of a quad
@@ -44,15 +44,25 @@
 // card's float32 rate. Weights w (histogram counts) add 4 B a pixel; a null w
 // means unit weights and is not read.
 // fcm_fused_partials_batched reads 4 (D + 1) B a row (x and w) and spends
-// about c (3 D + 12) float operations on it: bytes bound it for the route's
-// shapes (a lane of 2^20 RGB rows at c = 12: 16.8 MB against 0.26 GFLOP).
+// about c (3 D + 12) float operations on it, 2c of them IEEE divisions and
+// reciprocals (each a range check and a branch around its fast path): at
+// D = 1 the operations bound it on this card (the pixel route's c = 12
+// bucket, 16 x 39 277 rows: 5 MB against about 0.2 G instructions). So its
+// D = 1 form keeps a lane's centers in registers (tiers 4, 8, 12, 16, 32),
+// takes m == 2 and c == tier at compile time where the main path needs them
+// (c = 4 and c = 12, m = 2; run-time elsewhere), carries 2c sums, gives a
+// thread several rows (their x and w loaded before their math, 16 bytes at
+// a time where the lane is aligned) and a lane a block for each 1024-4096
+// rows (batched_plan), so the bucket fills the card and a lone lane of 2^20
+// rows spreads over it. Wide D takes the chunked form: the centers in shared
+// memory, the features in chunks of DCH a block.
 //
 // Determinism: no float atomics. Each thread adds its pixels in index order,
 // each warp folds its threads with a fixed shuffle tree, warp 0's threads add
 // the eight warps in warp order, and the fold (a launch of its own, or the
-// last block of fcm_center_partials) adds the blocks with a fixed lane stride
-// and shuffle tree. The block count depends only on N (the wrapper picks it),
-// so a run repeats bit for bit. The order differs from the plain version's,
+// last block) adds the blocks with a fixed lane stride and shuffle tree. The
+// block count depends only on N (in the batched form on the lane's N, D and
+// c), so a run repeats bit for bit. The order differs from the plain version's,
 // so sums agree to rounding, not bitwise.
 //
 // Arithmetic per pixel and cluster, as the plain version: um = u * u when
@@ -269,64 +279,230 @@ int launch_fused(const void* x, const void* w, long long n, const void* v,
   return fold(part, n_blocks, c, num, den, stream);
 }
 
-// Batched vector rows. Grid (row blocks of a lane, feature chunks, lanes).
-// A thread takes a grid-stride share of its lane's rows; for each row it
-// forms the c squared distances over all D features (d outer, j inner, so
-// each d2_j adds its features in index order, as the plain version's sum),
-// the Eq. 4 membership, um_j = u_j^m w_i, and adds um_j x_id for the DCH
-// features of its block's chunk (and, in chunk 0, um_j to den_j). The
-// centers are read through the read-only cache: c * D floats a lane, no
-// shared-memory bound on D. acc holds num at [j * DCH + k], den at
-// [MAXC * DCH + j]; a block's partials leave compact, c * DCH numerators
-// then c denominators, and a fold launch adds the blocks in a fixed order.
-template <int MAXC, int DCH>
+// --- the batched form: a bucket of lanes of vector rows ---------------------
+//
+// One launch, a 1-D grid: block (lane * chunks + chunk) * blocks + blk, so a
+// bucket of any number of lanes launches. A lane's feature chunks and its
+// blocks a chunk come from its own shape (kernels/fcm_centers.py::
+// batched_plan): a block takes tiles of kThreads * rows_per_thread rows, tile
+// blk, blk + blocks, ..., and leaves one partial row; the last block of the
+// lane to take its ticket folds the lane's rows in block order (fcm::
+// fold_rows) and sets the ticket back to zero. So a lane's bits come from its
+// own rows alone, whatever the bucket.
+
+// blocks a (lane, chunk) takes at most; past that its threads stride
+constexpr int kBatchedMaxBlocks = 1024;
+// the chunked form's rows a thread: about kChunkWork / (tier * D), at least 1
+constexpr int kChunkWork = 192;
+
+// The D = 1 form's cluster tiers: the shared ones and 12, the pixel route's
+// twelve-class bucket, so that c == tier there too (0 if none holds c).
+inline int d1_tier(int c) { return c > 8 && c <= 12 ? 12 : fcm::tier_of(c); }
+
+// quads (four rows) a thread takes in a tile of the D = 1 form: about the
+// same float work a block in every tier
+__host__ __device__ constexpr int d1_quads(int tier) {
+  return tier <= 4 ? 4 : tier <= 8 ? 2 : 1;
+}
+
+// The feature chunk of the chunked form's cluster tier: the (DCH + 1) * MAXC
+// sums a thread carries stay within a register budget that keeps the c = 32
+// tier free of spills.
+constexpr int dchunk_of_tier(int tier) { return tier <= 8 ? 4 : 2; }
+
+// The plan's rule for rows a thread, from (c, D) alone (0 if not admitted).
+int rows_per_thread_of(int c, int d) {
+  if (d < 1) return 0;
+  if (d == 1) return d1_tier(c) ? 4 * d1_quads(d1_tier(c)) : 0;
+  const int tier = fcm::tier_of(c);
+  if (!tier) return 0;
+  const long long rows = kChunkWork / ((long long)tier * d);
+  return rows < 1 ? 1 : (int)rows;
+}
+
+// four rows p[i0 .. i0 + 3] (zeros past n): one 16-byte load when vec. The
+// loads keep the default caching: the solver reads the rows every iteration.
+__device__ __forceinline__ void load_rows4(const float* __restrict__ p,
+                                           long long i0, long long n,
+                                           bool vec, float (&q)[4]) {
+  if (vec && i0 + 4 <= n) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p + i0));
+    q[0] = t.x;
+    q[1] = t.y;
+    q[2] = t.z;
+    q[3] = t.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) q[e] = i0 + e < n ? __ldg(p + i0 + e) : 0.f;
+  }
+}
+
+// The D = 1 form: x (B, N), w (B, N), v (B, c) -> part (B, 2c, blocks), then
+// num (B, c), den (B, c). A thread's centers sit in registers; it loads the
+// kQuads quads of a tile (x and w, 16 bytes each where the lane's rows are
+// 16-byte aligned) before it adds any, then for each row in index order
+// forms the c distances (v_j - x)^2, the Eq. 4 membership, um_j = u_j^m w and
+// adds um_j x to num_j and um_j to den_j. It carries 2c sums. FAST: c ==
+// MAXC and m == 2 at compile time (the main path's tiers 4 and 12), else
+// both are run-time values.
+template <int MAXC, bool FAST>
 __global__ void __launch_bounds__(kThreads)
-fused_partials_batched_kernel(const float* __restrict__ x,
-                              const float* __restrict__ w, long long n, int d,
-                              const float* __restrict__ v, int c, float m,
-                              float expo, float* __restrict__ part) {
-  constexpr int kAcc = MAXC * (DCH + 1);
-  __shared__ float warp_s[kWarps][kAcc];
-  const int blk = blockIdx.x, chunk = blockIdx.y, lane = blockIdx.z;
-  const int d0 = chunk * DCH;
-  const bool m_is_2 = (m == 2.0f);
-  const float* xl = x + (long long)lane * n * d;
+batched_d1_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  long long n, const float* __restrict__ v, int c_rt, float m,
+                  float expo, int blocks, float* __restrict__ part,
+                  int* __restrict__ ticket, float* __restrict__ num_out,
+                  float* __restrict__ den_out) {
+  constexpr int kQuads = d1_quads(MAXC);
+  const int c = FAST ? MAXC : c_rt;
+  const bool m2 = FAST || m == 2.0f;
+  const int lane = blockIdx.x / blocks;
+  const int blk = blockIdx.x - lane * blocks;
+  const float* xl = x + (long long)lane * n;
   const float* wl = w + (long long)lane * n;
-  const float* vl = v + (long long)lane * c * d;
-  float acc[kAcc];
+  const bool vec_x = ((uintptr_t)xl & 15) == 0;
+  const bool vec_w = ((uintptr_t)wl & 15) == 0;
+  float vr[MAXC];
 #pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blk * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float* xi = xl + i * d;
-    float u[MAXC];
+  for (int j = 0; j < MAXC; ++j)
+    vr[j] = j < c ? __ldg(v + (long long)lane * c + j) : 0.f;
+  float num[MAXC];
+  float den[MAXC];
 #pragma unroll
-    for (int j = 0; j < MAXC; ++j) u[j] = 0.f;
-    for (int f = 0; f < d; ++f) {
-      const float xf = __ldg(xi + f);
+  for (int j = 0; j < MAXC; ++j) num[j] = den[j] = 0.f;
+  const long long tile = 4LL * kQuads * kThreads;
+  for (long long t0 = (long long)blk * tile; t0 < n;
+       t0 += (long long)blocks * tile) {
+    float xq[kQuads][4], wq[kQuads][4];
 #pragma unroll
-      for (int j = 0; j < MAXC; ++j) {
-        if (j < c) {
-          const float e = __ldg(vl + (long long)j * d + f) - xf;
-          u[j] = u[j] + e * e;
+    for (int a = 0; a < kQuads; ++a) {
+      const long long i0 = t0 + 4LL * (a * kThreads + threadIdx.x);
+      load_rows4(xl, i0, n, vec_x, xq[a]);
+      load_rows4(wl, i0, n, vec_w, wq[a]);
+    }
+#pragma unroll
+    for (int a = 0; a < kQuads; ++a) {
+      const long long i0 = t0 + 4LL * (a * kThreads + threadIdx.x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (i0 + e < n) {
+          const float xi = xq[a][e];
+          float u[MAXC];
+#pragma unroll
+          for (int j = 0; j < MAXC; ++j) {
+            float s = 0.f;
+            if (j < c) {
+              const float dj = vr[j] - xi;
+              s = dj * dj;
+            }
+            u[j] = s;
+          }
+          fcm::membership_from_d2<MAXC, true>(c, m2, expo, u);
+          const float wi = wq[a][e];
+#pragma unroll
+          for (int j = 0; j < MAXC; ++j) {
+            if (j < c) {
+              const float um = (m2 ? u[j] * u[j] : powf(u[j], m)) * wi;
+              num[j] = num[j] + um * xi;
+              den[j] = den[j] + um;
+            }
+          }
         }
       }
     }
-    fcm::membership_from_d2<MAXC>(c, m_is_2, expo, u);
-    const float wi = wl[i];
-    float xk[DCH];
+  }
+  // the lane's partials are (output, block), block fastest
+  float* lp = part + (long long)lane * 2 * c * blocks;
+  fcm::block_partials<MAXC, kThreads>(num, den, c, lp + blk, blocks);
+  if (!fcm::last_to_arrive(ticket + lane, blocks)) return;
+  float* nl = num_out + (long long)lane * c;
+  float* dl = den_out + (long long)lane * c;
+  fcm::fold_rows<kThreads>(
+      2 * c, blocks, [&](int o) { return lp + (long long)o * blocks; },
+      [&](int o, float s) {
+        if (o < c)
+          nl[o] = s;
+        else
+          dl[o - c] = s;
+      });
+  if (threadIdx.x == 0) ticket[lane] = 0;
+}
+
+// The chunked form, any D: x (B, N, D), w (B, N), v (B, c, D) -> part (B,
+// chunks, c * DCH + c, blocks), then num (B, c, D), den (B, c). A block
+// takes the DCH features of its chunk: for each row it forms the c squared
+// distances over all D features (d outer, j inner, so each d2_j adds its
+// features in index order, as the plain version's sum), the Eq. 4
+// membership, um_j = u_j^m w, and adds um_j x_id for its chunk's features
+// and um_j to den_j (chunk 0's den is the one folded). The lane's centers sit
+// in shared memory when v_shared (c * D floats within what the 48 KB a block
+// has without opting in leaves beside the kernel's own shared memory), else
+// they are read through the cache. acc holds num at [j * DCH + k], den at
+// [MAXC * DCH + j]; a block's row leaves compact, c * DCH numerators then c
+// denominators.
+template <int MAXC, int DCH, bool M2>
+__global__ void __launch_bounds__(kThreads)
+batched_chunk_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     long long n, int d, const float* __restrict__ v, int c,
+                     float m, float expo, int chunks, int blocks,
+                     int rows_per_thread, bool v_shared,
+                     float* __restrict__ part, int* __restrict__ ticket,
+                     float* __restrict__ num_out,
+                     float* __restrict__ den_out) {
+  constexpr int kAcc = MAXC * (DCH + 1);
+  extern __shared__ float v_s[];
+  __shared__ float warp_s[kWarps][kAcc];
+  const int per_lane = chunks * blocks;
+  const int lane = blockIdx.x / per_lane;
+  const int rest = blockIdx.x - lane * per_lane;
+  const int chunk = rest / blocks;
+  const int blk = rest - chunk * blocks;
+  const int d0 = chunk * DCH;
+  const float* xl = x + (long long)lane * n * d;
+  const float* wl = w + (long long)lane * n;
+  const float* vl = v + (long long)lane * c * d;
+  if (v_shared) {  // uniform across the block
+    for (int i = threadIdx.x; i < c * d; i += kThreads) v_s[i] = vl[i];
+    __syncthreads();
+  }
+  const float* vc = v_shared ? v_s : vl;
+  float acc[kAcc];
 #pragma unroll
-    for (int k = 0; k < DCH; ++k)
-      xk[k] = (d0 + k < d) ? __ldg(xi + d0 + k) : 0.f;
+  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+  const long long tile = (long long)rows_per_thread * kThreads;
+  for (long long t0 = (long long)blk * tile; t0 < n;
+       t0 += (long long)blocks * tile) {
+    for (int q = 0; q < rows_per_thread; ++q) {
+      const long long i = t0 + (long long)q * kThreads + threadIdx.x;
+      if (i >= n) break;
+      const float* xi = xl + i * d;
+      float u[MAXC];
 #pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      if (j < c) {
-        const float um = (m_is_2 ? u[j] * u[j] : powf(u[j], m)) * wi;
+      for (int j = 0; j < MAXC; ++j) u[j] = 0.f;
+      for (int f = 0; f < d; ++f) {
+        const float xf = __ldg(xi + f);
 #pragma unroll
-        for (int k = 0; k < DCH; ++k)
-          acc[j * DCH + k] = acc[j * DCH + k] + um * xk[k];
-        acc[MAXC * DCH + j] = acc[MAXC * DCH + j] + um;
+        for (int j = 0; j < MAXC; ++j) {
+          if (j < c) {
+            const float e = vc[j * d + f] - xf;
+            u[j] = u[j] + e * e;
+          }
+        }
+      }
+      fcm::membership_from_d2<MAXC, true>(c, M2, expo, u);
+      const float wi = __ldg(wl + i);
+      float xk[DCH];
+#pragma unroll
+      for (int k = 0; k < DCH; ++k)
+        xk[k] = (d0 + k < d) ? __ldg(xi + d0 + k) : 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        if (j < c) {
+          const float um = (M2 ? u[j] * u[j] : powf(u[j], m)) * wi;
+#pragma unroll
+          for (int k = 0; k < DCH; ++k)
+            acc[j * DCH + k] = acc[j * DCH + k] + um * xk[k];
+          acc[MAXC * DCH + j] = acc[MAXC * DCH + j] + um;
+        }
       }
     }
   }
@@ -346,72 +522,86 @@ fused_partials_batched_kernel(const float* __restrict__ x,
     }
   }
   __syncthreads();
-  const int n_out = c * DCH + c;
-  float* out = part + (((long long)lane * gridDim.y + chunk) * gridDim.x +
-                       blk) * n_out;
-  for (int t = threadIdx.x; t < n_out; t += blockDim.x) {
+  // the lane's partials are (chunk, slot, block), block fastest
+  const int n_row = c * DCH + c;
+  float* lp = part + (long long)lane * chunks * n_row * blocks;
+  float* row = lp + (long long)chunk * n_row * blocks + blk;
+  for (int t = threadIdx.x; t < n_row; t += kThreads) {
     const int slot = t < c * DCH ? t : MAXC * DCH + (t - c * DCH);
     float s = warp_s[0][slot];
 #pragma unroll
     for (int q = 1; q < kWarps; ++q) s = s + warp_s[q][slot];
-    out[t] = s;
+    row[(long long)t * blocks] = s;
   }
+  if (!fcm::last_to_arrive(ticket + lane, per_lane)) return;
+  // output o < c * D is num (j, f) = (o / D, o % D), from the chunk of f;
+  // the c after it are den, from chunk 0
+  float* nl = num_out + (long long)lane * c * d;
+  float* dl = den_out + (long long)lane * c;
+  fcm::fold_rows<kThreads>(
+      c * d + c, blocks,
+      [&](int o) -> const float* {
+        if (o >= c * d) return lp + (long long)(c * DCH + o - c * d) * blocks;
+        const int j = o / d;
+        const int f = o - j * d;
+        const int ch = f / DCH;
+        return lp + ((long long)ch * n_row + j * DCH + (f - ch * DCH)) *
+                        blocks;
+      },
+      [&](int o, float s) {
+        if (o < c * d)
+          nl[o] = s;
+        else
+          dl[o - c * d] = s;
+      });
+  if (threadIdx.x == 0) ticket[lane] = 0;
 }
-
-// part (B, n_chunks, n_blocks, c * DCH + c) -> num (B, c, D), den (B, c):
-// one block a (chunk, lane), one warp an output, its lanes striding over the
-// blocks in order, then a fixed shuffle tree. Chunk 0 writes den.
-template <int DCH>
-__global__ void __launch_bounds__(kThreads)
-fold_batched_kernel(const float* __restrict__ part, int n_blocks, int c,
-                    int d, float* __restrict__ num, float* __restrict__ den) {
-  const int chunk = blockIdx.x, lane = blockIdx.y;
-  const int wid = threadIdx.x >> 5;
-  const int lid = threadIdx.x & 31;
-  const int n_out = c * DCH + c;
-  const float* p = part + ((long long)lane * gridDim.x + chunk) *
-                              (long long)n_blocks * n_out;
-  for (int o = wid; o < n_out; o += kWarps) {  // uniform across the warp
-    float s = 0.f;
-    for (int b = lid; b < n_blocks; b += 32)
-      s = s + p[(long long)b * n_out + o];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s = s + __shfl_down_sync(0xffffffffu, s, off);
-    if (lid == 0) {
-      if (o < c * DCH) {
-        const int f = chunk * DCH + o % DCH;
-        if (f < d) num[((long long)lane * c + o / DCH) * d + f] = s;
-      } else if (chunk == 0) {
-        den[(long long)lane * c + (o - c * DCH)] = s;
-      }
-    }
-  }
-}
-
-// The feature chunk of a cluster tier: the (DCH + 1) * MAXC sums a thread
-// carries stay within a register budget that keeps the c = 32 tier free of
-// spills.
-constexpr int dchunk_of_tier(int tier) { return tier <= 8 ? 4 : 2; }
 
 template <int MAXC>
-int launch_fused_batched(const void* x, const void* w, int b, long long n,
-                         int d, const void* v, int c, float m, float expo,
-                         void* part, int n_blocks, void* num, void* den,
-                         void* stream) {
+int launch_d1(const void* x, const void* w, int b, long long n,
+              const void* v, int c, float m, float expo, int blocks,
+              void* part, void* ticket, void* num, void* den,
+              cudaStream_t st) {
+  auto kernel = batched_d1_kernel<MAXC, false>;
+  if constexpr (MAXC == 4 || MAXC == 12)
+    if (c == MAXC && m == 2.0f) kernel = batched_d1_kernel<MAXC, true>;
+  kernel<<<(unsigned)((long long)b * blocks), kThreads, 0, st>>>(
+      (const float*)x, (const float*)w, n, (const float*)v, c, m, expo,
+      blocks, (float*)part, (int*)ticket, (float*)num, (float*)den);
+  return (int)cudaGetLastError();
+}
+
+// dynamic shared memory a block gets without opting in, static included
+constexpr long long kBlockSharedBytes = 48 * 1024;
+
+template <int MAXC>
+int launch_chunked(const void* x, const void* w, int b, long long n, int d,
+                   const void* v, int c, float m, float expo, int blocks,
+                   int rows_per_thread, void* part, void* ticket, void* num,
+                   void* den, cudaStream_t st) {
   constexpr int DCH = dchunk_of_tier(MAXC);
-  const int n_chunks = (d + DCH - 1) / DCH;
-  if (n_chunks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_blocks, n_chunks, b);
-  fused_partials_batched_kernel<MAXC, DCH><<<grid, kThreads, 0,
-                                             (cudaStream_t)stream>>>(
+  const int chunks = (d + DCH - 1) / DCH;
+  const long long grid = (long long)b * chunks * blocks;
+  if (grid > 0x7fffffffLL || (long long)chunks * blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = m == 2.0f ? batched_chunk_kernel<MAXC, DCH, true>
+                          : batched_chunk_kernel<MAXC, DCH, false>;
+  // the centers go to shared memory where they fit beside the kernel's
+  // static shared memory (warp_s, the ticket's flag), the same for both
+  // values of M2; read once a tier
+  static long long static_bytes = -1;
+  if (static_bytes < 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    static_bytes = (long long)attr.sharedSizeBytes;
+  }
+  const long long v_bytes = 4LL * c * d;
+  const bool v_shared = v_bytes + static_bytes <= kBlockSharedBytes;
+  kernel<<<(unsigned)grid, kThreads, v_shared ? (size_t)v_bytes : 0, st>>>(
       (const float*)x, (const float*)w, n, d, (const float*)v, c, m, expo,
-      (float*)part);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  fold_batched_kernel<DCH><<<dim3(n_chunks, b), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const float*)part, n_blocks, c, d, (float*)num, (float*)den);
+      chunks, blocks, rows_per_thread, v_shared, (float*)part, (int*)ticket,
+      (float*)num, (float*)den);
   return (int)cudaGetLastError();
 }
 
@@ -473,38 +663,74 @@ extern "C" int fcm_fused_partials(const void* x, const void* w, long long n,
   }
 }
 
-// The feature chunk DCH of fcm_fused_partials_batched for c clusters (0 when
-// no tier holds c): the wrapper sizes part as B * ceil(D / DCH) * n_blocks *
-// (c * DCH + c) floats.
-extern "C" int fcm_fused_batched_dchunk(int c) {
-  const int tier = fcm::tier_of(c);
-  return tier == 0 ? 0 : dchunk_of_tier(tier);
+extern "C" int fcm_batched_threads() { return kThreads; }
+extern "C" int fcm_batched_max_blocks() { return kBatchedMaxBlocks; }
+
+// The cluster tier fcm_fused_partials_batched takes for (c, D): the D = 1
+// form's (4, 8, 12, 16, 32) at D = 1, else the shared ones (0 if none).
+extern "C" int fcm_batched_tier(int c, int d) {
+  return d == 1 ? d1_tier(c) : d > 1 ? fcm::tier_of(c) : 0;
+}
+
+// Features a block's chunk holds for (c, D): 1 at D = 1 (0 if not admitted).
+extern "C" int fcm_batched_dchunk(int c, int d) {
+  const int tier = fcm_batched_tier(c, d);
+  return tier == 0 ? 0 : d == 1 ? 1 : dchunk_of_tier(tier);
+}
+
+// Rows a thread takes in a tile for (c, D) (0 if not admitted).
+extern "C" int fcm_batched_rows_per_thread(int c, int d) {
+  return rows_per_thread_of(c, d);
 }
 
 // x (B, N, D), w (B, N), v (B, c, D) float32 contiguous -> num (B, c, D),
-// den (B, c). Every lane holds N rows (zero-weight rows are inert); part is
-// scratch (see fcm_fused_batched_dchunk); 1 <= c <= 32, D >= 1, 1 <= B <=
-// 65535; expo is the float32 exponent -1/(m-1).
+// den (B, c), in one launch. Every lane holds N rows (zero-weight rows are
+// inert). blocks (a lane's blocks a chunk, at most fcm_batched_max_blocks)
+// and rows_per_thread (fcm_batched_rows_per_thread's) come from
+// kernels/fcm_centers.py::batched_plan; part is scratch of B * chunks *
+// blocks * (c * DCH + c) floats (chunks = ceil(D / DCH), DCH =
+// fcm_batched_dchunk); ticket holds B ints that are zero on entry and left
+// zero on exit. 1 <= c <= 32, D >= 1, B >= 1; expo is the float32 exponent
+// -1/(m-1).
 extern "C" int fcm_fused_partials_batched(const void* x, const void* w, int b,
                                           long long n, int d, const void* v,
                                           int c, float m, float expo,
-                                          void* part, int n_blocks, void* num,
+                                          int blocks, int rows_per_thread,
+                                          void* part, void* ticket, void* num,
                                           void* den, void* stream) {
-  if (bad_args(n, n_blocks) || b < 1 || b > 65535 || d < 1)
+  const int tier = fcm_batched_tier(c, d);
+  if (n < 1 || b < 1 || tier == 0 || blocks < 1 ||
+      blocks > kBatchedMaxBlocks || rows_per_thread != rows_per_thread_of(c, d))
     return (int)cudaErrorInvalidValue;
-  switch (fcm::tier_of(c)) {
-    case 4:
-      return launch_fused_batched<4>(x, w, b, n, d, v, c, m, expo, part,
-                                     n_blocks, num, den, stream);
-    case 8:
-      return launch_fused_batched<8>(x, w, b, n, d, v, c, m, expo, part,
-                                     n_blocks, num, den, stream);
-    case 16:
-      return launch_fused_batched<16>(x, w, b, n, d, v, c, m, expo, part,
-                                      n_blocks, num, den, stream);
-    case 32:
-      return launch_fused_batched<32>(x, w, b, n, d, v, c, m, expo, part,
-                                      n_blocks, num, den, stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (d == 1) {
+    if ((long long)b * blocks > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    switch (tier) {
+#define FCM_BATCHED_D1(T)                                                    \
+  case T:                                                                    \
+    return launch_d1<T>(x, w, b, n, v, c, m, expo, blocks, part, ticket,     \
+                        num, den, st);
+      FCM_BATCHED_D1(4)
+      FCM_BATCHED_D1(8)
+      FCM_BATCHED_D1(12)
+      FCM_BATCHED_D1(16)
+      FCM_BATCHED_D1(32)
+#undef FCM_BATCHED_D1
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (tier) {
+#define FCM_BATCHED_CHUNKED(T)                                               \
+  case T:                                                                    \
+    return launch_chunked<T>(x, w, b, n, d, v, c, m, expo, blocks,           \
+                             rows_per_thread, part, ticket, num, den, st);
+    FCM_BATCHED_CHUNKED(4)
+    FCM_BATCHED_CHUNKED(8)
+    FCM_BATCHED_CHUNKED(16)
+    FCM_BATCHED_CHUNKED(32)
+#undef FCM_BATCHED_CHUNKED
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -4,8 +4,9 @@
 // operations as the plain PyTorch version
 // (repro_torch.core.fcm.membership_from_d2), a block's fixed-order fold of
 // per-thread sums, the cluster-count tiers the kernels are instantiated
-// for, and the counter add that fcm_centers.cu and fcm_streamed.cu
-// synchronise blocks with.
+// for, the counter add that fcm_centers.cu and fcm_streamed.cu synchronise
+// blocks with, and the last-block fold of a lane's partial rows that
+// fcm_centers.cu and fcm_spatial.cu end their one-launch reductions with.
 //
 // Arithmetic, as the plain version does it:
 //   d2_j = (v_j - x) * (v_j - x)                      ((v - x) ** 2)
@@ -36,16 +37,35 @@ __device__ __forceinline__ float floor_at(float a) {
 }
 
 // Eq. 4 from squared distances: u[0..c) holds a pixel's c distances on entry
-// and its memberships on exit; u[c..MAXC) is zeroed.
-template <int MAXC>
+// and its memberships on exit; u[c..MAXC) is zeroed. MIN_TEST: find a zero
+// distance by testing the distances' minimum (fminf passes NaN over, as the
+// count does, so the bits are the same) and count the zeros only then, in
+// place of a count on every pixel; the redesigned batched fused partials and
+// 2-D FCM_S step take it, the other kernels the count.
+template <int MAXC, bool MIN_TEST = false>
 __device__ __forceinline__ void membership_from_d2(int c, bool m_is_2,
                                                    float expo,
                                                    float (&u)[MAXC]) {
   int n_zero = 0;
+  bool any_zero;
+  if constexpr (MIN_TEST) {
+    float dmin = u[0];
 #pragma unroll
-  for (int j = 0; j < MAXC; ++j)
-    if (j < c && u[j] <= 0.f) ++n_zero;
-  if (n_zero > 0) {
+    for (int j = 1; j < MAXC; ++j)
+      if (j < c) dmin = fminf(dmin, u[j]);
+    any_zero = dmin <= 0.f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j)
+      if (j < c && u[j] <= 0.f) ++n_zero;
+    any_zero = n_zero > 0;
+  }
+  if (any_zero) {
+    if constexpr (MIN_TEST) {
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j)
+        if (j < c && u[j] <= 0.f) ++n_zero;
+    }
     const float share = 1.0f / (float)n_zero;
 #pragma unroll
     for (int j = 0; j < MAXC; ++j) u[j] = (j < c && u[j] <= 0.f) ? share : 0.f;
@@ -88,11 +108,13 @@ __device__ __forceinline__ void membership_of(float xi,
 
 // Fold each thread's c numerator and c denominator sums over a block of
 // THREADS threads, in a fixed order (a shuffle tree in each warp, then the
-// warps in warp order), into out[0..2c): c numerators, then c denominators.
+// warps in warp order), into out[k * stride] for k < 2c: c numerators, then
+// c denominators.
 template <int MAXC, int THREADS>
 __device__ __forceinline__ void block_partials(const float (&num)[MAXC],
                                                const float (&den)[MAXC],
-                                               int c, float* __restrict__ out) {
+                                               int c, float* __restrict__ out,
+                                               long long stride = 1) {
   constexpr int kWarps = THREADS / 32;
   __shared__ float warp_s[kWarps][2 * MAXC];
   const int wid = threadIdx.x >> 5;
@@ -120,7 +142,7 @@ __device__ __forceinline__ void block_partials(const float (&num)[MAXC],
     float s = warp_s[0][slot];
 #pragma unroll
     for (int q = 1; q < kWarps; ++q) s = s + warp_s[q][slot];
-    out[t] = s;
+    out[t * stride] = s;
   }
 }
 
@@ -134,6 +156,76 @@ __device__ __forceinline__ int fetch_add_acq_rel(int* p, int v) {
                : "l"(p), "r"(v)
                : "memory");
   return old;
+}
+
+// Called by every thread of a block after its partials are stored: true in
+// the one block of a group of n blocks that arrives last at ticket (zero on
+// entry), which then sees every block's stores. After the barrier thread 0
+// fences at gpu scope (cumulative: it releases the stores the barrier made it
+// observe, as fetch_add_acq_rel does for fcm_center_partials) and takes the
+// ticket with a relaxed add; the last block fences again before it reads
+// (acquire): the fence and atomic pattern of the PTX memory model. The last
+// block must set the ticket back to zero when it is done.
+__device__ __forceinline__ bool last_to_arrive(int* ticket, int n) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1) == n - 1;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The width of the thread groups fold_rows gives an output: the smallest
+// power of two that holds n_rows, at most a warp.
+__device__ __forceinline__ int fold_width(int n_rows) {
+  int sw = 1;
+  while (sw < 32 && sw < n_rows) sw <<= 1;
+  return sw;
+}
+
+// The last block's fold of a lane's partials, in a fixed order that depends
+// on n_rows alone: out o (o < n_out) is the sum over the blocks r < n_rows of
+// src(o)[r], each output's blocks stored contiguously (output-major, so a
+// group's loads are coalesced). A group of fold_width(n_rows) threads takes
+// an output, thread k of it blocks k, k + width, ... in order through L2,
+// then a shuffle tree within the group; the groups of the block take the
+// outputs in turn. dst(o, s) stores the sum. A thread issues kFoldBatch
+// loads (clamped to the last row, so none waits on a branch) before it adds
+// them: this fold is the last step of its launch, and loads taken one at a
+// time cost an L2 round trip each (about 4 us at 500 rows on an H100, see
+// PERF.md). Every thread of the block calls it (the shuffles need whole
+// warps).
+constexpr int kFoldBatch = 16;
+
+template <int THREADS, typename Src, typename Dst>
+__device__ __forceinline__ void fold_rows(int n_out, int n_rows, Src src,
+                                          Dst dst) {
+  const int sw = fold_width(n_rows);
+  const int groups = THREADS / sw;
+  const int g = threadIdx.x / sw;
+  const int k = threadIdx.x - g * sw;
+  for (int o0 = 0; o0 < n_out; o0 += groups) {  // uniform across the block
+    const int o = o0 + g;
+    float s = 0.f;
+    if (o < n_out) {
+      const float* p = src(o);
+      for (int r0 = k; r0 < n_rows; r0 += kFoldBatch * sw) {
+        float vals[kFoldBatch];
+#pragma unroll
+        for (int q = 0; q < kFoldBatch; ++q)
+          vals[q] = __ldcg(p + min(r0 + q * sw, n_rows - 1));
+#pragma unroll
+        for (int q = 0; q < kFoldBatch; ++q)
+          if (r0 + q * sw < n_rows) s = s + vals[q];
+      }
+    }
+    for (int off = sw >> 1; off > 0; off >>= 1)
+      s = s + __shfl_down_sync(0xffffffffu, s, off, sw);
+    if (o < n_out && k == 0) dst(o, s);
+  }
 }
 
 // The smallest instantiated tier that holds c clusters (0 if none does).

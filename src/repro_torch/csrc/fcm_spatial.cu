@@ -11,14 +11,31 @@
 // three clamped copies of the grid (block i-1, i, i+1), mask the padding with
 // a validity sheet, and carry one (c, 128) accumulator from grid step to grid
 // step. None of that is carried over: here the grid is unpadded, each block
-// masks its own edge by coordinates, and the sums leave as per-block partials
-// that a second launch folds in a fixed order (as in fcm_centers.cu).
+// masks its own edge by coordinates, and the sums leave as per-block partial
+// rows that are folded in a fixed order (as in fcm_centers.cu).
 //
-// 2-D design (spatial_partials_kernel): one thread a pixel. A block of 256
-// threads covers a 32 x 8 tile of the image and stages the tile plus a halo
-// of one pixel on each side in shared memory. The grid is (tiles of a lane,
-// lanes), so one launch serves a whole bucket: the host loop of the batched
-// solve costs one step launch (and its fold) an iteration.
+// 2-D design (spatial2d_march_kernel): a warp takes a strip of 32 columns
+// over a run of warp_rows rows (1 to 8, fewer for smaller lanes, so a lone
+// 217x181 slice still spreads over 82 blocks), one thread a column, and
+// marches it along y. A thread keeps its column's values at y - 1, y and
+// y + 1 in registers and rotates them a row at a time (row y + 2 loaded while
+// row y is computed); its left and right neighbors come from warp shuffles,
+// and lanes 0 and 31 carry the strip's two halo columns the same way; the
+// column's squared distances to the centers are kept too, and serve as the
+// pixel's own and its upper and lower neighbors' terms. So each pixel leaves
+// device memory once a step, plus the halo and two rows a warp.
+// A block takes 16 consecutive tasks, strips fastest, so edge strips (which
+// take the general path) spread evenly over the blocks and SMs. A warp row
+// whose neighbors are all in the grid takes an interior path with no bounds
+// tests and cnt = 4 or 8 known at compile time (nb / cnt and sx / cnt become
+// products with 0.25 or 0.125, bit-equal to the divisions); the stencil
+// arity is a template value, and so are m == 2 and c == tier at c = 4 (the
+// main path's; other c and m take a body with both at run time). A thread
+// adds its num/den over its rows in registers before the block's one fold;
+// the last block of each lane to take its ticket then folds the lane's rows
+// in block order, so a call is one launch on a 1-D grid, (lane, block), with
+// no bound on the lanes. The plan comes from
+// kernels/fcm_spatial.py::spatial2d_plan, from the lane's shape alone.
 //
 // 3-D design (spatial3d_march_kernel): a block owns a 32 x 8 column of the
 // volume over a run of z_run consecutive planes (2.5-D blocking) and marches
@@ -32,9 +49,9 @@
 // A thread adds its num/den over the run's planes in registers before the
 // block's one fold, so a lane leaves tiles * runs partial rows (2 016 at
 // 181x217x181 in runs of 16 planes, against 30 408 one plane a block), which
-// the 2-D path's fold then adds up. A tile whose pixels all have their four
-// in-plane neighbors in the grid skips the bounds tests on its inner planes,
-// with cnt = 6 known at compile time. The run length comes from
+// a second launch, one block a lane, folds. A tile whose pixels all have
+// their four in-plane neighbors in the grid skips the bounds tests on its
+// inner planes, with cnt = 6 known at compile time. The run length comes from
 // kernels/fcm_spatial.py::spatial3d_plan, from the lane's shape alone.
 //
 // A thread computes, for its pixel:
@@ -46,7 +63,8 @@
 //     nothing, which is what the plain version's zero-filled shifts add
 //     (exact zeros);
 //   - cnt = max(cnt, 1), d2e_j = (v_j - x)^2 + alpha * (nb_j / cnt) (an IEEE
-//     division, also at cnt = 6), the Eq. 4 membership of d2e with the 1e-12
+//     division, also at cnt = 6; a product with 1 / cnt on the 2-D interior
+//     path, where cnt is 4 or 8), the Eq. 4 membership of d2e with the 1e-12
 //     floor and the even split over zero distances (fcm_common.cuh), u^m
 //     (u * u when m == 2, else powf), and x + alpha * (sx / cnt).
 // The order and rounding of each of these float32 operations are the plain
@@ -60,24 +78,18 @@
 // k = 8) about 150 MFLOP against 4 MB read.
 //
 // Determinism: no float atomics. Each block folds its threads with a fixed
-// shuffle tree and warp order; the fold kernel, one block a lane, adds a
-// fixed stride of the lane's partial rows in each thread and folds its
-// threads the same way. The rows depend on the lane's shape alone, so a
-// lane's bits do not depend on its bucket, and a run repeats bit for bit.
+// shuffle tree and warp order; the lane's fold (the 2-D march's last block,
+// or the 3-D fold kernel, one block a lane) adds the lane's partial rows in a
+// fixed order. The rows depend on the lane's shape alone, so a lane's bits do
+// not depend on its bucket, and a run repeats bit for bit.
 #include <stdint.h>
 
 #include "fcm_common.cuh"
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-constexpr int kThreads = kTileW * kTileH;
-
-// The neighbors of offsets (oy, ox) in neighbor_offsets order sit at
-// (y - oy, x - ox): down, up, right, left, then the four diagonals.
-__device__ __constant__ int kDy2[8] = {1, -1, 0, 0, 1, 1, -1, -1};
-__device__ __constant__ int kDx2[8] = {0, 0, 1, -1, 1, -1, 1, -1};
+// threads of a block of the 3-D march's fold
+constexpr int kThreads = 256;
 
 // Adds one in-grid neighbor xs to the running stencil sums.
 template <int MAXC>
@@ -95,28 +107,61 @@ __device__ __forceinline__ void add_neighbor(float xs, const float* v_s, int c,
   }
 }
 
-// The Eq. 4' / 3' terms of one pixel x with its stencil sums: num[j] =
-// u_j^m * (x + alpha * xbar), den[j] = u_j^m.
+// sq[j] = (v_j - x)^2 for j < c, 0 above: the squared distances of one
+// value, which a 2-D column computes once and reuses as the pixel's own and
+// as its lower and upper neighbors' terms (the same float32 operations, so
+// the same bits, as computing them afresh).
 template <int MAXC>
-__device__ __forceinline__ void pixel_terms(float x, float cnt, float sx,
-                                            const float (&nb)[MAXC],
-                                            const float* v_s, int c,
-                                            float alpha, bool m_is_2, float m,
-                                            float expo, float (&num)[MAXC],
-                                            float (&den)[MAXC]) {
+__device__ __forceinline__ void squares(float x, const float (&v)[MAXC],
+                                        int c, float (&sq)[MAXC]) {
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    const float e = v[j] - x;
+    sq[j] = j < c ? e * e : 0.f;
+  }
+}
+
+// add_neighbor with the neighbor's squared distances already at hand.
+template <int MAXC>
+__device__ __forceinline__ void add_neighbor_sq(float xs,
+                                                const float (&sq)[MAXC], int c,
+                                                float& cnt, float& sx,
+                                                float (&nb)[MAXC]) {
+  cnt = cnt + 1.0f;
+  sx = sx + xs;
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j)
+    if (j < c) nb[j] = nb[j] + sq[j];
+}
+
+// nb / cnt: a multiplication by 1 / KNOWN when the count is known at compile
+// time to be that power of two (bit-equal to the division: both round the same
+// real number once, subnormals included), else an IEEE division.
+template <int KNOWN>
+__device__ __forceinline__ float over_count(float a, float cnt) {
+  static_assert(KNOWN == 0 || KNOWN == 4 || KNOWN == 8, "a power of two");
+  if constexpr (KNOWN > 0)
+    return a * (1.0f / KNOWN);
+  else
+    return a / cnt;
+}
+
+// The Eq. 4' / 3' terms of one pixel x with its own squared distances d2 and
+// its stencil sums: num[j] = u_j^m * (x + alpha * xbar), den[j] = u_j^m.
+// KNOWN: the count when the caller knows it is 4 or 8 (an interior pixel of
+// a 2-D grid), else 0.
+template <int MAXC, int KNOWN = 0, bool MIN_TEST = false>
+__device__ __forceinline__ void pixel_terms_d2(
+    float x, const float (&d2)[MAXC], float cnt, float sx,
+    const float (&nb)[MAXC], int c, float alpha, bool m_is_2, float m,
+    float expo, float (&num)[MAXC], float (&den)[MAXC]) {
   cnt = cnt < 1.0f ? 1.0f : cnt;
   float u[MAXC];
 #pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    float s = 0.f;
-    if (j < c) {
-      const float e = v_s[j] - x;
-      s = e * e + alpha * (nb[j] / cnt);
-    }
-    u[j] = s;
-  }
-  fcm::membership_from_d2<MAXC>(c, m_is_2, expo, u);
-  const float xe = x + alpha * (sx / cnt);
+  for (int j = 0; j < MAXC; ++j)
+    u[j] = j < c ? d2[j] + alpha * over_count<KNOWN>(nb[j], cnt) : 0.f;
+  fcm::membership_from_d2<MAXC, MIN_TEST>(c, m_is_2, expo, u);
+  const float xe = x + alpha * over_count<KNOWN>(sx, cnt);
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {
     if (j < c) {
@@ -127,87 +172,326 @@ __device__ __forceinline__ void pixel_terms(float x, float cnt, float sx,
   }
 }
 
-// x (B, D, H, W) (D = 1 and THREE_D false for 2-D), v (B, c) ->
-// part (B, n_tiles, 2c). Block (tile, lane); tiles run x fastest, then y,
-// then z.
-template <int MAXC, bool THREE_D>
-__global__ void __launch_bounds__(kThreads)
-spatial_partials_kernel(const float* __restrict__ x,
-                        const float* __restrict__ v, int depth, int h, int w,
-                        int c, int neighbors, float alpha, float m, float expo,
-                        int tiles_x, int tiles_y, float* __restrict__ part) {
-  __shared__ float s[kTileH + 2][kTileW + 2];
-  __shared__ float s_zp[THREE_D ? kTileH : 1][THREE_D ? kTileW : 1];
-  __shared__ float s_zm[THREE_D ? kTileH : 1][THREE_D ? kTileW : 1];
-  __shared__ float v_s[MAXC];
-
-  const int lane = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  const int rest = tile / tiles_x;
-  const int ty = rest % tiles_y;
-  const int z = rest / tiles_y;
-  const int x0 = tx * kTileW;
-  const int y0 = ty * kTileH;
-  const long long plane = (long long)h * w;
-  const float* xl = x + (long long)lane * depth * plane;
-  const float* xz = xl + (long long)z * plane;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < (kTileH + 2) * (kTileW + 2); i += kThreads) {
-    const int r = i / (kTileW + 2);
-    const int q = i - r * (kTileW + 2);
-    const int yy = y0 + r - 1;
-    const int xx = x0 + q - 1;
-    s[r][q] = (yy >= 0 && yy < h && xx >= 0 && xx < w)
-                  ? xz[(long long)yy * w + xx]
-                  : 0.f;
-  }
-  const int ly = tid / kTileW;
-  const int lx = tid - ly * kTileW;
-  const int y = y0 + ly;
-  const int xc = x0 + lx;
-  const bool inside = y < h && xc < w;
-  if constexpr (THREE_D) {
-    s_zp[ly][lx] = (inside && z + 1 < depth)
-                       ? xz[plane + (long long)y * w + xc]
-                       : 0.f;
-    s_zm[ly][lx] = (inside && z > 0) ? xz[-plane + (long long)y * w + xc]
-                                     : 0.f;
-  }
-  for (int j = tid; j < c; j += kThreads) v_s[j] = v[(long long)lane * c + j];
-  __syncthreads();
-
-  const bool m_is_2 = (m == 2.0f);
-  float num[MAXC];
-  float den[MAXC];
+// pixel_terms_d2 with the pixel's squared distances to the centers v_s.
+template <int MAXC>
+__device__ __forceinline__ void pixel_terms(float x, float cnt, float sx,
+                                            const float (&nb)[MAXC],
+                                            const float* v_s, int c,
+                                            float alpha, bool m_is_2, float m,
+                                            float expo, float (&num)[MAXC],
+                                            float (&den)[MAXC]) {
+  float d2[MAXC];
 #pragma unroll
-  for (int j = 0; j < MAXC; ++j) num[j] = den[j] = 0.f;
-  if (inside) {
-    float cnt = 0.f;
-    float sx = 0.f;
-    float nb[MAXC];
+  for (int j = 0; j < MAXC; ++j) {
+    const float e = v_s[j] - x;
+    d2[j] = j < c ? e * e : 0.f;
+  }
+  pixel_terms_d2<MAXC>(x, d2, cnt, sx, nb, c, alpha, m_is_2, m, expo, num,
+                       den);
+}
+
+// --- 2-D: march along y ----------------------------------------------------
+
+// A warp's task: a strip of kStripW columns (one thread a column) over a run
+// of warp_rows rows (at most kMaxWarpRows, the plan's). A lane's tasks run
+// strips fastest, and a block takes kStripWarps consecutive tasks, so every
+// block mixes edge and interior strips alike and the SMs get even work. 16
+// warps a block halve the partial rows against 8 (the last block's fold and
+// the ticket are the launch's tail), and at c <= 4 __launch_bounds__ asks
+// for 2 blocks an SM, 64 registers a thread, so the 1000 KB image's 250
+// blocks are all resident at once (see PERF.md for the shapes timed).
+constexpr int kStripW = 32;
+constexpr int kStripWarps = 16;
+constexpr int kStripThreads = kStripW * kStripWarps;
+constexpr int kMaxWarpRows = 8;
+// the tiers from which the march takes pixel2d_terms_lean
+constexpr int kLeanTier = 16;
+
+// The 2-D stencil sums of one pixel and its Eq. 4' / 3' terms, added to the
+// thread's run sums. z, up, dn: the pixel's column at rows y, y - 1, y + 1,
+// with their squared distances qz, qu, qd; lz, lu, ld and rz, ru, rd: the
+// left and the right column at rows y, y - 1, y + 1. Neighbors in
+// neighbor_offsets order (the neighbor of offset o sits at i - o): down, up,
+// right, left, then with NB == 8 down-right, down-left, up-right, up-left.
+// INTERIOR: all NB neighbors in the grid (cnt = NB at compile time, no tests,
+// and nb starts at the first neighbor's term: 0 + e^2 is e^2); else the
+// has_* flags say which are.
+template <int MAXC, int NB, bool INTERIOR>
+__device__ __forceinline__ void pixel2d_terms(
+    float z, float up, float dn, const float (&qz)[MAXC],
+    const float (&qu)[MAXC], const float (&qd)[MAXC], float lz, float lu,
+    float ld, float rz, float ru, float rd, bool has_dn, bool has_up,
+    bool has_rt, bool has_lf, const float (&vr)[MAXC], int c, float alpha,
+    bool m2, float m, float expo, float (&acc_num)[MAXC],
+    float (&acc_den)[MAXC]) {
+  float cnt = 0.f;
+  float sx = 0.f;
+  float nb[MAXC];
+  if (INTERIOR) {
+    sx = sx + dn;
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j) nb[j] = qd[j];
+  } else {
 #pragma unroll
     for (int j = 0; j < MAXC; ++j) nb[j] = 0.f;
-    if constexpr (THREE_D) {
-      // offsets (-1,0,0), (1,0,0): the slices below and above
-      if (z + 1 < depth) add_neighbor<MAXC>(s_zp[ly][lx], v_s, c, cnt, sx, nb);
-      if (z > 0) add_neighbor<MAXC>(s_zm[ly][lx], v_s, c, cnt, sx, nb);
-    }
-    const int k = THREE_D ? 4 : neighbors;
-    for (int o = 0; o < k; ++o) {
-      const int yy = y + kDy2[o];
-      const int xx = xc + kDx2[o];
-      if (yy >= 0 && yy < h && xx >= 0 && xx < w)
-        add_neighbor<MAXC>(s[ly + 1 + kDy2[o]][lx + 1 + kDx2[o]], v_s, c, cnt,
-                           sx, nb);
-    }
-    pixel_terms<MAXC>(s[ly + 1][lx + 1], cnt, sx, nb, v_s, c, alpha, m_is_2, m,
-                      expo, num, den);
+    if (has_dn) add_neighbor_sq<MAXC>(dn, qd, c, cnt, sx, nb);
   }
-  fcm::block_partials<MAXC, kThreads>(
-      num, den, c,
-      part + ((long long)lane * gridDim.x + tile) * 2 * c);
+  if (INTERIOR || has_up) add_neighbor_sq<MAXC>(up, qu, c, cnt, sx, nb);
+  if (INTERIOR || has_rt) add_neighbor<MAXC>(rz, vr, c, cnt, sx, nb);
+  if (INTERIOR || has_lf) add_neighbor<MAXC>(lz, vr, c, cnt, sx, nb);
+  if constexpr (NB == 8) {
+    if (INTERIOR || (has_dn && has_rt))
+      add_neighbor<MAXC>(rd, vr, c, cnt, sx, nb);
+    if (INTERIOR || (has_dn && has_lf))
+      add_neighbor<MAXC>(ld, vr, c, cnt, sx, nb);
+    if (INTERIOR || (has_up && has_rt))
+      add_neighbor<MAXC>(ru, vr, c, cnt, sx, nb);
+    if (INTERIOR || (has_up && has_lf))
+      add_neighbor<MAXC>(lu, vr, c, cnt, sx, nb);
+  }
+  float num[MAXC];
+  float den[MAXC];
+  pixel_terms_d2<MAXC, INTERIOR ? NB : 0, true>(z, qz, cnt, sx, nb, c, alpha,
+                                                m2, m, expo, num, den);
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    if (j < c) {
+      acc_num[j] = acc_num[j] + num[j];
+      acc_den[j] = acc_den[j] + den[j];
+    }
+  }
+}
+
+// pixel2d_terms for the larger tiers (MAXC >= kLeanTier): clusters outer,
+// each neighbor's squared distance formed afresh from the centers in shared
+// memory v_s, so a thread carries no squared distances from row to row and no
+// centers in registers (4c registers fewer, which at 128 registers a thread
+// is the difference between spilling and not). Each nb_j adds the same terms
+// in the same neighbor order, and 0 + e^2 is e^2, so the bits are
+// pixel2d_terms'.
+template <int MAXC, int NB, bool INTERIOR>
+__device__ __forceinline__ void pixel2d_terms_lean(
+    float z, float up, float dn, float lz, float lu, float ld, float rz,
+    float ru, float rd, bool has_dn, bool has_up, bool has_rt, bool has_lf,
+    const float* v_s, int c, float alpha, bool m2, float m, float expo,
+    float (&acc_num)[MAXC], float (&acc_den)[MAXC]) {
+  constexpr int KNOWN = INTERIOR ? NB : 0;
+  const bool t_dn = INTERIOR || has_dn;
+  const bool t_up = INTERIOR || has_up;
+  const bool t_rt = INTERIOR || has_rt;
+  const bool t_lf = INTERIOR || has_lf;
+  const bool t_rd = NB == 8 && t_dn && t_rt;
+  const bool t_ld = NB == 8 && t_dn && t_lf;
+  const bool t_ru = NB == 8 && t_up && t_rt;
+  const bool t_lu = NB == 8 && t_up && t_lf;
+  float cnt = 0.f;
+  float sx = 0.f;
+  auto count = [&](bool t, float xs) {
+    if (t) {
+      cnt = cnt + 1.0f;
+      sx = sx + xs;
+    }
+  };
+  count(t_dn, dn);
+  count(t_up, up);
+  count(t_rt, rz);
+  count(t_lf, lz);
+  count(t_rd, rd);
+  count(t_ld, ld);
+  count(t_ru, ru);
+  count(t_lu, lu);
+  cnt = cnt < 1.0f ? 1.0f : cnt;
+  float u[MAXC];
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    float uj = 0.f;
+    if (j < c) {
+      const float vj = v_s[j];
+      float nb = 0.f;
+      auto add = [&](bool t, float xs) {
+        const float e = vj - xs;
+        if (t) nb = nb + e * e;
+      };
+      add(t_dn, dn);
+      add(t_up, up);
+      add(t_rt, rz);
+      add(t_lf, lz);
+      add(t_rd, rd);
+      add(t_ld, ld);
+      add(t_ru, ru);
+      add(t_lu, lu);
+      uj = (vj - z) * (vj - z) + alpha * over_count<KNOWN>(nb, cnt);
+    }
+    u[j] = uj;
+  }
+  fcm::membership_from_d2<MAXC, true>(c, m2, expo, u);
+  const float xe = z + alpha * over_count<KNOWN>(sx, cnt);
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) {
+    if (j < c) {
+      const float um = m2 ? u[j] * u[j] : powf(u[j], m);
+      acc_num[j] = acc_num[j] + um * xe;
+      acc_den[j] = acc_den[j] + um;
+    }
+  }
+}
+
+// x (B, H, W), v (B, c) -> part (B, 2c, blocks), then out (B, 2c). Block
+// (lane, blk) on a 1-D grid; warp k of the block takes the lane's task
+// blk * kStripWarps + k. A thread keeps its column's rows y - 1, y, y + 1 in
+// registers and rotates them a row at a time, row y + 2 loaded while row y
+// is computed; its left and right neighbors come from warp shuffles, and
+// lanes 0 and 31 keep the same three rows of the strip's halo columns x0 - 1
+// and x0 + 32 (loaded beside their own). A warp row whose NB neighbors are
+// all in the grid (the columns x0 - 1 .. x0 + 32, rows y - 1 and y + 1)
+// takes the interior path. The thread adds its num/den over its rows in
+// registers; after the block's one fold the last block of the lane folds
+// the lane's rows in block order. FAST: c == MAXC and m == 2 at compile
+// time, else both are run-time values. Tier 4 asks for 2 blocks an SM (64
+// registers a thread); the larger tiers for 1 (128 registers), which tier
+// 8's 9c live floats need, and within which the tiers from kLeanTier on fit
+// only in the lean form (pixel2d_terms_lean).
+template <int MAXC, bool FAST, int NB>
+__global__ void __launch_bounds__(kStripThreads, MAXC <= 4 ? 2 : 1)
+spatial2d_march_kernel(const float* __restrict__ x,
+                       const float* __restrict__ v, int h, int w, int c_rt,
+                       float alpha, float m, float expo, int warp_rows,
+                       int strips, int blocks, float* __restrict__ part,
+                       int* __restrict__ ticket, float* __restrict__ out) {
+  const int c = FAST ? MAXC : c_rt;
+  const bool m2 = FAST || m == 2.0f;
+  const int lane = blockIdx.x / blocks;
+  const int blk = blockIdx.x - lane * blocks;
+  const int tid = threadIdx.x;
+  const int wid = tid >> 5;
+  const int lid = tid & 31;
+  const int task = blk * kStripWarps + wid;  // uniform across the warp
+  const int wrun = task / strips;
+  const int x0 = (task - wrun * strips) * kStripW;
+  const int ya = wrun * warp_rows;  // >= h past the lane's last task
+  const int yb = min(h, ya + warp_rows);
+  const float* xl = x + (long long)lane * h * w;
+  const int col = x0 + lid;
+  const bool in_col = col < w;
+  // lanes 0 and 31 also carry the halo column on their side
+  const int hcol = lid == 0 ? x0 - 1 : x0 + kStripW;
+  const bool in_halo = (lid == 0 || lid == kStripW - 1) && hcol >= 0 &&
+                       hcol < w;
+  const float* cp = xl + (in_col ? col : 0);
+  const float* hp = xl + (in_halo ? hcol : 0);
+  const bool first = ya > 0 && ya < h;
+  const bool second = ya + 1 < h;
+  float xm = (in_col && first) ? cp[(long long)(ya - 1) * w] : 0.f;
+  float xz = (in_col && ya < h) ? cp[(long long)ya * w] : 0.f;
+  float xp = (in_col && second) ? cp[(long long)(ya + 1) * w] : 0.f;
+  float hm = (in_halo && first) ? hp[(long long)(ya - 1) * w] : 0.f;
+  float hz = (in_halo && ya < h) ? hp[(long long)ya * w] : 0.f;
+  float hq = (in_halo && second) ? hp[(long long)(ya + 1) * w] : 0.f;
+  constexpr bool kLean = MAXC >= kLeanTier;
+  // the centers: in registers, or for the lean form in shared memory
+  float vr[MAXC];
+  const float* v_s = nullptr;
+  if constexpr (kLean) {
+    __shared__ float v_sh[MAXC];
+    if (tid < MAXC) v_sh[tid] = tid < c ? v[(long long)lane * c + tid] : 0.f;
+    __syncthreads();
+    v_s = v_sh;
+  } else {
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j)
+      vr[j] = j < c ? v[(long long)lane * c + j] : 0.f;
+  }
+  float acc_num[MAXC];
+  float acc_den[MAXC];
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j) acc_num[j] = acc_den[j] = 0.f;
+
+  // the column's squared distances at rows y - 1, y, y + 1 (not kept by
+  // the lean form)
+  float qm[MAXC], qz[MAXC], qp[MAXC];
+  if constexpr (!kLean) {
+    squares<MAXC>(xm, vr, c, qm);
+    squares<MAXC>(xz, vr, c, qz);
+    squares<MAXC>(xp, vr, c, qp);
+  }
+  const bool strip_interior = x0 >= 1 && x0 + kStripW < w;
+  const bool left = lid == 0;
+  const bool right = lid == kStripW - 1;
+#pragma unroll 2
+  for (int y = ya; y < yb; ++y) {  // uniform across the warp
+    const bool more = y + 2 < h && y + 1 < yb;
+    const float xn = (in_col && more) ? cp[(long long)(y + 2) * w] : 0.f;
+    const float hn = (in_halo && more) ? hp[(long long)(y + 2) * w] : 0.f;
+    float lz = __shfl_up_sync(0xffffffffu, xz, 1);
+    float rz = __shfl_down_sync(0xffffffffu, xz, 1);
+    lz = left ? hz : lz;
+    rz = right ? hz : rz;
+    float lu = 0.f, ld = 0.f, ru = 0.f, rd = 0.f;
+    if constexpr (NB == 8) {
+      lu = __shfl_up_sync(0xffffffffu, xm, 1);
+      ld = __shfl_up_sync(0xffffffffu, xp, 1);
+      ru = __shfl_down_sync(0xffffffffu, xm, 1);
+      rd = __shfl_down_sync(0xffffffffu, xp, 1);
+      lu = left ? hm : lu;
+      ld = left ? hq : ld;
+      ru = right ? hm : ru;
+      rd = right ? hq : rd;
+    }
+    if (strip_interior && y > 0 && y + 1 < h) {
+      if constexpr (kLean)
+        pixel2d_terms_lean<MAXC, NB, true>(
+            xz, xm, xp, lz, lu, ld, rz, ru, rd, true, true, true, true, v_s,
+            c, alpha, m2, m, expo, acc_num, acc_den);
+      else
+        pixel2d_terms<MAXC, NB, true>(
+            xz, xm, xp, qz, qm, qp, lz, lu, ld, rz, ru, rd, true, true, true,
+            true, vr, c, alpha, m2, m, expo, acc_num, acc_den);
+    } else if (in_col) {
+      if constexpr (kLean)
+        pixel2d_terms_lean<MAXC, NB, false>(
+            xz, xm, xp, lz, lu, ld, rz, ru, rd, y + 1 < h, y > 0,
+            col + 1 < w, col > 0, v_s, c, alpha, m2, m, expo, acc_num,
+            acc_den);
+      else
+        pixel2d_terms<MAXC, NB, false>(
+            xz, xm, xp, qz, qm, qp, lz, lu, ld, rz, ru, rd, y + 1 < h, y > 0,
+            col + 1 < w, col > 0, vr, c, alpha, m2, m, expo, acc_num,
+            acc_den);
+    }
+    xm = xz;
+    xz = xp;
+    xp = xn;
+    if constexpr (!kLean) {
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        qm[j] = qz[j];
+        qz[j] = qp[j];
+      }
+      squares<MAXC>(xn, vr, c, qp);
+    }
+    hm = hz;
+    hz = hq;
+    hq = hn;
+  }
+  // the lane's partials are (output, block), block fastest
+  float* lp = part + (long long)lane * 2 * c * blocks;
+  fcm::block_partials<MAXC, kStripThreads>(acc_num, acc_den, c, lp + blk,
+                                           blocks);
+  if (!fcm::last_to_arrive(ticket + lane, blocks)) return;
+  float* ol = out + (long long)lane * 2 * c;
+  fcm::fold_rows<kStripThreads>(
+      2 * c, blocks, [&](int o) { return lp + (long long)o * blocks; },
+      [&](int o, float s) { ol[o] = s; });
+  if (tid == 0) ticket[lane] = 0;
+}
+
+// The 2-D march's grid for an (h, w) lane at warp_rows rows a warp: strips
+// of columns and blocks of kStripWarps tasks.
+inline void march2d_grid(int h, int w, int warp_rows, long long& strips,
+                         long long& blocks) {
+  strips = (w + kStripW - 1) / kStripW;
+  const long long tasks = strips * ((h + warp_rows - 1) / warp_rows);
+  blocks = (tasks + kStripWarps - 1) / kStripWarps;
 }
 
 // part (B, n_tiles, 2c) -> out (B, 2c): one block a lane; thread t adds the
@@ -404,32 +688,25 @@ inline void march_grid(int depth, int h, int w, int z_run, long long& tiles,
   runs = (depth + (long long)z_run - 1) / z_run;
 }
 
-int launch_2d(int tier, const void* x, const void* v, int n_lanes, int h,
-              int w, int c, int neighbors, float alpha, float m, float expo,
-              void* part, void* out, void* stream) {
-  const int tiles_x = (w + kTileW - 1) / kTileW;
-  const int tiles_y = (h + kTileH - 1) / kTileH;
-  const long long n_tiles = (long long)tiles_x * tiles_y;
-  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)n_tiles, (unsigned)n_lanes, 1);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  const float* vf = (const float*)v;
-  switch (tier) {
-#define FCM_SPATIAL_2D(T)                                                    \
-  case T:                                                                    \
-    spatial_partials_kernel<T, false><<<grid, kThreads, 0, st>>>(            \
-        xf, vf, 1, h, w, c, neighbors, alpha, m, expo, tiles_x, tiles_y,     \
-        (float*)part);                                                       \
-    break;
-    FCM_SPATIAL_2D(4)
-    FCM_SPATIAL_2D(8)
-    FCM_SPATIAL_2D(16)
-    FCM_SPATIAL_2D(32)
-#undef FCM_SPATIAL_2D
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <int MAXC>
+int launch_march2d(const void* x, const void* v, int n_lanes, int h, int w,
+                   int c, int neighbors, float alpha, float m, float expo,
+                   int warp_rows, void* part, void* ticket, void* out,
+                   cudaStream_t st) {
+  long long strips, blocks;
+  march2d_grid(h, w, warp_rows, strips, blocks);
+  if (blocks * n_lanes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const float*, const float*, int, int, int, float,
+                          float, float, int, int, int, float*, int*, float*);
+  Kernel k = neighbors == 4 ? spatial2d_march_kernel<MAXC, false, 4>
+                             : spatial2d_march_kernel<MAXC, false, 8>;
+  if constexpr (MAXC == 4)
+    if (c == MAXC && m == 2.0f)
+      k = neighbors == 4 ? spatial2d_march_kernel<MAXC, true, 4>
+                         : spatial2d_march_kernel<MAXC, true, 8>;
+  k<<<(unsigned)(blocks * n_lanes), kStripThreads, 0, st>>>(
+      (const float*)x, (const float*)v, h, w, c, alpha, m, expo, warp_rows,
+      (int)strips, (int)blocks, (float*)part, (int*)ticket, (float*)out);
   return (int)cudaGetLastError();
 }
 
@@ -501,8 +778,19 @@ int fold(int tier, const void* part, int n_lanes, long long n_rows, int c,
 
 }  // namespace
 
-extern "C" int fcm_spatial_tile_w() { return kTileW; }
-extern "C" int fcm_spatial_tile_h() { return kTileH; }
+extern "C" int fcm_spatial2d_strip_w() { return kStripW; }
+extern "C" int fcm_spatial2d_warps() { return kStripWarps; }
+extern "C" int fcm_spatial2d_max_warp_rows() { return kMaxWarpRows; }
+
+// Blocks (and partial rows) an (h, w) lane of the 2-D march takes at
+// warp_rows rows a warp (0 for an empty shape or a warp_rows out of range).
+extern "C" long long fcm_spatial2d_blocks(int h, int w, int warp_rows) {
+  if (h < 1 || w < 1 || warp_rows < 1 || warp_rows > kMaxWarpRows) return 0;
+  long long strips, blocks;
+  march2d_grid(h, w, warp_rows, strips, blocks);
+  return blocks;
+}
+
 extern "C" int fcm_spatial3d_tile_w() { return kMarchW; }
 extern "C" int fcm_spatial3d_tile_h() { return kMarchH; }
 // shared memory of the march's staged tiles (two planes with their halo);
@@ -521,29 +809,43 @@ extern "C" long long fcm_spatial3d_rows(int depth, int h, int w, int z_run) {
 }
 
 // x (B, H, W), v (B, c) float32 contiguous -> out (B, 2c): each lane's c
-// numerators, then its c denominators. neighbors is 4 or 8; part is scratch
-// of B * n_tiles * 2c floats with n_tiles = ceil(H / 8) * ceil(W / 32);
-// 1 <= c <= 32; expo is the float32 exponent -1/(m-1).
+// numerators, then its c denominators, in one launch. neighbors is 4 or 8;
+// warp_rows (rows a warp marches, 1 .. kMaxWarpRows) comes from
+// kernels/fcm_spatial.py::spatial2d_plan; part is scratch of B *
+// fcm_spatial2d_blocks(H, W, warp_rows) * 2c floats; ticket holds B ints that
+// are zero on entry and left zero on exit; 1 <= c <= 32, B >= 1; expo is the
+// float32 exponent -1/(m-1).
 extern "C" int fcm_spatial_partials_2d(const void* x, const void* v,
                                        int n_lanes, int h, int w, int c,
                                        int neighbors, float alpha, float m,
-                                       float expo, void* part, void* out,
+                                       float expo, int warp_rows, void* part,
+                                       void* ticket, void* out,
                                        void* stream) {
   const int tier = fcm::tier_of(c);
   if (neighbors != 4 && neighbors != 8) return (int)cudaErrorInvalidValue;
-  if (n_lanes < 1 || n_lanes > 65535 || h < 1 || w < 1 || tier == 0)
+  if (n_lanes < 1 || h < 1 || w < 1 || tier == 0 || warp_rows < 1 ||
+      warp_rows > kMaxWarpRows)
     return (int)cudaErrorInvalidValue;
-  const int err = launch_2d(tier, x, v, n_lanes, h, w, c, neighbors, alpha, m,
-                            expo, part, out, stream);
-  if (err != 0) return err;
-  const long long n_tiles =
-      (long long)((w + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH);
-  return fold(tier, part, n_lanes, n_tiles, c, out, stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (tier) {
+#define FCM_SPATIAL_2D(T)                                                    \
+  case T:                                                                    \
+    return launch_march2d<T>(x, v, n_lanes, h, w, c, neighbors, alpha, m,    \
+                             expo, warp_rows, part, ticket, out, st);
+    FCM_SPATIAL_2D(4)
+    FCM_SPATIAL_2D(8)
+    FCM_SPATIAL_2D(16)
+    FCM_SPATIAL_2D(32)
+#undef FCM_SPATIAL_2D
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // x (B, D, H, W), v (B, c) float32 contiguous -> out (B, 2c) over the
 // 6-connected stencil, the volume cut into runs of z_run planes; part holds
-// B * fcm_spatial3d_rows(D, H, W, z_run) * 2c floats.
+// B * fcm_spatial3d_rows(D, H, W, z_run) * 2c floats. The lanes sit on
+// gridDim.z, so B <= 65535 (the wrapper takes larger buckets in chunks).
 extern "C" int fcm_spatial_partials_3d(const void* x, const void* v,
                                        int n_lanes, int depth, int h, int w,
                                        int c, float alpha, float m, float expo,

@@ -227,7 +227,7 @@ streamed_solve_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* xl = x + (long long)lane * k * d;
     const float* wl = w + (long long)lane * k;
     float* lpart = part + (long long)lane * 2 * ranks * n_out;
-    int* arrive = sync + 2 * lane;
+    int* arrive = sync + 2 * (long long)lane;
     int* leave = arrive + 1;
 
     __syncthreads();  // the previous lane's last reads of v_s are done
@@ -432,6 +432,7 @@ extern "C" int fcm_streamed_registers(int c, int d, float m) {
 // grid is lanes_per_round * ranks blocks, launched cooperatively (refused
 // unless all fit at once). part is scratch of B * 2 * ranks * c * (D + 1)
 // floats; sync holds 2B ints that are zero on entry and left zero on exit.
+// The grid is 1-D and takes B in rounds, so B has no bound but an int's.
 extern "C" int fcm_streamed_solve(const void* x, const void* w, const void* v0,
                                   const void* tol, int n_lanes, int k, int d,
                                   int c, float m, float expo, int max_iters,
@@ -439,7 +440,7 @@ extern "C" int fcm_streamed_solve(const void* x, const void* w, const void* v0,
                                   void* sync, void* v_out, void* delta_out,
                                   void* iters_out, void* stream) {
   // a lane's arrival counter reaches max_iters * ranks
-  if (n_lanes < 1 || n_lanes > 65535 || k < 1 || k > kMaxRows ||
+  if (n_lanes < 1 || k < 1 || k > kMaxRows ||
       bad_tier(c, d) || ranks < 1 || ranks > kMaxRanks || ranks > k ||
       lanes_per_round < 1 || lanes_per_round > n_lanes || max_iters < 0 ||
       (long long)max_iters * ranks > INT_MAX)

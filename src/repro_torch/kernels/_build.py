@@ -47,9 +47,13 @@ SIGNATURES = {
     "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P,
                             _P),
     "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _P, _I, _P, _P, _P),
-    "fcm_fused_partials_batched": (_P, _P, _I, _L, _I, _P, _I, _F, _F, _P,
-                                   _I, _P, _P, _P),
-    "fcm_fused_batched_dchunk": (_I,),
+    "fcm_fused_partials_batched": (_P, _P, _I, _L, _I, _P, _I, _F, _F, _I,
+                                   _I, _P, _P, _P, _P, _P),
+    "fcm_batched_threads": (),
+    "fcm_batched_max_blocks": (),
+    "fcm_batched_tier": (_I, _I),
+    "fcm_batched_dchunk": (_I, _I),
+    "fcm_batched_rows_per_thread": (_I, _I),
     "fcm_max_c": (),
     "fcm_streamed_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                            _I, _I, _P, _P, _P, _P, _P, _P),
@@ -67,12 +71,14 @@ SIGNATURES = {
     "slic_tile_w": (),
     "slic_tile_h": (),
     "slic_window_slack": (),
-    "fcm_spatial_partials_2d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
-                                _P, _P),
+    "fcm_spatial_partials_2d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I,
+                                _P, _P, _P, _P),
     "fcm_spatial_partials_3d": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I,
                                 _P, _P, _P),
-    "fcm_spatial_tile_w": (),
-    "fcm_spatial_tile_h": (),
+    "fcm_spatial2d_strip_w": (),
+    "fcm_spatial2d_warps": (),
+    "fcm_spatial2d_max_warp_rows": (),
+    "fcm_spatial2d_blocks": (_I, _I, _I),
     "fcm_spatial3d_tile_w": (),
     "fcm_spatial3d_tile_h": (),
     "fcm_spatial3d_tile_bytes": (),
@@ -89,7 +95,8 @@ SIGNATURES = {
 }
 
 #: return types other than int
-RESTYPES = {"fcm_stencil_smem_bytes": _L, "fcm_spatial3d_rows": _L}
+RESTYPES = {"fcm_stencil_smem_bytes": _L, "fcm_spatial3d_rows": _L,
+            "fcm_spatial2d_blocks": _L}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -202,7 +209,9 @@ _counters = {}
 def zeroed_ints(t, n: int):
     """At least ``n`` int32 counters on ``t``'s device that are zero when a
     kernel on the current stream starts. The kernels that take them (the
-    streamed whole-solve's per-lane barriers, the center partials' ticket)
+    streamed whole-solve's per-lane barriers, the center partials' ticket,
+    the per-lane tickets of the batched fused partials and the 2-D FCM_S
+    step)
     set every counter they touch back to zero before they exit, and
     kernels on one stream run in turn, so one buffer, zeroed once, serves
     every later launch on that stream."""
@@ -213,3 +222,10 @@ def zeroed_ints(t, n: int):
         buf = torch.zeros((max(n, 256),), dtype=torch.int32, device=t.device)
         _counters[key] = buf
     return buf
+
+
+def lane_chunks(b: int, most: int):
+    """``(i0, i1)`` slices of ``b`` lanes, each of at most ``most`` lanes,
+    in order: one launch each, for a kernel whose lanes sit on a grid axis
+    capped at 65535."""
+    return [(i0, min(b, i0 + most)) for i0 in range(0, b, most)]

@@ -16,16 +16,17 @@ version beside it:
   of lanes past the whole-solve kernels' bounds (c > 8, rows > 2^20 or
   D > 16), once an iteration under the solver's per-lane-masked loop.
 
-Each block reduces a grid-stride share of the pixels to per-block
-partials in a scratch buffer, which are folded in a fixed order: by a
-second launch for the fused forms, and by the last block to finish in
-:func:`center_partials`'s one launch. No float atomics, so a run repeats
-bit for bit. ``w`` is the optional per-pixel weight (histogram counts);
+Each block reduces its share of the pixels to per-block partials in a
+scratch buffer, which are folded in a fixed order: by a second launch
+for :func:`fused_partials`, and by the last block to finish in the one
+launch of the other two (in the batched form the last block of each
+lane, :func:`batched_plan` giving a lane its blocks from its own shape).
+No float atomics, so a run repeats bit for bit. ``w`` is the optional per-pixel weight (histogram counts);
 ``None`` means 1 and is not read.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +54,63 @@ def center_blocks(n: int) -> int:
     quads). It depends on N alone."""
     return max(1, min(-(-n // (QUAD * QUADS_PER_THREAD * THREADS)),
                       MAX_BLOCKS))
+
+
+#: the batched form's most blocks a (lane, feature chunk); past that its
+#: threads stride over more tiles
+BATCHED_MAX_BLOCKS = 1024
+#: the chunked form (D > 1) gives a thread about this / (tier * D) rows
+CHUNK_WORK = 192
+
+
+def batched_tier(c: int, d: int) -> int:
+    """The cluster tier :func:`fused_partials_batched` takes for (c, D):
+    at D = 1 the D = 1 form's 4, 8, 12, 16, 32 (12 for the pixel route's
+    twelve-class bucket), else the shared 4, 8, 16, 32."""
+    if not 1 <= c <= MAX_C or d < 1:
+        raise ValueError(f"no batched tier holds c={c}, D={d}")
+    if d == 1 and 8 < c <= 12:
+        return 12
+    return next(t for t in (4, 8, 16, 32) if c <= t)
+
+
+class BatchedPlan(NamedTuple):
+    """How :func:`fused_partials_batched` cuts a bucket of B lanes of N
+    rows of D features at c clusters."""
+    tier: int             # the kernel's cluster tier
+    dch: int              # features a block's chunk takes (1 at D = 1)
+    chunks: int           # feature chunks a lane: ceil(D / dch)
+    rows_per_thread: int  # rows a thread takes in a tile
+    tile: int             # rows a block takes at a time
+    blocks: int           # blocks a (lane, chunk)
+    grid: int             # blocks launched: B * chunks * blocks
+    part_floats: int      # the partials scratch, one row a block
+
+
+def batched_plan(b: int, n: int, d: int, c: int) -> BatchedPlan:
+    """The batched fused kernel's plan. A lane's chunks, tiles and blocks,
+    and so its reduction order, come from its N, D and c alone, never
+    from B or the card. At D = 1 a thread takes 16, 8 or 4 rows by tier
+    (about the same float work a block: tiles of 4096 rows at c <= 4,
+    1024 at c > 8), so a bucket of BrainWeb slices at c = 12 fills the
+    card and a lone lane of 2^20 rows spreads over it; wider rows take
+    about ``CHUNK_WORK / (tier * D)`` rows a thread and chunks of 4
+    features (2 past c = 8). A lane takes a block for each tile, at most
+    :data:`BATCHED_MAX_BLOCKS` a chunk."""
+    if min(b, n, d) < 1:
+        raise ValueError(f"batched_plan takes positive sizes, got b={b}, "
+                         f"n={n}, d={d}")
+    tier = batched_tier(c, d)
+    if d == 1:
+        dch, rpt = 1, 4 * (4 if tier <= 4 else 2 if tier <= 8 else 1)
+    else:
+        dch, rpt = (4 if tier <= 8 else 2), max(1, CHUNK_WORK // (tier * d))
+    chunks = -(-d // dch)
+    tile = THREADS * rpt
+    blocks = min(-(-n // tile), BATCHED_MAX_BLOCKS)
+    grid = b * chunks * blocks
+    return BatchedPlan(tier, dch, chunks, rpt, tile, blocks, grid,
+                       grid * (c * dch + c))
 
 
 def center_partials_plain(x: torch.Tensor, u: torch.Tensor, m: float,
@@ -180,12 +238,11 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
     return num, den
 
 
-def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
-                           v: torch.Tensor, m: float
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``x`` (B, N, D), ``w`` (B, N), ``v`` (B, c, D), float32 -> ``(num
-    (B, c, D), den (B, c))``. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (and its fold) or raises."""
+def _batched_checked(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor
+                     ) -> bool:
+    """Shapes, devices and types of :func:`fused_partials_batched`; True
+    when the kernel runs (a CUDA tensor), False for the plain version (a
+    CPU tensor)."""
     if x.dim() != 3 or w.dim() != 2 or v.dim() != 3:
         raise ValueError("fused_partials_batched takes x (B, N, D), w (B, "
                          "N), v (B, c, D)")
@@ -198,7 +255,7 @@ def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("fused_partials_batched inputs must share one "
                          "device")
     if x.device.type == "cpu":
-        return fused_partials_batched_plain(x, w, v, m)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"fused_partials_batched runs on cpu or cuda, not "
                          f"{x.device}")
@@ -208,30 +265,42 @@ def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
     if not all(t.is_contiguous() for t in (x, w, v)):
         raise ValueError("the fused_partials_batched kernel needs "
                          "contiguous inputs")
-    if not 1 <= c <= MAX_C or not 1 <= b <= 65535:
+    if not 1 <= c <= MAX_C:
         raise ValueError(f"the fused_partials_batched kernel takes 1 <= c "
-                         f"<= {MAX_C} and 1 <= B <= 65535, got c={c}, B={b}")
-    if n == 0 or d == 0:
-        return (torch.zeros((b, c, d), dtype=torch.float32, device=x.device),
-                torch.zeros((b, c), dtype=torch.float32, device=x.device))
-    lib = _build.library()
-    dch = lib.fcm_fused_batched_dchunk(c)
-    n_blocks = max(1, min(-(-n // THREADS), MAX_BLOCKS))
-    part = torch.empty((b * -(-d // dch) * n_blocks * c * (dch + 1),),
-                       dtype=torch.float32, device=x.device)
+                         f"<= {MAX_C}, got c={c}")
+    return True
+
+
+def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
+                           v: torch.Tensor, m: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (B, N, D), ``w`` (B, N), ``v`` (B, c, D), float32 -> ``(num
+    (B, c, D), den (B, c))``, for a bucket of any number of lanes. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (one launch, its fold included) or raises."""
+    if not _batched_checked(x, w, v):
+        return fused_partials_batched_plain(x, w, v, m)
+    b, n, d = x.shape
+    c = v.shape[1]
     num = torch.empty((b, c, d), dtype=torch.float32, device=x.device)
     den = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    _build.check(lib.fcm_fused_partials_batched(
+    if b == 0 or n == 0 or d == 0:
+        return num.zero_(), den.zero_()
+    plan = batched_plan(b, n, d, c)
+    part = torch.empty((plan.part_floats,), dtype=torch.float32,
+                       device=x.device)
+    _build.check(_build.library().fcm_fused_partials_batched(
         x.data_ptr(), w.data_ptr(), b, n, d, v.data_ptr(), c,
-        float(np.float32(m)), exponent(m), part.data_ptr(), n_blocks,
-        num.data_ptr(), den.data_ptr(), _build.stream_of(x)),
-        "fcm_fused_partials_batched")
+        float(np.float32(m)), exponent(m), plan.blocks,
+        plan.rows_per_thread, part.data_ptr(),
+        _build.zeroed_ints(x, b).data_ptr(), num.data_ptr(), den.data_ptr(),
+        _build.stream_of(x)), "fcm_fused_partials_batched")
     fused_partials_batched.launches += 1
     return num, den
 
 
-#: wrapper calls that launched their kernel (for the fused forms, a
-#: reduction and its fold) since the counts were last set to 0
+#: kernel launches since the counts were last set to 0 (fused_partials: a
+#: reduction and its fold; the others one launch, the fold included)
 center_partials.launches = 0
 fused_partials.launches = 0
 fused_partials_batched.launches = 0

@@ -146,6 +146,10 @@ def _check_inputs(what, x, w, v0, tol):
     return b, k, d, c
 
 
+def _on_card(x) -> bool:
+    """True when the kernel runs: the inputs lie on a CUDA device (the
+    shared checks have admitted only cpu and cuda)."""
+    return x.device.type == "cuda"
 
 
 def _exponents(m):
@@ -205,7 +209,7 @@ def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
     iters (B,) int32). A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises."""
     b, k, d, c = _check_inputs("resident_solve", x, w, v0, tol)
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return resident_solve_plain(x, w, v0, tol, m, max_iters)
     if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 1 <= d <= MAX_FEAT):
         raise ValueError(
@@ -233,18 +237,19 @@ def resident_streamed_solve(x: torch.Tensor, w: torch.Tensor,
                             max_iters: int):
     """The HBM-streamed whole-solve, same contract as
     :func:`resident_solve` for lanes of up to :data:`STREAM_MAX_ROWS`
-    rows, ``c <= STREAM_MAX_C`` and ``D <= STREAM_MAX_FEAT``. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    rows, ``c <= STREAM_MAX_C`` and ``D <= STREAM_MAX_FEAT``, and a
+    bucket of any number of lanes (one launch: lanes past what the card
+    holds at once are taken in rounds). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     b, k, d, c = _check_inputs("resident_streamed_solve", x, w, v0, tol)
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return resident_streamed_solve_plain(x, w, v0, tol, m, max_iters)
     if not (1 <= k <= STREAM_MAX_ROWS and 1 <= c <= STREAM_MAX_C
-            and 1 <= d <= STREAM_MAX_FEAT and b <= 65535):
+            and 1 <= d <= STREAM_MAX_FEAT):
         raise ValueError(
             f"flat/resident_streamed holds rows <= {STREAM_MAX_ROWS}, c <= "
-            f"{STREAM_MAX_C}, D <= {STREAM_MAX_FEAT} a lane and 65535 "
-            f"lanes; got rows={k}, c={c}, D={d}, B={b}")
+            f"{STREAM_MAX_C}, D <= {STREAM_MAX_FEAT} a lane; got rows={k}, "
+            f"c={c}, D={d}")
     return _launch_streamed(x, w, v0, tol, m, max_iters, b, k, d, c)
 
 

@@ -32,6 +32,8 @@ from .fcm_membership import exponent
 #: what the kernel admits a lane (csrc/fcm_stencil.cu)
 MAX_PIXELS = 1 << 20
 MAX_C = 8
+#: the lanes one launch takes (they sit on gridDim.y)
+MAX_LANES = 65535
 #: the most blocks a lane's cluster holds (the portable cluster size)
 MAX_CLUSTER = 8
 #: the shared memory a block of the on-chip form may take for its band:
@@ -128,13 +130,11 @@ def stencil_solve_plain(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
     return v, delta, iters
 
 
-def stencil_solve(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
-                  m: float, alpha: float, neighbors: int, max_iters: int):
-    """``x`` (B, H, W) lanes with 4 or 8 neighbors, or (B, D, H, W) with
-    6; ``v0`` (B, c) init centers; ``tol`` (B,) stop tolerances; all
-    float32 -> ``(v (B, c), delta (B,), iters (B,) int32)``. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+def _checked(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
+             neighbors: int) -> bool:
+    """Shapes, devices and types of :func:`stencil_solve`; True when the
+    kernel runs (a CUDA tensor), False for the plain version (a CPU
+    tensor)."""
     if not ((x.dim() == 3 and neighbors in (4, 8))
             or (x.dim() == 4 and neighbors == 6)):
         raise ValueError(f"stencil_solve takes (B, H, W) lanes with 4 or 8 "
@@ -147,8 +147,7 @@ def stencil_solve(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
     if len({t.device for t in (x, v0, tol)}) != 1:
         raise ValueError("stencil_solve inputs must share one device")
     if x.device.type == "cpu":
-        return stencil_solve_plain(x, v0, tol, m, alpha, neighbors,
-                                   max_iters)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"stencil_solve runs on cpu or cuda, not "
                          f"{x.device}")
@@ -156,28 +155,48 @@ def stencil_solve(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
         raise TypeError("the stencil whole-solve takes float32 inputs")
     if not all(t.is_contiguous() for t in (x, v0, tol)):
         raise ValueError("the stencil whole-solve needs contiguous inputs")
+    return True
+
+
+def stencil_solve(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
+                  m: float, alpha: float, neighbors: int, max_iters: int):
+    """``x`` (B, H, W) lanes with 4 or 8 neighbors, or (B, D, H, W) with
+    6; ``v0`` (B, c) init centers; ``tol`` (B,) stop tolerances; all
+    float32 -> ``(v (B, c), delta (B,), iters (B,) int32)``. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or
+    raises. The kernel's lanes sit on ``gridDim.y``, so a bucket of more
+    than :data:`MAX_LANES` lanes takes one launch a chunk of lanes; a
+    lane's bits are its own, so the chunks do not change them."""
+    if not _checked(x, v0, tol, neighbors):
+        return stencil_solve_plain(x, v0, tol, m, alpha, neighbors,
+                                   max_iters)
+    b = x.shape[0]
     depth, h, w = (1,) * (4 - x.dim()) + tuple(x.shape[1:])
     c = v0.shape[1]
     n = depth * h * w
-    if not (1 <= n <= MAX_PIXELS and 1 <= c <= MAX_C and b <= 65535):
+    if not (1 <= n <= MAX_PIXELS and 1 <= c <= MAX_C):
         raise ValueError(
-            f"the stencil whole-solve holds pixels <= {MAX_PIXELS}, c <= "
-            f"{MAX_C} a lane and 65535 lanes; got pixels={n}, c={c}, B={b}")
+            f"the stencil whole-solve holds pixels <= {MAX_PIXELS} and c <= "
+            f"{MAX_C} a lane; got pixels={n}, c={c}")
     v = torch.empty((b, c), dtype=torch.float32, device=x.device)
     delta = torch.empty((b,), dtype=torch.float32, device=x.device)
     iters = torch.empty((b,), dtype=torch.int32, device=x.device)
     if b:
         plan = stencil_plan(depth, h, w, neighbors)
-        _build.check(_build.library().fcm_stencil_solve(
-            x.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, depth, h, w, c,
-            neighbors, float(np.float32(alpha)),
-            float(np.float32(1.0 + alpha)), float(np.float32(m)),
-            exponent(m), int(max_iters), plan.ranks, plan.form,
-            v.data_ptr(), delta.data_ptr(), iters.data_ptr(),
-            _build.stream_of(x)), "fcm_stencil_solve")
-        stencil_solve.launches += 1
+        lib = _build.library()
+        for i0, i1 in _build.lane_chunks(b, MAX_LANES):
+            _build.check(lib.fcm_stencil_solve(
+                x[i0:i1].data_ptr(), v0[i0:i1].data_ptr(),
+                tol[i0:i1].data_ptr(), i1 - i0, depth, h, w, c, neighbors,
+                float(np.float32(alpha)), float(np.float32(1.0 + alpha)),
+                float(np.float32(m)), exponent(m), int(max_iters),
+                plan.ranks, plan.form, v[i0:i1].data_ptr(),
+                delta[i0:i1].data_ptr(), iters[i0:i1].data_ptr(),
+                _build.stream_of(x)), "fcm_stencil_solve")
+            stencil_solve.launches += 1
     return v, delta, iters
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0: one a chunk of at
+#: most MAX_LANES lanes, so one a call below 65536 lanes
 stencil_solve.launches = 0

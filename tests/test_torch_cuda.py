@@ -363,14 +363,22 @@ def _noisy_lanes(b, shape, seed):
     return np.stack(imgs).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape,neighbors,alpha,m", [
-    ((37, 61), 4, 1.0, 2.0), ((37, 61), 8, 2.5, 1.6), ((1, 300), 8, 1.0, 2.0),
-    ((5, 19, 23), 6, 1.0, 2.0), ((5, 19, 23), 6, 0.0, 1.6),
-    ((37, 19, 23), 6, 1.0, 2.0), ((70, 9, 33), 6, 2.5, 1.6),
-    ((1, 64, 64), 6, 1.0, 2.0)])
-def test_spatial_step_kernels_match_plain(dev, shape, neighbors, alpha, m):
+@pytest.mark.parametrize("shape,neighbors,alpha,m,c", [
+    ((37, 61), 4, 1.0, 2.0, 4), ((37, 61), 8, 2.5, 1.6, 4),
+    ((1, 300), 8, 1.0, 2.0, 4),
+    # the 1000 KB image's shape, and a 2-D lane with no interior row
+    ((4000, 256), 8, 1.0, 2.0, 4), ((2, 300), 8, 1.0, 2.0, 4),
+    # the 2-D march's run-time-c, run-time-m body and its larger tiers
+    ((37, 61), 8, 1.0, 2.0, 3), ((130, 33), 4, 1.0, 2.0, 6),
+    ((37, 61), 8, 1.0, 2.0, 12), ((37, 61), 8, 2.5, 1.6, 12),
+    ((130, 33), 8, 1.0, 2.0, 32), ((37, 61), 4, 1.0, 1.6, 32),
+    ((5, 19, 23), 6, 1.0, 2.0, 4), ((5, 19, 23), 6, 0.0, 1.6, 4),
+    ((37, 19, 23), 6, 1.0, 2.0, 4), ((70, 9, 33), 6, 2.5, 1.6, 4),
+    ((1, 64, 64), 6, 1.0, 2.0, 4)])
+def test_spatial_step_kernels_match_plain(dev, shape, neighbors, alpha, m,
+                                          c):
     x = torch.from_numpy(_noisy_lanes(3, shape, seed=len(shape))).to(dev)
-    v, _ = TS.stencil_lane_init(x, 4, 5e-3)
+    v, _ = TS.stencil_lane_init(x, c, 5e-3)
     fn = KSP.spatial_partials_2d if len(shape) == 2 else KSP.spatial_partials_3d
     args = (neighbors,) if len(shape) == 2 else ()
     before = fn.launches
@@ -395,6 +403,25 @@ def test_spatial_3d_lane_bits_do_not_depend_on_its_bucket(dev, shape):
     for i in range(3):
         n1, d1 = KSP.spatial_partials_3d(x[i:i + 1].contiguous(),
                                          v[i:i + 1].contiguous(), 2.0, 1.0)
+        assert torch.equal(n1[0], num[i]) and torch.equal(d1[0], den[i])
+
+
+@pytest.mark.parametrize("shape,neighbors,c,m", [
+    ((37, 61), 8, 4, 2.0), ((217, 181), 4, 4, 2.0), ((130, 33), 8, 4, 2.0),
+    # the run-time-c, run-time-m body and the larger tiers
+    ((37, 61), 8, 3, 2.0), ((130, 33), 4, 6, 1.6), ((37, 61), 8, 12, 2.0),
+    ((130, 33), 8, 32, 2.0)])
+def test_spatial_2d_lane_bits_do_not_depend_on_its_bucket(dev, shape,
+                                                          neighbors, c, m):
+    """A 2-D lane's partials are bit-equal alone and in a bucket of three:
+    its strips, runs and fold order come from its shape alone."""
+    x = torch.from_numpy(_noisy_lanes(3, shape, seed=13)).to(dev)
+    v, _ = TS.stencil_lane_init(x, c, 5e-3)
+    num, den = KSP.spatial_partials_2d(x, v, m, 1.0, neighbors)
+    for i in range(3):
+        n1, d1 = KSP.spatial_partials_2d(x[i:i + 1].contiguous(),
+                                         v[i:i + 1].contiguous(), m, 1.0,
+                                         neighbors)
         assert torch.equal(n1[0], num[i]) and torch.equal(d1[0], den[i])
 
 
@@ -467,7 +494,18 @@ def test_spatial_route_on_the_card_matches_the_cpu_engine(dev):
 @pytest.mark.parametrize("b,k,d,c,m", [(3, 5000, 1, 12, 2.0),
                                        (2, 3001, 3, 32, 2.0),
                                        (2, 777, 24, 9, 2.5),
-                                       (1, (1 << 20) + 3, 1, 4, 2.0)])
+                                       (1, (1 << 20) + 3, 1, 4, 2.0),
+                                       # the pixel route's c = 12 bucket
+                                       (16, 39277, 1, 12, 2.0),
+                                       # the tails of a quad and a tile
+                                       (3, 1, 1, 4, 2.0), (2, 255, 1, 12, 2.5),
+                                       (2, 4097, 1, 4, 2.0),
+                                       (3, 4097, 1, 7, 2.0),
+                                       # centers at the edge of the 48 KB
+                                       # a block has without opting in
+                                       (2, 600, 768, 16, 2.0),
+                                       (2, 600, 384, 32, 2.0),
+                                       (1, 300, 3072, 4, 2.0)])
 def test_batched_fused_kernel_matches_plain(dev, b, k, d, c, m):
     rng = np.random.default_rng(k + c)
     x = torch.from_numpy(_blobs(b, k, d, c, seed=k)).to(dev)
@@ -615,3 +653,69 @@ def test_stencil_forms_match_plain_and_lane_alone(dev, shape, neighbors, c,
         1.0, neighbors, 300)
     assert torch.equal(v1[0], v[1]) and torch.equal(delta1[0], delta[1])
     assert torch.equal(it1[0], it[1])
+
+
+# -- buckets of more than 65535 lanes ---------------------------------------
+
+def _tiny_bucket(b, shape, seed):
+    """``b`` lanes of ``shape``, integers 0-255 as float32, and the last
+    lane's values set apart from the rest."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (b,) + shape).astype(np.float32)
+    x[-1] = np.arange(np.prod(shape)).reshape(shape) * 37.0 + 11.0
+    return x
+
+
+def _row_6b(x):
+    w = torch.ones(x.shape[:2], device=x.device)
+    v = torch.stack([x[:, 0, :] - 0.5, x[:, -1, :] + 0.25], dim=1)
+    return KC.fused_partials_batched(x, w, v.contiguous(), 2.0)
+
+
+def _row_7(x):
+    w = torch.ones(x.shape[:2], device=x.device)
+    lo, hi = TS.weighted_support(x, w)
+    v0 = TS.linspace_from_support(lo, hi, 2).contiguous()
+    tol = TS._tol_from_range((hi - lo).max(dim=1).values, 5e-3).contiguous()
+    return KR.resident_streamed_solve(x, w, v0, tol, 2.0, 300)
+
+
+def _row_8(x):
+    v0, tol = TS.stencil_lane_init(x, 2, 5e-3)
+    return KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8, 300)
+
+
+def _row_9(x):
+    v, _ = TS.stencil_lane_init(x, 2, 5e-3)
+    return KSP.spatial_partials_2d(x, v, 2.0, 1.0, 8)
+
+
+def _row_10(x):
+    v, _ = TS.stencil_lane_init(x, 2, 5e-3)
+    return KSP.spatial_partials_3d(x, v, 2.0, 1.0)
+
+
+#: PERF.md row -> (call, its wrapper, a lane's shape, launches for 65 537
+#: lanes: one a chunk of at most 65535 where the lanes sit on gridDim.y or z)
+_PAST_65535 = {
+    "6b": (_row_6b, KC.fused_partials_batched, (2, 1), 1),
+    "7": (_row_7, KR.resident_streamed_solve, (2, 1), 1),
+    "8": (_row_8, KST.stencil_solve, (2, 2), 2),
+    "9": (_row_9, KSP.spatial_partials_2d, (2, 2), 1),
+    "10": (_row_10, KSP.spatial_partials_3d, (2, 2, 2), 2)}
+
+
+@pytest.mark.parametrize("row", sorted(_PAST_65535))
+def test_a_bucket_past_65535_lanes_gives_the_last_lane_its_own_bits(dev,
+                                                                    row):
+    """65 537 tiny lanes through each kernel whose lanes once sat on a
+    grid axis capped at 65535: the last lane's results are bit-equal to
+    that lane alone, and the launch count is one a chunk of lanes."""
+    call, fn, shape, launches = _PAST_65535[row]
+    x = torch.from_numpy(_tiny_bucket(65537, shape, seed=len(shape))).to(dev)
+    before = fn.launches
+    got = call(x)
+    assert fn.launches == before + launches
+    alone = call(x[-1:].contiguous())
+    for g, a in zip(got, alone):
+        assert torch.equal(g[-1:], a)

@@ -19,9 +19,15 @@ assignment (``csrc/slic_assign.cu``) stages each tile's cell window
 (``csrc/fcm_streamed.cu``) gives each lane a group of blocks and the
 groups rounds of lanes from :func:`streamed_plan`; the center partials
 (``csrc/fcm_centers.cu``) take quads of pixels over
-:func:`center_blocks` blocks. Their coverage is checked here by
-mirroring the kernels' index rules. The kernels themselves run only on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+:func:`center_blocks` blocks. The batched fused partials
+(``csrc/fcm_centers.cu``) take tiles of rows over :func:`batched_plan`
+blocks a lane; the 2-D FCM_S step (``csrc/fcm_spatial.cu``) marches
+warp tasks of :func:`spatial2d_plan`. Their coverage is checked here by
+mirroring the kernels' index rules. The wrappers of the kernels whose
+lanes once sat on a grid axis capped at 65535 are driven past their
+device checks with a fake library at 65 537 lanes. The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -557,3 +563,270 @@ def test_center_partials_quads_cover_every_pixel_once(n):
     assert np.array_equal(np.sort(pix[keep]), np.arange(n))
     # a thread's quads rise with its stride, so its pixels are in order
     assert np.all(np.diff(q[owner == 0]) == g)
+
+
+# -- buckets of more than 65535 lanes ----------------------------------------
+
+#: a bucket one lane past two full chunks of 65535 would need; two lanes
+#: past one
+BIG_B = 65537
+
+
+class _FakeLaneLibrary:
+    """Stands in for the kernel library: records, for each call of the
+    five kernels whose lanes once sat on a grid axis capped at 65535, the
+    lanes it was given and the pointers of its first input and output."""
+    def __init__(self):
+        self.calls = []
+
+    def fcm_fused_partials_batched(self, x, w, b, n, d, v, c, m, expo,
+                                   blocks, rpt, part, ticket, num, den,
+                                   stream):
+        self.calls.append((b, x, num))
+        return 0
+
+    def fcm_streamed_solve(self, x, w, v0, tol, b, k, d, c, m, expo,
+                           max_iters, ranks, lanes, part, sync, v, delta,
+                           iters, stream):
+        self.calls.append((b, x, v))
+        return 0
+
+    def fcm_stencil_solve(self, x, v0, tol, b, depth, h, w, c, neighbors,
+                          alpha, one_alpha, m, expo, max_iters, ranks, form,
+                          v, delta, iters, stream):
+        self.calls.append((b, x, v))
+        return 0
+
+    def fcm_spatial_partials_2d(self, x, v, b, h, w, c, neighbors, alpha, m,
+                                expo, warp_rows, part, ticket, out, stream):
+        self.calls.append((b, x, out))
+        return 0
+
+    def fcm_spatial_partials_3d(self, x, v, b, depth, h, w, c, alpha, m,
+                                expo, z_run, part, out, stream):
+        self.calls.append((b, x, out))
+        return 0
+
+
+def _drive_6b(monkeypatch, x):
+    monkeypatch.setattr(KC, "_batched_checked", lambda *a: True)
+    w = torch.ones(x.shape[:2])
+    v = torch.zeros((x.shape[0], 2, 1))
+    return KC.fused_partials_batched(x, w, v, 2.0)[0]
+
+
+def _drive_7(monkeypatch, x):
+    monkeypatch.setattr(KR, "_on_card", lambda t: True)
+    monkeypatch.setattr(KR, "streamed_occupancy",
+                        lambda dev, c, d, m: (H100_SMS, 4))
+    b = x.shape[0]
+    return KR.resident_streamed_solve(
+        x, torch.ones(x.shape[:2]), torch.zeros((b, 2, 1)),
+        torch.zeros((b,)), 2.0, 300)[0]
+
+
+def _drive_8(monkeypatch, x):
+    monkeypatch.setattr(KST, "_checked", lambda *a: True)
+    b = x.shape[0]
+    return KST.stencil_solve(x, torch.zeros((b, 2)), torch.zeros((b,)), 2.0,
+                             1.0, 8, 300)[0]
+
+
+def _drive_9(monkeypatch, x):
+    monkeypatch.setattr(KSP, "_checked", lambda *a: True)
+    return KSP.spatial_partials_2d(x, torch.zeros((x.shape[0], 2)), 2.0,
+                                   1.0, 8)[0]
+
+
+def _drive_10(monkeypatch, x):
+    monkeypatch.setattr(KSP, "_checked", lambda *a: True)
+    return KSP.spatial_partials_3d(x, torch.zeros((x.shape[0], 2)), 2.0,
+                                   1.0)[0]
+
+
+#: PERF.md row -> (its _drive_ function, its wrapper, a lane's shape, the
+#: lanes of each library call)
+_PAST_65535 = {
+    "6b": (_drive_6b, KC.fused_partials_batched, (2, 1), [BIG_B]),
+    "7": (_drive_7, KR.resident_streamed_solve, (2, 1), [BIG_B]),
+    "8": (_drive_8, KST.stencil_solve, (2, 2), [65535, 2]),
+    "9": (_drive_9, KSP.spatial_partials_2d, (2, 2), [BIG_B]),
+    "10": (_drive_10, KSP.spatial_partials_3d, (2, 2, 2), [65535, 2])}
+
+
+@pytest.mark.parametrize("row", sorted(_PAST_65535))
+def test_a_bucket_past_65535_lanes_takes_chunks_or_one_call(monkeypatch,
+                                                            row):
+    """65 537 tiny lanes through each wrapper, driven past its device
+    check with a fake library: rows 8 and 10 (lanes on gridDim.y or z)
+    make one call a chunk, of 65535 and 2 lanes, each into its own slice
+    of the inputs and outputs; rows 6b, 7 and 9 (a 1-D grid) make one
+    call. No wrapper raises, and launches counts the calls."""
+    drive, fn, shape, lanes = _PAST_65535[row]
+    lib = _FakeLaneLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "_counters", {})
+    x = torch.zeros((BIG_B,) + shape)
+    before = fn.launches
+    out = drive(monkeypatch, x)
+    assert fn.launches == before + len(lanes)
+    fn.launches = before
+    assert [b for b, _, _ in lib.calls] == lanes
+    starts = np.cumsum([0] + lanes[:-1])
+    for (b, xp, op), i0 in zip(lib.calls, starts):
+        assert xp == x[i0:].data_ptr()
+        assert op == out[i0:].data_ptr()
+
+
+# -- the batched fused partials' plan ----------------------------------------
+
+def _batched_rows(n, plan):
+    """Every row of a lane once per (chunk) in the kernel's order: block
+    blk takes tiles blk, blk + blocks, ...; at D = 1 thread t of a tile
+    takes quads a * 256 + t (a < rows a thread / 4), rows 4q .. 4q + 3,
+    else rows q * 256 + t (q < rows a thread). Returns (block, row)."""
+    t_n = KC.THREADS
+    rpt = plan.rows_per_thread
+    blk = np.arange(plan.blocks)
+    tiles = np.arange(-(-n // plan.tile))
+    owner = tiles % plan.blocks
+    t = np.arange(t_n)
+    if plan.dch == 1:
+        a, e = np.arange(rpt // 4), np.arange(4)
+        off = 4 * (a[:, None, None] * t_n + t[None, :, None]) + e
+    else:
+        off = np.arange(rpt)[:, None] * t_n + t[None, :]
+    rows = tiles[:, None] * plan.tile + off.reshape(1, -1)
+    blocks = np.broadcast_to(owner[:, None], rows.shape)
+    keep = rows < n
+    assert set(owner.tolist()) <= set(blk.tolist())
+    return blocks[keep], rows[keep]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 255, 1023, 1024, 1025, 4097, 39277,
+                               1100000])
+@pytest.mark.parametrize("d,c", [(1, 4), (1, 12), (1, 32), (3, 12),
+                                 (24, 32), (2, 3)])
+def test_batched_plan_covers_every_row_and_feature_once(n, d, c):
+    plan = KC.batched_plan(1, n, d, c)
+    blocks, rows = _batched_rows(n, plan)
+    assert np.array_equal(np.sort(rows), np.arange(n))
+    assert 1 <= plan.blocks <= KC.BATCHED_MAX_BLOCKS
+    assert plan.blocks == min(-(-n // plan.tile), KC.BATCHED_MAX_BLOCKS)
+    # every block has rows, unless the lane has fewer tiles than the cap
+    assert len(np.unique(blocks)) == plan.blocks
+    feats = [ch * plan.dch + k for ch in range(plan.chunks)
+             for k in range(plan.dch) if ch * plan.dch + k < d]
+    assert feats == list(range(d))
+    assert plan.part_floats == plan.grid * (c * plan.dch + c)
+
+
+@pytest.mark.parametrize("n,d,c", [(39277, 1, 12), (1100000, 1, 4),
+                                   (262144, 3, 12), (3001, 24, 32), (2, 1, 4),
+                                   (5000, 1, 9)])
+def test_batched_blocks_depend_on_the_lane_alone(n, d, c):
+    """The same tiles, blocks and chunks, so the same reduction order, for
+    a lane alone and in a bucket of 64."""
+    one, many = KC.batched_plan(1, n, d, c), KC.batched_plan(64, n, d, c)
+    assert one._replace(grid=0, part_floats=0) == \
+        many._replace(grid=0, part_floats=0)
+    assert many.grid == 64 * one.grid
+
+
+def test_the_c12_bucket_fills_the_card_and_a_lone_lane_spreads():
+    """16 twelve-class BrainWeb slices: a block for each 1024 rows, 624
+    blocks, more than one for each of an H100's 132 SMs; the lone lane
+    of 1 100 000 rows takes 269 blocks of 4096 rows."""
+    bucket = KC.batched_plan(16, 39277, 1, 12)
+    assert (bucket.tier, bucket.rows_per_thread, bucket.blocks) == (12, 4, 39)
+    assert bucket.grid == 624 >= H100_SMS
+    lone = KC.batched_plan(1, 1100000, 1, 4)
+    assert lone.blocks == 269 > H100_SMS
+
+
+@pytest.mark.parametrize("c,d,tier", [(1, 1, 4), (4, 1, 4), (5, 1, 8),
+                                      (9, 1, 12), (12, 1, 12), (13, 1, 16),
+                                      (17, 1, 32), (32, 1, 32), (12, 3, 16),
+                                      (9, 2, 16), (32, 24, 32)])
+def test_batched_tier(c, d, tier):
+    assert KC.batched_tier(c, d) == tier
+    with pytest.raises(ValueError):
+        KC.batched_tier(33, 1)
+
+
+# -- the 2-D FCM_S step's march ----------------------------------------------
+
+def _march2d_pixels(h, w, plan):
+    """The pixels of each block in the kernel's order: warp k of block blk
+    takes task blk * warps + k, strip task % strips, rows (task // strips)
+    * run .. + run, columns strip * 32 .. + 32, clipped to the grid."""
+    seen = np.zeros((h, w), np.int32)
+    for blk in range(plan.blocks):
+        for k in range(plan.warps):
+            task = blk * plan.warps + k
+            wrun, strip = divmod(task, plan.strips)
+            y0, x0 = wrun * plan.run, strip * plan.tile[0]
+            if task >= plan.tasks:
+                assert y0 >= h                  # an idle warp
+                continue
+            seen[y0:y0 + plan.run, x0:x0 + plan.tile[0]] += 1
+    return seen
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 300), (300, 1), (2, 300),
+                                 (2, 2), (37, 61), (217, 181), (512, 512),
+                                 (4000, 256), (129, 33)])
+def test_spatial2d_plan_covers_every_pixel_once(h, w):
+    plan = KSP.spatial2d_plan(h, w)
+    assert (_march2d_pixels(h, w, plan) == 1).all()
+    assert plan.tasks == plan.strips * plan.runs
+    assert plan.blocks == plan.rows == -(-plan.tasks // plan.warps) >= 1
+    assert 1 <= plan.run <= KSP.MAX_WARP_ROWS
+
+
+def test_spatial2d_plan_spreads_the_main_path_images():
+    """The 1000 KB image marches 8 rows a warp in 250 blocks; a 217x181
+    slice 1 row a warp in 82 blocks; the plan reads the shape alone."""
+    big = KSP.spatial2d_plan(4000, 256)
+    assert (big.run, big.strips, big.runs, big.blocks) == (8, 8, 500, 250)
+    small = KSP.spatial2d_plan(217, 181)
+    assert (small.run, small.blocks) == (1, 82)
+    assert KSP.spatial2d_plan(217, 181) == small
+    with pytest.raises(ValueError):
+        KSP.spatial2d_plan(0, 5)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_spatial2d_scratch_holds_the_plan_rows(monkeypatch, b):
+    """The 2-D wrapper passes the plan's rows a warp, sizes the partials
+    to the plan's blocks a lane and takes one ticket a lane, the same for
+    a lane alone and in a bucket."""
+    calls, scratch = [], []
+    real_buffers = KSP._buffers
+
+    class Lib:
+        def fcm_spatial_partials_2d(self, x, v, bb, h, w, c, nb, alpha, m,
+                                    expo, warp_rows, part, ticket, out,
+                                    stream):
+            calls.append((bb, h, w, warp_rows))
+            return 0
+
+    def spy(x, c, n_rows):
+        part, out = real_buffers(x, c, n_rows)
+        scratch.append(tuple(part.shape))
+        return part, out
+    monkeypatch.setattr(KSP, "_checked", lambda *a: True)
+    monkeypatch.setattr(KSP, "_buffers", spy)
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "_counters", {})
+    before = KSP.spatial_partials_2d.launches
+    KSP.spatial_partials_2d(torch.zeros((b, 217, 181)), torch.zeros((b, 4)),
+                            2.0, 1.0, 8)
+    assert KSP.spatial_partials_2d.launches == before + 1
+    KSP.spatial_partials_2d.launches = before
+    plan = KSP.spatial2d_plan(217, 181)
+    assert calls == [(b, 217, 181, plan.run)]
+    assert scratch == [(b, plan.rows, 8)]
+    assert _build._counters[(torch.device("cpu"), 0)].numel() >= b
