@@ -137,6 +137,8 @@ SPATIAL_TIE_RTOL = 1e-4
 SPATIAL_DSC = 0.75
 #: the whole-solve's dispatch sweep: 2-D images of 2^16, 2^18, 2^20 pixels
 SWEEP_SHAPES = ((256, 256), (512, 512), (1024, 1024))
+#: turns of each path a swept size, taken alternately
+SWEEP_TURNS = 15
 
 
 def fail(msg):
@@ -192,7 +194,7 @@ def phantom_volume(n_slices, h, w, phantom):
     return imgs, gts
 
 
-def check_binning(KB, vol_u8, big_u8, dev):
+def check_binning(KB, vol_u8, big_u8, dev, card):
     rng = np.random.default_rng(7)
     cases = {
         "64x217*181 uint8": vol_u8,
@@ -205,17 +207,33 @@ def check_binning(KB, vol_u8, big_u8, dev):
         "2x1 uint8": np.array([[0], [255]], np.uint8),
     }
     for name, arr in cases.items():
-        px = torch.from_numpy(arr).to(dev)
-        got = KB.histogram_bin(px, 256)
-        torch.cuda.synchronize()
-        want = KB.histogram_bin_plain(px, 256)
         ref = np.stack([np.bincount(np.clip(r.astype(np.int64), 0, 255),
                                     minlength=256) for r in arr])
-        require(torch.equal(got, want),
-                f"binning kernel != plain version on {name}")
-        require(np.array_equal(got.cpu().numpy(), ref.astype(np.float32)),
-                f"binning kernel != np.bincount on {name}")
-        print(f"  bin   {name}: exact")
+        px = torch.from_numpy(arr).to(dev)
+        # the same lanes 3 pixels past a 16-byte boundary (uint8: every
+        # lane's start moves; int32: 12 bytes)
+        buf = torch.empty(arr.size + 3, dtype=px.dtype, device=dev)
+        buf[3:] = px.reshape(-1)
+        off = buf[3:].view(px.shape)
+        require(off.data_ptr() % 16 != 0, "the offset view is aligned")
+        for where, t in (("", px), (", 3 pixels off alignment", off)):
+            got = KB.histogram_bin(t, 256)
+            torch.cuda.synchronize()
+            want = KB.histogram_bin_plain(t, 256)
+            require(torch.equal(got, want),
+                    f"binning kernel != plain version on {name}{where}")
+            require(np.array_equal(got.cpu().numpy(),
+                                   ref.astype(np.float32)),
+                    f"binning kernel != np.bincount on {name}{where}")
+        print(f"  bin   {name}: exact, also 3 pixels off alignment")
+    for name in ("64x217*181 uint8", "1x1024000 uint8", "64x217*181 int32"):
+        px = torch.from_numpy(cases[name]).to(dev)
+        dms, per = device_ms(lambda: KB.histogram_bin(px, 256))
+        _one_kernel(per, f"histogram_bin {name}")
+        blocks = KB.bin_blocks(px.shape[1], px.element_size())
+        print(f"  bin   {name}: {blocks} blocks a lane; device "
+              f"{_fmt_ms(dms)} a call "
+              f"({_kernel_names(per)}) [{card}]")
     px = torch.from_numpy(vol_u8).to(dev)
     b, n = px.shape
     flat = (px.to(torch.int64)
@@ -526,19 +544,27 @@ def check_center_partials(KC, KM, cases, dev):
                 bound_by=by, library_ms=None)
 
 
-def check_fused_partials(KC, cases):
+def check_fused_partials(KC, cases, card):
     worst = 0.0
     for name, x, w, v, m in cases:
+        before = KC.fused_partials.launches
         got = KC.fused_partials(x, w, v, m)
         torch.cuda.synchronize()
         again = KC.fused_partials(x, w, v, m)
+        require(KC.fused_partials.launches == before + 2,
+                f"fused_partials did not count one launch a call on {name}")
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"fused_partials does not repeat bit for bit on {name}")
         err, rel = _close_sums(got, KC.fused_partials_plain(x, w, v, m),
                                f"fused_partials {name}")
         worst = max(worst, err)
+        plan = KC.scalar_plan(x.shape[0], v.shape[0], w is not None, m)
+        dms, per = device_ms(lambda: KC.fused_partials(x, w, v, m))
+        _one_kernel(per, f"fused_partials {name}")
         print(f"  fused_partials {name}: max abs err {err:.3g} (relative "
-              f"{rel:.3g}), repeats bit for bit")
+              f"{rel:.3g}), repeats bit for bit; {plan.rows_per_thread} rows "
+              f"a thread, {plan.blocks} blocks; device {_fmt_ms(dms)} "
+              f"({_kernel_names(per)}) [{card}]")
     name, x, w, v, m = cases[0]
     n, c = x.shape[0], v.shape[0]
     ms = time_ms(lambda: KC.fused_partials(x, None, v, m))
@@ -650,6 +676,26 @@ def host_ms(fn, reps):
     return float(np.median(out))
 
 
+def paired_host_ms(fns, reps):
+    """Host-clock ms of each of ``fns`` (each ending in a synchronize),
+    taken in turns for ``reps`` rounds after one warm-up call each, so
+    that every function sees the same host: ``(least, median)`` a
+    function. A host-bound loop on a shared host's cores reads 1x-3x its
+    own cost in bursts; the least of the turns is the one the bursts
+    missed."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    out = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ms in zip(fns, out):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return [(min(ms), float(np.median(ms))) for ms in out]
+
+
 def table3_ladder(SV, phantom, dev, card):
     """Paper Table 3: ms per solve of TABLE3_ITERS iterations from a host
     uint8 image (problem construction, the copy to the card and the
@@ -684,7 +730,8 @@ def table3_ladder(SV, phantom, dev, card):
 
 def profile_call(fn, card, label):
     """One call of ``fn`` under torch.profiler: device time by kernel and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time. Returns the device
+    events as (us, count, name) rows."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -705,13 +752,14 @@ def profile_call(fn, card, label):
     if not rows:
         print(f"  profile {label}: the profiler saw no device time; busy "
               f"share not measured")
-        return
+        return rows
     busy = sum(r[0] for r in rows) * 1e-6
     print(f"  profile {label}: wall {wall * 1e3:.2f} ms, device busy "
           f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f} %) [{card}]")
     for dev_us, count, key in rows[:8]:
         print(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} "
               f"({dev_us / count:8.2f} us each) {key[:60]}")
+    return rows
 
 
 #: profiler windows device_ms tries before it gives up on a time
@@ -781,7 +829,7 @@ def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
     print("[paper] center partials")
     k_cen = check_center_partials(KC, KM, cases, dev)
     print("[paper] fused partials")
-    k_fus = check_fused_partials(KC, cases)
+    k_fus = check_fused_partials(KC, cases, card)
     for name, k in (("fcm_membership", k_mem),
                     ("fcm_center_partials", k_cen),
                     ("fcm_fused_partials", k_fus)):
@@ -808,7 +856,16 @@ def paper_path(SV, F, phantom, KM, KC, counters, dev, card):
         print(f"  {backend} solve of the {BIG_BYTES // 1024} KB image at "
               f"eps=5e-3: {r.n_iters} iterations, {ms:.3f} ms "
               f"({ms / r.n_iters:.3f} ms an iteration) [{card}]")
-        profile_call(one, card, f"{backend} {BIG_BYTES // 1024} KB")
+        rows = profile_call(one, card, f"{backend} {BIG_BYTES // 1024} KB")
+        if backend == "fused":
+            # one launch an iteration: the partials' fold is in the kernel
+            # (an empty profile, one that recorded no device event, shows
+            # nothing either way)
+            fused = [cnt for _, cnt, key in rows if "d1_kernel" in key]
+            require(not rows or (not any("fold" in key for _, _, key in rows)
+                                 and fused == [r.n_iters]),
+                    f"the fused solve's profile shows {fused} partials "
+                    f"launches for {r.n_iters} iterations, or a fold launch")
     # the fixed costs inside those solves, timed alone
     n = big.size
     build = host_ms(lambda: SV.pixel_problem(big, device=dev), reps=5)
@@ -1812,35 +1869,40 @@ def spatial_route(FCMServeEngine, job, counters, noisy_imgs, noisy_gts,
 def stencil_sweep(SV, KSP, KST, phantom, dev, card):
     """The whole-solve against the step kernels at B=1 on noisy 2-D images
     of 2^16, 2^18 and 2^20 pixels: host-clock ms of the batched solve
-    (init, the loop, the last read of the centers) through each, and
-    each kernel's own time. Fails unless the whole-solve wins at every
+    (init, the loop, the last read of the centers) through each, taken in
+    turns (:func:`paired_host_ms`), and each kernel's own time. Fails
+    unless the whole-solve's least time beats the step path's at every
     swept size up to fcm_stencil.STENCIL_MAX_PIXELS and loses past it, so
-    the sweep that set the dispatch bound also guards it."""
-    print(f"  whole-solve vs step kernels at B=1, 8 nb, alpha 1 [{card}]")
-    print("     pixels   iters  whole-solve ms  step path ms  (kernel "
+    the sweep that set the dispatch bound also guards it. The step path
+    is host-bound (a launch and a read of the lanes' flags an iteration),
+    so its median follows the host's load from run to run; the least of
+    SWEEP_TURNS turns is its own cost."""
+    print(f"  whole-solve vs step kernels at B=1, 8 nb, alpha 1, least "
+          f"(median) of {SWEEP_TURNS} turns each [{card}]")
+    print("     pixels   iters  whole-solve ms     step path ms      (kernel "
           "alone: whole-solve ms, step ms x iters); iters are the "
           "whole-solve's / the step path's")
     wins = []
     for h, w in SWEEP_SHAPES:
         img = phantom.noisy_phantom_slice(h, w, seed=h)[0]
         x = torch.from_numpy(img.astype(np.float32)[None]).to(dev)
-        out = {}
-        for impl in ("resident", "fused"):
-            v, _, iters, _ = SV.stencil_batched_solve(
+        iters = {impl: int(SV.stencil_batched_solve(
+            x, 4, 2.0, 1.0, 8, 5e-3, 300, impl=impl)[2][0])
+            for impl in ("resident", "fused")}
+        (res, res_med), (step, step_med) = paired_host_ms(
+            [lambda impl=impl: SV.stencil_batched_solve(
                 x, 4, 2.0, 1.0, 8, 5e-3, 300, impl=impl)
-            out[impl] = (int(iters[0]), host_ms(
-                lambda: SV.stencil_batched_solve(x, 4, 2.0, 1.0, 8, 5e-3,
-                                                 300, impl=impl), reps=5))
-        it = out["resident"][0]
+             for impl in ("resident", "fused")], reps=SWEEP_TURNS)
+        it = iters["resident"]
         v0, tol = SV.stencil_lane_init(x, 4, 5e-3)
         k_res = time_ms(lambda: KST.stencil_solve(x, v0, tol, 2.0, 1.0, 8,
                                                   300), reps=3, rounds=3)
         k_step = time_ms(lambda: KSP.spatial_partials_2d(x, v0, 2.0, 1.0,
                                                          8))
-        print(f"  {h * w:9d} {it:3d}/{out['fused'][0]:<3d} "
-              f"{out['resident'][1]:15.3f} {out['fused'][1]:13.3f}  "
+        print(f"  {h * w:9d} {it:3d}/{iters['fused']:<3d} "
+              f"{res:7.3f} ({res_med:7.3f}) {step:7.3f} ({step_med:7.3f})  "
               f"({k_res:.3f}, {k_step:.4f} x {it})")
-        if out["resident"][1] < out["fused"][1]:
+        if res < step:
             wins.append(h * w)
     print(f"  the whole-solve wins at {wins} pixels of the swept sizes; "
           f"fcm_stencil.STENCIL_MAX_PIXELS = {KST.STENCIL_MAX_PIXELS}")
@@ -2210,19 +2272,29 @@ def main(dev=None):
         require(lib.fcm_spatial2d_blocks(*grid, plan.run) == plan.blocks,
                 f"the 2-D march's blocks at {grid} disagree with "
                 f"fcm_spatial.spatial2d_plan's {plan}")
+    require(lib.histogram_bin_block_bytes() == KB.BLOCK_BYTES
+            and lib.histogram_bin_max_cluster() == KB.MAX_CLUSTER
+            and all(lib.histogram_bin_blocks(n, size) == KB.bin_blocks(n, size)
+                    for n in (1, 15, 16, 17, 20465, 20466, 39277, 163825,
+                              1024000)
+                    for size in (1, 4)),
+            "the binning kernel's blocks a lane or cluster bound disagree "
+            "with histogram_bin.bin_blocks / MAX_CLUSTER")
     require((lib.fcm_batched_threads(), lib.fcm_batched_max_blocks())
             == (KC.THREADS, KC.BATCHED_MAX_BLOCKS),
             "the batched fused kernel's threads or most blocks disagree "
             "with fcm_centers' THREADS/BATCHED_MAX_BLOCKS")
     for c in (1, 4, 5, 8, 9, 12, 13, 16, 17, 32):
         for d in (1, 2, 3, 16, 24, 500):
-            plan = KC.batched_plan(1, 39277, d, c)
-            require((lib.fcm_batched_tier(c, d), lib.fcm_batched_dchunk(c, d),
-                     lib.fcm_batched_rows_per_thread(c, d))
-                    == (plan.tier, plan.dch, plan.rows_per_thread),
-                    f"the batched fused kernel's tier, feature chunk or "
-                    f"rows a thread at c={c}, D={d} disagree with "
-                    f"fcm_centers.batched_plan's {plan}")
+            for weighted in ((True, False) if d == 1 else (True,)):
+                plan = KC.batched_plan(1, 39277, d, c, weighted)
+                require((lib.fcm_batched_tier(c, d),
+                         lib.fcm_batched_dchunk(c, d),
+                         lib.fcm_batched_rows_per_thread(c, d, weighted))
+                        == (plan.tier, plan.dch, plan.rows_per_thread),
+                        f"the fused kernels' tier, feature chunk or rows a "
+                        f"thread at c={c}, D={d}, weighted={weighted} "
+                        f"disagree with fcm_centers.batched_plan's {plan}")
     for grid in ((181, 217, 181), (1, 1, 1), (37, 19, 23), (70, 9, 33),
                  (1, 64, 64)):
         plan = KSP.spatial3d_plan(*grid)
@@ -2244,7 +2316,7 @@ def main(dev=None):
     vol_u8 = np.stack([imgs[i].reshape(-1) for i in pick])
     big_u8 = phantom.phantom_of_bytes(BIG_BYTES)[0][None]
     print("[kernels] binning")
-    k_bin = check_binning(KB, vol_u8, big_u8, dev)
+    k_bin = check_binning(KB, vol_u8, big_u8, dev, card)
     hists = KB.histogram_bin(torch.from_numpy(vol_u8).to(dev), 256)
     print("[kernels] whole-solve")
     k_solve, _ = check_solve(KR, SV, hists.cpu().numpy(), dev)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Times eight kernels of one source tree on the card (rows 5, 6b, 7, 8,
-9, 10, 11 and 12 of PERF.md's kernel table: the center partials, the
-batched fused partials, the HBM-streamed whole-solve, the stencil
-whole-solve, the 2-D and 3-D FCM_S steps, the SLIC assignment and the
-selective scan), at the shapes their main paths give them, so that two
-commits can be compared on one card, in one run.
+"""Times eleven kernels of one source tree on the card (rows 1, 4, 5, 6,
+6b, 7, 8, 9, 10, 11 and 12 of PERF.md's kernel table: the ingest
+binning, the membership, the center partials, the scalar and batched
+fused partials, the HBM-streamed whole-solve, the stencil whole-solve,
+the 2-D and 3-D FCM_S steps, the SLIC assignment and the selective
+scan), at the shapes their main paths give them, so that two commits can
+be compared on one card, in one run.
 
-    python3 kernel_ab.py [--tree DIR] [--label NAME] [--rows 5,7,...]
+    python3 kernel_ab.py [--tree DIR] [--label NAME] [--rows 1,6,...]
 
 ``--tree`` is the root of a checkout (default: the one holding this
 script); its ``src`` goes first on ``sys.path``, so its ``repro_torch``
@@ -17,21 +18,23 @@ example a ``git archive`` of the parent commit, unpacked under
 parent, change, change, parent. Needs one CUDA card; prints the card's
 name and power limit, then one JSON line:
 
-    {"label": ..., "card": ..., "center_partials": {...},
-     "fused_partials_batched": {...}, "streamed_solve": {...},
-     "selective_scan": {...}, "stencil_solve": {...},
-     "spatial_step_2d": {...}, "spatial_step_3d": {...},
-     "slic_assign": {...}}
+    {"label": ..., "card": ..., "histogram_bin": {...},
+     "membership": {...}, "fused_partials": {...},
+     "center_partials": {...}, "fused_partials_batched": {...},
+     "streamed_solve": {...}, "selective_scan": {...},
+     "stencil_solve": {...}, "spatial_step_2d": {...},
+     "spatial_step_3d": {...}, "slic_assign": {...}}
 
 (``--rows`` keeps only the rows it names.)
 
 with, per kernel, the CUDA-event median of back-to-back wrapper calls
 (``ms``) and the profiler's device time a call (``device_ms``, every
-launch of the call summed; a profiler window that recorded no device
-event is tried again with twice the calls, and ``None`` means three
-windows lost them all). A tree whose batched fused partials or 2-D step
-take a plan (``batched_plan``, ``spatial2d_plan``) also prints it for
-each case. A tree whose stencil whole-solve takes a
+launch of the call summed, and the kernels of a call by name; a
+profiler window that recorded no device event is tried again with twice
+the calls, and ``None`` means three windows lost them all). A tree
+whose batched or scalar fused partials or 2-D step take a plan
+(``batched_plan``, ``scalar_plan``, ``spatial2d_plan``) also prints it
+for each case. A tree whose stencil whole-solve takes a
 plan (``stencil_plan``) also times it at the fewest blocks that hold a
 217x181 lane and at the plan's, on the bucket and on one lane alone
 (``by_blocks``); a tree whose 3-D step takes a plan (``spatial3d_plan``)
@@ -43,8 +46,14 @@ a tree with the earlier cluster form (one cluster of at most 8 blocks a
 lane) a probe built from that tree's source reads the same, and the
 8-block clusters the card seats at once (``cudaOccupancyMaxActiveClusters``).
 
-The shapes: the batched fused partials on ``chip_smoke.py``'s four
-``fused_batched_cases`` (imported from it: the pixel route's c = 12
+The shapes: the binning on the histogram route's bucket (64 phantom
+217x181 uint8 slices), the 1000 KB image as one lane and the bucket as
+int32, with ``torch.bincount`` beside it; the membership and the scalar
+fused partials at the paper's 1000 KB image (c = 4, m = 2, phase 5's
+centers; the fused partials also on phase 5's other cases: m = 2.5,
+c = 8, N = 1, N = 8193 and 256 weighted histogram rows); the batched
+fused partials on ``chip_smoke.py``'s four ``fused_batched_cases``
+(imported from it: the pixel route's c = 12
 bucket of 16 x 39 277 rows, one lane of 1 100 000 rows at c = 4,
 4 x 262 144 RGB rows at c = 12, 2 x 3001 rows of D = 24 at c = 32); the
 2-D step on the 1000 KB image with 8 and 4 neighbors and on a noisy
@@ -438,7 +447,136 @@ def row9(torch, phantom, dev):
     return out
 
 
-ROWS = ("5", "6b", "7", "8", "9", "10", "11", "12")
+def row1(torch, phantom, dev):
+    """The binning on the main path's bucket (64 phantom 217x181 uint8
+    slices, the ones phase 4 picks), on the 1000 KB image as one lane,
+    and on the bucket as int32; each with the device operations of a call
+    by name, and torch.bincount over the bucket's lanes offset by 256 a
+    lane (the library call)."""
+    from repro_torch.kernels import histogram_bin as KB
+    slices = [phantom.phantom_slice(217, 181, slice_pos=float(p), seed=z)[0]
+              for z, p in enumerate(np.linspace(0.3, 0.7, 181))]
+    pick = np.linspace(0, 180, 64).round().astype(int)
+    vol = np.stack([slices[i].reshape(-1) for i in pick])
+    cases = {"bucket_64x39277_u8": vol,
+             "lone_1x1024000_u8": phantom.phantom_of_bytes(1000 * 1024)[0]
+             .reshape(1, -1),
+             "bucket_64x39277_i32": vol.astype(np.int32)}
+    out = {}
+    for name, arr in cases.items():
+        px = torch.from_numpy(arr).to(dev)
+        call = lambda: KB.histogram_bin(px, 256)  # noqa: E731
+        before = KB.histogram_bin.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert KB.histogram_bin.launches == before + 1
+        assert torch.equal(got, KB.histogram_bin_plain(px, 256))
+        dms, names = device_ms(torch, call, 10)
+        out[name] = dict(shape=list(arr.shape), dtype=str(arr.dtype),
+                         ms=event_ms(torch, call, 20, 5), device_ms=dms,
+                         kernels=names)
+    px = torch.from_numpy(vol).to(dev)
+    flat = (px.to(torch.int64) + torch.arange(64, device=dev)[:, None]
+            * 256).reshape(-1)
+    out["bincount_ms"] = event_ms(
+        torch, lambda: torch.bincount(flat, minlength=64 * 256), 20, 5)
+    return out
+
+
+def row4(torch, dev):
+    """The membership at the 1000 KB image, c = 4, m = 2, phase 5's
+    centers."""
+    from repro_torch.data import phantom
+    from repro_torch.kernels import fcm_membership as KM
+    x = torch.from_numpy(phantom.phantom_of_bytes(1000 * 1024)[0].reshape(
+        -1).astype(np.float32)).to(dev)
+    v = torch.tensor([0.6, 51.3, 105.4, 167.6], device=dev)
+    call = lambda: KM.membership(x, v, 2.0)  # noqa: E731
+    before = KM.membership.launches
+    call()
+    torch.cuda.synchronize()
+    assert KM.membership.launches == before + 1
+    dms, names = device_ms(torch, call, 20)
+    return dict(n=x.shape[0], c=4, ms=event_ms(torch, call, 20, 5),
+                device_ms=dms, kernels=names)
+
+
+def plan_ms(torch, KC, x, w, v, m, rows_per_thread):
+    """The profiler's device time of one scalar fused partials launch at
+    ``rows_per_thread`` (the cluster tier's, or 1 for one row a thread
+    in blocks of 256 rows), called through the library, so both of the
+    plans ``scalar_plan`` chooses between run on the same inputs."""
+    from repro_torch.kernels import _build
+    n, c = x.shape[0], v.shape[0]
+    blocks = min(-(-n // (KC.THREADS * rows_per_thread)),
+                 KC.BATCHED_MAX_BLOCKS)
+    part = torch.empty((blocks * 2 * c,), dtype=torch.float32,
+                       device=x.device)
+    num = torch.empty((c,), dtype=torch.float32, device=x.device)
+    den = torch.empty((c,), dtype=torch.float32, device=x.device)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    lib = _build.library()
+
+    def call():
+        _build.check(lib.fcm_fused_partials(
+            x.data_ptr(), None if w is None else w.data_ptr(), n,
+            v.data_ptr(), c, float(np.float32(m)), KC.exponent(m), blocks,
+            rows_per_thread, part.data_ptr(), ticket.data_ptr(),
+            num.data_ptr(), den.data_ptr(), _build.stream_of(x)), "plan_ms")
+    call()
+    want = KC.fused_partials_plain(x, w, v, m)
+    for got, ref in zip((num, den), want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-3)
+    return dict(blocks=blocks, device_ms=device_ms(torch, call, 10)[0])
+
+
+def row6(torch, phantom, dev):
+    """The scalar fused partials on phase 5's cases (``chip_smoke.
+    paper_kernel_cases``): the 1000 KB image at c = 4, m = 2, unit
+    weights (the fused solve's call), at m = 2.5 and at c = 8, N = 1,
+    N = 8193 (m = 2.5) and the 256 weighted histogram rows; and a
+    217x181 phantom slice (39 277 rows, c = 4) at m = 2 and 2.5. A tree
+    whose wrapper takes ``scalar_plan`` also times each case at the
+    tier's rows a thread and at one row a thread (``by_plan``)."""
+    from repro_torch.kernels import fcm_centers as KC
+    import chip_smoke
+    keep = {"1000 KB, c=4, m=2": "1000KB_c4", "1000 KB, m=2.5": "1000KB_m2.5",
+            "1000 KB, c=8": "1000KB_c8", "N=1": "n1", "N=8193": "n8193_m2.5",
+            "256 histogram rows, counts": "hist256_weighted"}
+    big = phantom.phantom_of_bytes(1000 * 1024)[0]
+    sl = torch.from_numpy(phantom.phantom_slice(217, 181, slice_pos=0.5)[0]
+                          .reshape(-1).astype(np.float32)).to(dev)
+    v4 = torch.tensor([0.6, 51.3, 105.4, 167.6], device=dev)
+    cases = [c for c in chip_smoke.paper_kernel_cases(big, dev)
+             if c[0] in keep]
+    keep.update({"slice m=2": "slice39277_c4", "slice m=2.5":
+                 "slice39277_m2.5"})
+    cases += [("slice m=2", sl, None, v4, 2.0),
+              ("slice m=2.5", sl, None, v4, 2.5)]
+    out = {}
+    for name, x, w, v, m in cases:
+        call = lambda: KC.fused_partials(x, w, v, m)  # noqa: E731
+        before = KC.fused_partials.launches
+        call()
+        torch.cuda.synchronize()
+        assert KC.fused_partials.launches == before + 1
+        dms, names = device_ms(torch, call, 10)
+        e = dict(n=x.shape[0], c=v.shape[0], m=m, weighted=w is not None,
+                 ms=event_ms(torch, call, 10, 5), device_ms=dms,
+                 kernels=names)
+        if hasattr(KC, "scalar_plan"):
+            e["plan"] = KC.scalar_plan(x.shape[0], v.shape[0], w is not None,
+                                       m)._asdict()
+            tier = KC.batched_plan(1, x.shape[0], 1, v.shape[0],
+                                   w is not None).rows_per_thread
+            e["by_plan"] = {f"rows_{r}": plan_ms(torch, KC, x, w, v, m, r)
+                            for r in (tier, 1)}
+        out[keep[name]] = e
+    return out
+
+
+ROWS = ("1", "4", "5", "6", "6b", "7", "8", "9", "10", "11", "12")
 
 
 def main():
@@ -472,6 +610,12 @@ def main():
     dev = torch.device("cuda")
     out = {"label": args.label or tree, "card": card}
 
+    if "1" in rows:
+        out["histogram_bin"] = row1(torch, phantom, dev)
+    if "4" in rows:
+        out["membership"] = row4(torch, dev)
+    if "6" in rows:
+        out["fused_partials"] = row6(torch, phantom, dev)
     if "5" in rows:
         out["center_partials"] = row5(torch, dev)
     if "6b" in rows:

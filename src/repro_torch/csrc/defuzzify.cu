@@ -9,8 +9,10 @@
 // 1 B as uint8) and its label written once (4 B); the c subtractions and
 // squares per pixel are far below the card's float32 rate.
 //
-// Design: one thread per pixel, one grid row per lane, the lane's centers
-// staged once per block in shared memory. The distance is (v - x) * (v - x)
+// Design: one thread per pixel, one grid row per lane (gridDim.y, so the
+// wrapper launches once a chunk of at most 65535 lanes; a lane's labels are
+// its own, so the chunks change no bit), the lane's centers staged once per
+// block in shared memory. The distance is (v - x) * (v - x)
 // exactly as the reference computes (v - x) ** 2, and the argmin keeps the
 // first minimum (strict <), as jnp.argmin / torch.argmin do. Reading the
 // uint8 payload directly gives the same labels as the engine's 256-entry

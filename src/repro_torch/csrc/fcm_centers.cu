@@ -7,7 +7,7 @@
 //   fcm_fused_partials   from the centers v, the Eq. 4 membership computed in
 //     registers and reduced at once, so the (c, N) array never exists
 //     (replaces src/repro/kernels/fcm_centers.py::fused_partials_pallas, one
-//     launch pair per FCM iteration).
+//     launch per FCM iteration): the batched form's D = 1 body at B = 1.
 //   fcm_fused_partials_batched  the same fused sums over a bucket of lanes of
 //     vector rows, x (B, N, D) and w (B, N) -> num (B, c, D), den (B, c): the
 //     batched flat step the solver runs once an iteration under its
@@ -20,11 +20,10 @@
 // each tile into one (c, 128) accumulator that the grid carries from step to
 // step; padding rows weigh 0. Hopper's blocks run in parallel and in no order,
 // so nothing carries between them: each block reduces its share of the
-// pixels to per-block partial sums, which are then folded in a fixed order:
-// by a second launch for fcm_fused_partials, and inside the one launch for
-// fcm_center_partials and fcm_fused_partials_batched, whose last block to
-// finish (an integer ticket taken after a fence; one a lane in the batched
-// form) folds every block's partials. The tail is masked, not padded.
+// pixels to per-block partial sums, which are then folded in a fixed order
+// inside the one launch: the last block to finish (an integer ticket taken
+// with an acquire-release add; one a lane in the fused forms) folds every
+// block's partials. The tail is masked, not padded.
 //
 // fcm_center_partials reads its pixels in quads: thread t of the grid takes
 // quads t, t + G, ... (G the grid's threads), pixels 4q .. 4q + 3 of a quad
@@ -39,12 +38,10 @@
 //
 // What bounds them on an H100: memory. fcm_center_partials reads 4 B of x and
 // 4c B of u a pixel (20.5 MB at the paper's 1000 KB image, c = 4: about 6 us
-// at 3.35 TB/s); fcm_fused_partials reads only x (4 MB, about 1.2 us) and
-// spends about 10 float operations a pixel and cluster, still below the
-// card's float32 rate. Weights w (histogram counts) add 4 B a pixel; a null w
-// means unit weights and is not read.
-// fcm_fused_partials_batched reads 4 (D + 1) B a row (x and w) and spends
-// about c (3 D + 12) float operations on it, 2c of them IEEE divisions and
+// at 3.35 TB/s). The fused forms read x and w, 4 (D + 1) B a row (4 MB at the
+// 1000 KB image, about 1.2 us: a null w means unit weights, not read and not
+// multiplied), and spend about c (3 D + 12) float operations on it, 2c of
+// them IEEE divisions and
 // reciprocals (each a range check and a branch around its fast path): at
 // D = 1 the operations bound it on this card (the pixel route's c = 12
 // bucket, 16 x 39 277 rows: 5 MB against about 0.2 G instructions). So its
@@ -54,19 +51,23 @@
 // thread several rows (their x and w loaded before their math, 16 bytes at
 // a time where the lane is aligned) and a lane a block for each 1024-4096
 // rows (batched_plan), so the bucket fills the card and a lone lane of 2^20
-// rows spreads over it. Wide D takes the chunked form: the centers in shared
-// memory, the features in chunks of DCH a block.
+// rows spreads over it. fcm_fused_partials is that form at one lane: 8 rows a
+// thread with unit weights (the 1000 KB image's 500 blocks sit on the card
+// at once), or one row a thread where that leaves fewer blocks than SMs or
+// m != 2 (kernels/fcm_centers.py::scalar_plan). Wide D takes the chunked
+// form: the centers in shared memory, the features in chunks of DCH a block.
 //
 // Determinism: no float atomics. Each thread adds its pixels in index order,
 // each warp folds its threads with a fixed shuffle tree, warp 0's threads add
-// the eight warps in warp order, and the fold (a launch of its own, or the
-// last block) adds the blocks with a fixed lane stride and shuffle tree. The
-// block count depends only on N (in the batched form on the lane's N, D and
-// c), so a run repeats bit for bit. The order differs from the plain version's,
+// the eight warps in warp order, and the last block adds the blocks with a
+// fixed lane stride and shuffle tree. The block count depends only on N (in
+// the fused forms on the lane's N, D, c and plan), so a run repeats bit for
+// bit. The order differs from the plain version's,
 // so sums agree to rounding, not bitwise.
 //
 // Arithmetic per pixel and cluster, as the plain version: um = u * u when
-// m == 2, else powf(u, m); um = um * w; num += um * x; den += um.
+// m == 2, else powf(u, m); um = um * w (weights only); num += um * x;
+// den += um.
 #include <stdint.h>
 
 #include "fcm_common.cuh"
@@ -163,8 +164,7 @@ center_partials_kernel(const float* __restrict__ x,
   __syncthreads();
   if (!last) return;
   // part (gridDim.x, 2c) -> num, den: one warp an output, its lanes striding
-  // over the blocks in order, then a fixed shuffle tree (the fold kernel's
-  // order), reading through L2
+  // over the blocks in order, then a fixed shuffle tree, reading through L2
   const int wid = threadIdx.x >> 5;
   const int lid = threadIdx.x & 31;
   const int n_blocks = (int)gridDim.x;
@@ -186,73 +186,6 @@ center_partials_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0) *ticket = 0;
 }
 
-template <int MAXC>
-__global__ void __launch_bounds__(kThreads)
-fused_partials_kernel(const float* __restrict__ x,
-                      const float* __restrict__ w, long long n,
-                      const float* __restrict__ v, int c, float m, float expo,
-                      float* __restrict__ part) {
-  __shared__ float v_s[MAXC];
-  for (int j = threadIdx.x; j < c; j += blockDim.x) v_s[j] = v[j];
-  __syncthreads();
-  const bool m_is_2 = (m == 2.0f);
-  float num[MAXC];
-  float den[MAXC];
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j) num[j] = den[j] = 0.f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float xi = x[i];
-    const float wi = w ? w[i] : 1.0f;
-    float ui[MAXC];
-    fcm::membership_of<MAXC>(xi, v_s, c, m_is_2, expo, ui);
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      if (j < c) {
-        const float um = (m_is_2 ? ui[j] * ui[j] : powf(ui[j], m)) * wi;
-        num[j] = num[j] + um * xi;
-        den[j] = den[j] + um;
-      }
-    }
-  }
-  fcm::block_partials<MAXC, kThreads>(num, den, c,
-                                      part + (long long)blockIdx.x * 2 * c);
-}
-
-// part (n_blocks, 2c) -> num (c,), den (c,): one warp per output, its lanes
-// stride over the blocks in order, then a fixed shuffle tree.
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(const float* __restrict__ part, int n_blocks, int c,
-            float* __restrict__ num, float* __restrict__ den) {
-  const int wid = threadIdx.x >> 5;
-  const int lid = threadIdx.x & 31;
-  const int n_out = 2 * c;
-  for (int o = wid; o < n_out; o += kWarps) {  // uniform across the warp
-    float s = 0.f;
-    for (int b = lid; b < n_blocks; b += 32)
-      s = s + part[(long long)b * n_out + o];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s = s + __shfl_down_sync(0xffffffffu, s, off);
-    if (lid == 0) {
-      if (o < c)
-        num[o] = s;
-      else
-        den[o - c] = s;
-    }
-  }
-}
-
-int fold(const void* part, int n_blocks, int c, void* num, void* den,
-         void* stream) {
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  fold_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)part, n_blocks, c, (float*)num, (float*)den);
-  return (int)cudaGetLastError();
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int MAXC>
@@ -266,17 +199,6 @@ int launch_center(const void* x, const void* u, const void* w, long long n,
       aligned16(x), aligned16(u) && n % 4 == 0, w && aligned16(w),
       (float*)part, (int*)ticket, (float*)num, (float*)den);
   return (int)cudaGetLastError();
-}
-
-template <int MAXC>
-int launch_fused(const void* x, const void* w, long long n, const void* v,
-                 int c, float m, float expo, void* part, int n_blocks,
-                 void* num, void* den, void* stream) {
-  fused_partials_kernel<MAXC><<<n_blocks, kThreads, 0,
-                                (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, n, (const float*)v, c, m, expo,
-      (float*)part);
-  return fold(part, n_blocks, c, num, den, stream);
 }
 
 // --- the batched form: a bucket of lanes of vector rows ---------------------
@@ -299,10 +221,13 @@ constexpr int kChunkWork = 192;
 // twelve-class bucket, so that c == tier there too (0 if none holds c).
 inline int d1_tier(int c) { return c > 8 && c <= 12 ? 12 : fcm::tier_of(c); }
 
-// quads (four rows) a thread takes in a tile of the D = 1 form: about the
-// same float work a block in every tier
-__host__ __device__ constexpr int d1_quads(int tier) {
-  return tier <= 4 ? 4 : tier <= 8 ? 2 : 1;
+// quads (four rows) a thread takes in a tile of the D = 1 form, from
+// per-block stamps on the card (PERF.md):
+// at tier 4, 8 rows with unit weights (48 registers at c == 4, m == 2; the
+// 1000 KB image's 500 blocks sit on the card at once), 4 with weights (54;
+// 16 took 80 registers and 14 warps an SM); 8 at tier 8; 4 past it
+__host__ __device__ constexpr int d1_quads(int tier, bool has_w) {
+  return tier <= 4 ? (has_w ? 1 : 2) : tier <= 8 ? 2 : 1;
 }
 
 // The feature chunk of the chunked form's cluster tier: the (DCH + 1) * MAXC
@@ -310,10 +235,11 @@ __host__ __device__ constexpr int d1_quads(int tier) {
 // tier free of spills.
 constexpr int dchunk_of_tier(int tier) { return tier <= 8 ? 4 : 2; }
 
-// The plan's rule for rows a thread, from (c, D) alone (0 if not admitted).
-int rows_per_thread_of(int c, int d) {
+// The plan's rule for rows a thread, from (c, D) and whether weights are
+// read (0 if not admitted).
+int rows_per_thread_of(int c, int d, bool has_w) {
   if (d < 1) return 0;
-  if (d == 1) return d1_tier(c) ? 4 * d1_quads(d1_tier(c)) : 0;
+  if (d == 1) return d1_tier(c) ? 4 * d1_quads(d1_tier(c), has_w) : 0;
   const int tier = fcm::tier_of(c);
   if (!tier) return 0;
   const long long rows = kChunkWork / ((long long)tier * d);
@@ -337,28 +263,35 @@ __device__ __forceinline__ void load_rows4(const float* __restrict__ p,
   }
 }
 
-// The D = 1 form: x (B, N), w (B, N), v (B, c) -> part (B, 2c, blocks), then
-// num (B, c), den (B, c). A thread's centers sit in registers; it loads the
-// kQuads quads of a tile (x and w, 16 bytes each where the lane's rows are
-// 16-byte aligned) before it adds any, then for each row in index order
-// forms the c distances (v_j - x)^2, the Eq. 4 membership, um_j = u_j^m w and
-// adds um_j x to num_j and um_j to den_j. It carries 2c sums. FAST: c ==
-// MAXC and m == 2 at compile time (the main path's tiers 4 and 12), else
-// both are run-time values.
-template <int MAXC, bool FAST>
+// The D = 1 form: x (B, N), w (B, N) or null, v (B, c) -> part (B, 2c,
+// blocks), then num (B, c), den (B, c); the scalar fused partials are its
+// B = 1 call. A thread's centers sit in registers; it loads the QUADS quads
+// of a tile (x, and w where HAS_W, 16 bytes each where the lane's rows are
+// 16-byte aligned) before it adds any, then for each row in index order forms
+// the c distances (v_j - x)^2, the Eq. 4 membership, um_j = u_j^m (times w
+// where HAS_W: unit weights spend no load or multiply) and adds um_j x to
+// num_j and um_j to den_j. It carries 2c sums. FAST: c == MAXC and m == 2
+// at compile time (the main path's tiers 4 and 12), else both are run-time
+// values. At tiers 4 and 8 the membership's c divisions by one sum go
+// through one reciprocal at m == 2 (fcm::quotient_by, the same bits): 1-6 %
+// faster there on the card, and 10 % slower on the c = 12 bucket (PERF.md).
+
+template <int MAXC, bool FAST, bool HAS_W, int QUADS = d1_quads(MAXC, HAS_W)>
 __global__ void __launch_bounds__(kThreads)
-batched_d1_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  long long n, const float* __restrict__ v, int c_rt, float m,
-                  float expo, int blocks, float* __restrict__ part,
-                  int* __restrict__ ticket, float* __restrict__ num_out,
-                  float* __restrict__ den_out) {
-  constexpr int kQuads = d1_quads(MAXC);
+d1_kernel(const float* __restrict__ x, const float* __restrict__ w,
+          long long n, const float* __restrict__ v, int c_rt, float m,
+          float expo, int blocks, float* __restrict__ part,
+          int* __restrict__ ticket, float* __restrict__ num_out,
+          float* __restrict__ den_out) {
+  // QUADS == 0: one row a thread, a scalar load (small lanes)
+  constexpr int kW = QUADS ? 4 : 1;          // rows a load
+  constexpr int kLoads = QUADS ? QUADS : 1;  // loads a thread a tile
   const int c = FAST ? MAXC : c_rt;
   const bool m2 = FAST || m == 2.0f;
   const int lane = blockIdx.x / blocks;
   const int blk = blockIdx.x - lane * blocks;
   const float* xl = x + (long long)lane * n;
-  const float* wl = w + (long long)lane * n;
+  const float* wl = HAS_W ? w + (long long)lane * n : nullptr;
   const bool vec_x = ((uintptr_t)xl & 15) == 0;
   const bool vec_w = ((uintptr_t)wl & 15) == 0;
   float vr[MAXC];
@@ -369,21 +302,26 @@ batched_d1_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float den[MAXC];
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) num[j] = den[j] = 0.f;
-  const long long tile = 4LL * kQuads * kThreads;
+  const long long tile = (long long)kW * kLoads * kThreads;
   for (long long t0 = (long long)blk * tile; t0 < n;
        t0 += (long long)blocks * tile) {
-    float xq[kQuads][4], wq[kQuads][4];
+    float xq[kLoads][kW], wq[HAS_W ? kLoads : 1][kW];
 #pragma unroll
-    for (int a = 0; a < kQuads; ++a) {
-      const long long i0 = t0 + 4LL * (a * kThreads + threadIdx.x);
-      load_rows4(xl, i0, n, vec_x, xq[a]);
-      load_rows4(wl, i0, n, vec_w, wq[a]);
+    for (int a = 0; a < kLoads; ++a) {
+      const long long i0 = t0 + kW * ((long long)a * kThreads + threadIdx.x);
+      if constexpr (kW == 4) {
+        load_rows4(xl, i0, n, vec_x, xq[a]);
+        if constexpr (HAS_W) load_rows4(wl, i0, n, vec_w, wq[a]);
+      } else {
+        xq[a][0] = i0 < n ? __ldg(xl + i0) : 0.f;
+        if constexpr (HAS_W) wq[a][0] = i0 < n ? __ldg(wl + i0) : 0.f;
+      }
     }
 #pragma unroll
-    for (int a = 0; a < kQuads; ++a) {
-      const long long i0 = t0 + 4LL * (a * kThreads + threadIdx.x);
+    for (int a = 0; a < kLoads; ++a) {
+      const long long i0 = t0 + kW * ((long long)a * kThreads + threadIdx.x);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < kW; ++e) {
         if (i0 + e < n) {
           const float xi = xq[a][e];
           float u[MAXC];
@@ -396,12 +334,12 @@ batched_d1_kernel(const float* __restrict__ x, const float* __restrict__ w,
             }
             u[j] = s;
           }
-          fcm::membership_from_d2<MAXC, true>(c, m2, expo, u);
-          const float wi = wq[a][e];
+          fcm::membership_from_d2<MAXC, (MAXC <= 8)>(c, m2, expo, u);
 #pragma unroll
           for (int j = 0; j < MAXC; ++j) {
             if (j < c) {
-              const float um = (m2 ? u[j] * u[j] : powf(u[j], m)) * wi;
+              float um = m2 ? u[j] * u[j] : powf(u[j], m);
+              if constexpr (HAS_W) um = um * wq[a][e];
               num[j] = num[j] + um * xi;
               den[j] = den[j] + um;
             }
@@ -412,10 +350,19 @@ batched_d1_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   // the lane's partials are (output, block), block fastest
   float* lp = part + (long long)lane * 2 * c * blocks;
-  fcm::block_partials<MAXC, kThreads>(num, den, c, lp + blk, blocks);
-  if (!fcm::last_to_arrive(ticket + lane, blocks)) return;
   float* nl = num_out + (long long)lane * c;
   float* dl = den_out + (long long)lane * c;
+  fcm::block_partials<MAXC, kThreads>(num, den, c, lp + blk, blocks);
+  if (blocks == 1) {  // uniform: the block's sums are the lane's
+    // thread t < 2c stored output t just above; it copies its own store
+    const int t = threadIdx.x;
+    if (t < c)
+      nl[t] = lp[t];
+    else if (t < 2 * c)
+      dl[t - c] = lp[t];
+    return;
+  }
+  if (!fcm::last_to_arrive(ticket + lane, blocks)) return;
   fcm::fold_rows<kThreads>(
       2 * c, blocks, [&](int o) { return lp + (long long)o * blocks; },
       [&](int o, float s) {
@@ -488,7 +435,7 @@ batched_chunk_kernel(const float* __restrict__ x, const float* __restrict__ w,
           }
         }
       }
-      fcm::membership_from_d2<MAXC, true>(c, M2, expo, u);
+      fcm::membership_from_d2<MAXC>(c, M2, expo, u);
       const float wi = __ldg(wl + i);
       float xk[DCH];
 #pragma unroll
@@ -557,18 +504,61 @@ batched_chunk_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (threadIdx.x == 0) ticket[lane] = 0;
 }
 
-template <int MAXC>
+// FAST instances: c == tier == 4 or 12 and m == 2; at tier 12 only with
+// weights (the pixel route's twelve-class bucket). QUADS: the tier's quads a
+// thread, or 0 for one row a thread (the scalar fused partials of a small
+// lane).
+template <int MAXC, bool HAS_W, int QUADS>
 int launch_d1(const void* x, const void* w, int b, long long n,
               const void* v, int c, float m, float expo, int blocks,
               void* part, void* ticket, void* num, void* den,
               cudaStream_t st) {
-  auto kernel = batched_d1_kernel<MAXC, false>;
-  if constexpr (MAXC == 4 || MAXC == 12)
-    if (c == MAXC && m == 2.0f) kernel = batched_d1_kernel<MAXC, true>;
+  auto kernel = d1_kernel<MAXC, false, HAS_W, QUADS>;
+  if constexpr (MAXC == 4 || (MAXC == 12 && HAS_W))
+    if (c == MAXC && m == 2.0f) kernel = d1_kernel<MAXC, true, HAS_W, QUADS>;
   kernel<<<(unsigned)((long long)b * blocks), kThreads, 0, st>>>(
       (const float*)x, (const float*)w, n, (const float*)v, c, m, expo,
       blocks, (float*)part, (int*)ticket, (float*)num, (float*)den);
   return (int)cudaGetLastError();
+}
+
+template <int MAXC, bool HAS_W>
+int launch_d1_rows(const void* x, const void* w, int b, long long n,
+                   const void* v, int c, float m, float expo, int blocks,
+                   int rows_per_thread, void* part, void* ticket, void* num,
+                   void* den, cudaStream_t st) {
+  if (rows_per_thread == 1)
+    return launch_d1<MAXC, HAS_W, 0>(x, w, b, n, v, c, m, expo, blocks, part,
+                                     ticket, num, den, st);
+  return launch_d1<MAXC, HAS_W, d1_quads(MAXC, HAS_W)>(
+      x, w, b, n, v, c, m, expo, blocks, part, ticket, num, den, st);
+}
+
+// The D = 1 form over b lanes, w null for unit weights; rows_per_thread is
+// the tier's (rows_per_thread_of) or 1.
+int launch_d1_tier(const void* x, const void* w, int b, long long n,
+                   const void* v, int c, float m, float expo, int blocks,
+                   int rows_per_thread, void* part, void* ticket, void* num,
+                   void* den, cudaStream_t st) {
+  if ((long long)b * blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  switch (d1_tier(c)) {
+#define FCM_D1(T)                                                            \
+  case T:                                                                    \
+    return w ? launch_d1_rows<T, true>(x, w, b, n, v, c, m, expo, blocks,    \
+                                       rows_per_thread, part, ticket, num,   \
+                                       den, st)                              \
+             : launch_d1_rows<T, false>(x, w, b, n, v, c, m, expo, blocks,   \
+                                        rows_per_thread, part, ticket, num,  \
+                                        den, st);
+    FCM_D1(4)
+    FCM_D1(8)
+    FCM_D1(12)
+    FCM_D1(16)
+    FCM_D1(32)
+#undef FCM_D1
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dynamic shared memory a block gets without opting in, static included
@@ -637,30 +627,24 @@ extern "C" int fcm_center_partials(const void* x, const void* u, const void* w,
   }
 }
 
-// x (N,), w (N,) or null, v (c,) float32 contiguous -> num (c,), den (c,).
-// part is scratch of n_blocks * 2c floats; 1 <= c <= 32; expo is the float32
-// exponent -1/(m-1).
+// x (N,), w (N,) or null (unit weights), v (c,) float32 contiguous -> num
+// (c,), den (c,), in one launch: the D = 1 form at B = 1. blocks and
+// rows_per_thread come from kernels/fcm_centers.py::scalar_plan (rows_per_
+// thread is fcm_batched_rows_per_thread(c, 1, w != null), or 1 for a lane
+// too small to give the tier's rows a block on each SM); part is
+// scratch of 2c * blocks floats; ticket is one int that is zero on entry and
+// left zero on exit; 1 <= c <= 32; expo is the float32 exponent -1/(m-1).
 extern "C" int fcm_fused_partials(const void* x, const void* w, long long n,
                                   const void* v, int c, float m, float expo,
-                                  void* part, int n_blocks, void* num,
-                                  void* den, void* stream) {
-  if (bad_args(n, n_blocks)) return (int)cudaErrorInvalidValue;
-  switch (fcm::tier_of(c)) {
-    case 4:
-      return launch_fused<4>(x, w, n, v, c, m, expo, part, n_blocks, num, den,
-                             stream);
-    case 8:
-      return launch_fused<8>(x, w, n, v, c, m, expo, part, n_blocks, num, den,
-                             stream);
-    case 16:
-      return launch_fused<16>(x, w, n, v, c, m, expo, part, n_blocks, num,
-                              den, stream);
-    case 32:
-      return launch_fused<32>(x, w, n, v, c, m, expo, part, n_blocks, num,
-                              den, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                  int blocks, int rows_per_thread, void* part,
+                                  void* ticket, void* num, void* den,
+                                  void* stream) {
+  if (n < 1 || blocks < 1 || blocks > kBatchedMaxBlocks ||
+      (rows_per_thread != 1 &&
+       rows_per_thread != rows_per_thread_of(c, 1, w != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  return launch_d1_tier(x, w, 1, n, v, c, m, expo, blocks, rows_per_thread,
+                        part, ticket, num, den, (cudaStream_t)stream);
 }
 
 extern "C" int fcm_batched_threads() { return kThreads; }
@@ -678,9 +662,10 @@ extern "C" int fcm_batched_dchunk(int c, int d) {
   return tier == 0 ? 0 : d == 1 ? 1 : dchunk_of_tier(tier);
 }
 
-// Rows a thread takes in a tile for (c, D) (0 if not admitted).
-extern "C" int fcm_batched_rows_per_thread(int c, int d) {
-  return rows_per_thread_of(c, d);
+// Rows a thread takes in a tile for (c, D), with or without weights (0 if
+// not admitted).
+extern "C" int fcm_batched_rows_per_thread(int c, int d, int has_w) {
+  return rows_per_thread_of(c, d, has_w != 0);
 }
 
 // x (B, N, D), w (B, N), v (B, c, D) float32 contiguous -> num (B, c, D),
@@ -700,27 +685,13 @@ extern "C" int fcm_fused_partials_batched(const void* x, const void* w, int b,
                                           void* den, void* stream) {
   const int tier = fcm_batched_tier(c, d);
   if (n < 1 || b < 1 || tier == 0 || blocks < 1 ||
-      blocks > kBatchedMaxBlocks || rows_per_thread != rows_per_thread_of(c, d))
+      blocks > kBatchedMaxBlocks ||
+      rows_per_thread != rows_per_thread_of(c, d, true))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (d == 1) {
-    if ((long long)b * blocks > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
-    switch (tier) {
-#define FCM_BATCHED_D1(T)                                                    \
-  case T:                                                                    \
-    return launch_d1<T>(x, w, b, n, v, c, m, expo, blocks, part, ticket,     \
-                        num, den, st);
-      FCM_BATCHED_D1(4)
-      FCM_BATCHED_D1(8)
-      FCM_BATCHED_D1(12)
-      FCM_BATCHED_D1(16)
-      FCM_BATCHED_D1(32)
-#undef FCM_BATCHED_D1
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
+  if (d == 1)
+    return launch_d1_tier(x, w, b, n, v, c, m, expo, blocks, rows_per_thread,
+                          part, ticket, num, den, st);
   switch (tier) {
 #define FCM_BATCHED_CHUNKED(T)                                               \
   case T:                                                                    \

@@ -1,18 +1,20 @@
 // Device helpers shared by the per-iteration FCM kernels (fcm_membership.cu,
-// fcm_centers.cu, fcm_spatial.cu): the Eq. 4 membership of one pixel from its
-// c squared distances, computed in registers with the same float32
-// operations as the plain PyTorch version
+// fcm_centers.cu, fcm_spatial.cu, fcm_stencil.cu, fcm_streamed.cu): the Eq. 4
+// membership of one pixel from its c squared distances, computed in registers
+// with the same float32 operations as the plain PyTorch version
 // (repro_torch.core.fcm.membership_from_d2), a block's fixed-order fold of
 // per-thread sums, the cluster-count tiers the kernels are instantiated
-// for, the counter add that fcm_centers.cu and fcm_streamed.cu synchronise
-// blocks with, and the last-block fold of a lane's partial rows that
-// fcm_centers.cu and fcm_spatial.cu end their one-launch reductions with.
+// for, the counter add that fcm_centers.cu, fcm_streamed.cu and
+// histogram_bin.cu synchronise blocks with, and the last-block fold of a
+// lane's partial rows that fcm_centers.cu and fcm_spatial.cu end their
+// one-launch reductions with.
 //
 // Arithmetic, as the plain version does it:
 //   d2_j = (v_j - x) * (v_j - x)                      ((v - x) ** 2)
 //   p_j  = 1 / max(d2_j, 1e-12)         when m == 2  (pow with exponent -1)
 //        = powf(max(d2_j, 1e-12), -1/(m-1))  otherwise
-//   u_j  = p_j / (p_0 + p_1 + ... + p_{c-1})         (a divide, not a
+//   u_j  = p_j / (p_0 + p_1 + ... + p_{c-1})         (a correctly rounded
+//                                                      divide, not a
 //                                                      reciprocal multiply)
 // and a pixel at distance exactly 0 from some centers splits its mass evenly
 // over those centers (1 / count each, 0 elsewhere). The library is compiled
@@ -36,36 +38,49 @@ __device__ __forceinline__ float floor_at(float a) {
   return a < kFloor ? kFloor : a;
 }
 
+// a / b rounded to nearest, from y = RN(1 / b) (__frcp_rn), in multiplies and
+// fused multiply-adds with no range check or branch: q0 = RN(a y) is within
+// two ulps of a / b, one correction brings it within one, and Markstein's
+// theorem makes the second correction's RN(q1 + RN(a - b q1) y) equal to
+// RN(a / b) when y is within half an ulp of 1 / b and nothing underflows or
+// overflows. The c quotients of a row share their divisor, so one
+// reciprocal serves them all, in place of c IEEE divisions (each a
+// reciprocal, its refinement, a range check and a branch).
+__device__ __forceinline__ float quotient_by(float a, float b, float y) {
+  float q = __fmul_rn(a, y);
+  q = __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
+}
+
 // Eq. 4 from squared distances: u[0..c) holds a pixel's c distances on entry
-// and its memberships on exit; u[c..MAXC) is zeroed. MIN_TEST: find a zero
-// distance by testing the distances' minimum (fminf passes NaN over, as the
-// count does, so the bits are the same) and count the zeros only then, in
-// place of a count on every pixel; the redesigned batched fused partials and
-// 2-D FCM_S step take it, the other kernels the count.
-template <int MAXC, bool MIN_TEST = false>
+// and its memberships on exit; u[c..MAXC) is zeroed. A zero distance is found
+// by testing the distances' minimum (fminf passes NaN over, as a count of
+// zeros would, so the bits are the same), and the zeros are counted only
+// then: faster than a count on every pixel in every kernel that takes it
+// (kernel_ab.py, PERF.md). ONE_RCP: at m == 2, when every distance is at
+// most 2^55, the c divisions by the sum go through quotient_by with one
+// reciprocal: then p_j lies in [2^-55, 2^40] and the sum in [2^-55, 2^45],
+// so no quotient, residual or reciprocal leaves the normal range and the
+// bits are the IEEE division's; other rows (and NaN or infinite distances)
+// take the divisions.
+template <int MAXC, bool ONE_RCP = false>
 __device__ __forceinline__ void membership_from_d2(int c, bool m_is_2,
                                                    float expo,
                                                    float (&u)[MAXC]) {
-  int n_zero = 0;
-  bool any_zero;
-  if constexpr (MIN_TEST) {
-    float dmin = u[0];
+  float dmin = u[0];
+  float dmax = u[0];
 #pragma unroll
-    for (int j = 1; j < MAXC; ++j)
-      if (j < c) dmin = fminf(dmin, u[j]);
-    any_zero = dmin <= 0.f;
-  } else {
+  for (int j = 1; j < MAXC; ++j) {
+    if (j < c) {
+      dmin = fminf(dmin, u[j]);
+      if constexpr (ONE_RCP) dmax = fmaxf(dmax, u[j]);
+    }
+  }
+  if (dmin <= 0.f) {
+    int n_zero = 0;
 #pragma unroll
     for (int j = 0; j < MAXC; ++j)
       if (j < c && u[j] <= 0.f) ++n_zero;
-    any_zero = n_zero > 0;
-  }
-  if (any_zero) {
-    if constexpr (MIN_TEST) {
-#pragma unroll
-      for (int j = 0; j < MAXC; ++j)
-        if (j < c && u[j] <= 0.f) ++n_zero;
-    }
     const float share = 1.0f / (float)n_zero;
 #pragma unroll
     for (int j = 0; j < MAXC; ++j) u[j] = (j < c && u[j] <= 0.f) ? share : 0.f;
@@ -80,6 +95,16 @@ __device__ __forceinline__ void membership_from_d2(int c, bool m_is_2,
       ps = ps + u[j];
     } else {
       u[j] = 0.f;
+    }
+  }
+  if constexpr (ONE_RCP) {
+    // a NaN distance makes the sum NaN, and so every quotient either way
+    if (m_is_2 && dmax <= 0x1p55f) {
+      const float y = __frcp_rn(ps);
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j)
+        if (j < c) u[j] = quotient_by(u[j], ps, y);
+      return;
     }
   }
 #pragma unroll
@@ -161,20 +186,16 @@ __device__ __forceinline__ int fetch_add_acq_rel(int* p, int v) {
 // Called by every thread of a block after its partials are stored: true in
 // the one block of a group of n blocks that arrives last at ticket (zero on
 // entry), which then sees every block's stores. After the barrier thread 0
-// fences at gpu scope (cumulative: it releases the stores the barrier made it
-// observe, as fetch_add_acq_rel does for fcm_center_partials) and takes the
-// ticket with a relaxed add; the last block fences again before it reads
-// (acquire): the fence and atomic pattern of the PTX memory model. The last
-// block must set the ticket back to zero when it is done.
+// takes the ticket with one add of acquire-release semantics at gpu scope
+// (cumulative: it releases the stores the barrier made it observe, and the
+// last block's acquires everyone's, which the second barrier passes on to
+// its threads). The last block must set the ticket back to zero when it is
+// done.
 __device__ __forceinline__ bool last_to_arrive(int* ticket, int n) {
   __shared__ bool last;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1) == n - 1;
-  }
+  if (threadIdx.x == 0) last = fetch_add_acq_rel(ticket, 1) == n - 1;
   __syncthreads();
-  if (last) __threadfence();
   return last;
 }
 

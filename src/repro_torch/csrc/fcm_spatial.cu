@@ -150,7 +150,7 @@ __device__ __forceinline__ float over_count(float a, float cnt) {
 // its stencil sums: num[j] = u_j^m * (x + alpha * xbar), den[j] = u_j^m.
 // KNOWN: the count when the caller knows it is 4 or 8 (an interior pixel of
 // a 2-D grid), else 0.
-template <int MAXC, int KNOWN = 0, bool MIN_TEST = false>
+template <int MAXC, int KNOWN = 0>
 __device__ __forceinline__ void pixel_terms_d2(
     float x, const float (&d2)[MAXC], float cnt, float sx,
     const float (&nb)[MAXC], int c, float alpha, bool m_is_2, float m,
@@ -160,7 +160,7 @@ __device__ __forceinline__ void pixel_terms_d2(
 #pragma unroll
   for (int j = 0; j < MAXC; ++j)
     u[j] = j < c ? d2[j] + alpha * over_count<KNOWN>(nb[j], cnt) : 0.f;
-  fcm::membership_from_d2<MAXC, MIN_TEST>(c, m_is_2, expo, u);
+  fcm::membership_from_d2<MAXC>(c, m_is_2, expo, u);
   const float xe = x + alpha * over_count<KNOWN>(sx, cnt);
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {
@@ -251,8 +251,8 @@ __device__ __forceinline__ void pixel2d_terms(
   }
   float num[MAXC];
   float den[MAXC];
-  pixel_terms_d2<MAXC, INTERIOR ? NB : 0, true>(z, qz, cnt, sx, nb, c, alpha,
-                                                m2, m, expo, num, den);
+  pixel_terms_d2<MAXC, INTERIOR ? NB : 0>(z, qz, cnt, sx, nb, c, alpha, m2,
+                                          m, expo, num, den);
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {
     if (j < c) {
@@ -324,7 +324,7 @@ __device__ __forceinline__ void pixel2d_terms_lean(
     }
     u[j] = uj;
   }
-  fcm::membership_from_d2<MAXC, true>(c, m2, expo, u);
+  fcm::membership_from_d2<MAXC>(c, m2, expo, u);
   const float xe = z + alpha * over_count<KNOWN>(sx, cnt);
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {

@@ -138,8 +138,7 @@ __device__ __forceinline__ void add_row(const float (&xr)[DT], float wr,
                                         const float* __restrict__ v_s, int c,
                                         float m, float expo,
                                         float (&acc)[CT][DT + 1]) {
-  float d2[CT];
-  int n_zero = 0;
+  float u[CT];
 #pragma unroll
   for (int j = 0; j < CT; ++j) {
     float s = 0.f;
@@ -149,31 +148,10 @@ __device__ __forceinline__ void add_row(const float (&xr)[DT], float wr,
         const float e = v_s[j * DT + dd] - xr[dd];
         s = s + e * e;
       }
-      if (s <= 0.f) ++n_zero;
     }
-    d2[j] = s;
+    u[j] = s;
   }
-  float u[CT];
-  if (n_zero > 0) {
-    const float share = 1.0f / (float)n_zero;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) u[j] = d2[j] <= 0.f ? share : 0.f;
-  } else {
-    float p[CT];
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      if (j < c) {
-        const float dj = floor_at(d2[j]);
-        p[j] = M2 ? 1.0f / dj : powf(dj, expo);
-        ps = ps + p[j];
-      } else {
-        p[j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < CT; ++j) u[j] = p[j] / ps;
-  }
+  fcm::membership_from_d2<CT>(c, M2, expo, u);
 #pragma unroll
   for (int j = 0; j < CT; ++j) {
     if (j < c) {

@@ -35,8 +35,11 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signatures of the exported functions (every one returns cudaError_t).
 SIGNATURES = {
-    "histogram_bin_u8": (_P, _L, _L, _I, _L, _P, _P),
-    "histogram_bin_i32": (_P, _L, _L, _I, _L, _P, _P),
+    "histogram_bin_u8": (_P, _L, _L, _I, _I, _P, _P, _P, _P),
+    "histogram_bin_i32": (_P, _L, _L, _I, _I, _P, _P, _P, _P),
+    "histogram_bin_block_bytes": (),
+    "histogram_bin_max_cluster": (),
+    "histogram_bin_blocks": (_L, _I),
     "labels_f32": (_P, _L, _L, _P, _I, _P, _P),
     "labels_u8": (_P, _L, _L, _P, _I, _P, _P),
     "labels_i32": (_P, _L, _L, _P, _I, _P, _P),
@@ -46,14 +49,15 @@ SIGNATURES = {
     "fcm_membership": (_P, _L, _P, _I, _F, _F, _P, _P),
     "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P,
                             _P),
-    "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _P, _I, _P, _P, _P),
+    "fcm_fused_partials": (_P, _P, _L, _P, _I, _F, _F, _I, _I, _P, _P, _P,
+                           _P, _P),
     "fcm_fused_partials_batched": (_P, _P, _I, _L, _I, _P, _I, _F, _F, _I,
                                    _I, _P, _P, _P, _P, _P),
     "fcm_batched_threads": (),
     "fcm_batched_max_blocks": (),
     "fcm_batched_tier": (_I, _I),
     "fcm_batched_dchunk": (_I, _I),
-    "fcm_batched_rows_per_thread": (_I, _I),
+    "fcm_batched_rows_per_thread": (_I, _I, _I),
     "fcm_max_c": (),
     "fcm_streamed_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                            _I, _I, _P, _P, _P, _P, _P, _P),
@@ -96,7 +100,8 @@ SIGNATURES = {
 
 #: return types other than int
 RESTYPES = {"fcm_stencil_smem_bytes": _L, "fcm_spatial3d_rows": _L,
-            "fcm_spatial2d_blocks": _L}
+            "fcm_spatial2d_blocks": _L, "histogram_bin_block_bytes": _L,
+            "histogram_bin_blocks": _L}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

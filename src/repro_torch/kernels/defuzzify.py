@@ -12,7 +12,9 @@ import torch
 
 from . import _build
 
-#: gridDim.y carries the lane index.
+#: gridDim.y carries the lane index, so a call launches once a chunk of
+#: at most this many lanes (:func:`_build.lane_chunks`); a lane's labels
+#: are its own, so the chunks change no bit.
 MAX_LANES = 65535
 #: centers per lane the kernel stages in shared memory (48 KB)
 MAX_C = 12288
@@ -29,17 +31,16 @@ def labels_plain(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.argmin(d2, dim=1).to(torch.int32)
 
 
-def labels(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``(B, N)`` float32 / uint8 / int32 pixels + ``(B, c)`` float32
-    centers -> ``(B, N)`` int32 labels. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+def _checked(x: torch.Tensor, v: torch.Tensor) -> bool:
+    """Validate the arguments; True when the kernel runs (a CUDA tensor),
+    False for the plain version (a CPU tensor)."""
     if x.dim() != 2 or v.dim() != 2 or v.shape[0] != x.shape[0]:
         raise ValueError(f"labels takes (B, N) pixels and (B, c) centers, "
                          f"got {tuple(x.shape)} and {tuple(v.shape)}")
     if x.device != v.device:
         raise ValueError(f"pixels on {x.device}, centers on {v.device}")
     if x.device.type == "cpu":
-        return labels_plain(x, v)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"labels runs on cpu or cuda, not {x.device}")
     if x.dtype not in _DTYPES:
@@ -49,17 +50,29 @@ def labels(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"centers must be float32, got {v.dtype}")
     if not (x.is_contiguous() and v.is_contiguous()):
         raise ValueError("the labels kernel needs contiguous inputs")
+    if not 1 <= v.shape[1] <= MAX_C:
+        raise ValueError(f"labels kernel: 1 <= c <= {MAX_C}, got "
+                         f"c={v.shape[1]}")
+    return True
+
+
+def labels(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(B, N)`` float32 / uint8 / int32 pixels + ``(B, c)`` float32
+    centers -> ``(B, N)`` int32 labels, for a bucket of any number of
+    lanes. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (once a chunk of :data:`MAX_LANES` lanes) or raises."""
+    if not _checked(x, v):
+        return labels_plain(x, v)
     b, n = x.shape
     c = v.shape[1]
-    if b > MAX_LANES or not 1 <= c <= MAX_C:
-        raise ValueError(f"labels kernel: lanes <= {MAX_LANES} and "
-                         f"1 <= c <= {MAX_C}, got B={b}, c={c}")
     out = torch.empty((b, n), dtype=torch.int32, device=x.device)
     if b and n:
         fn = getattr(_build.library(), _DTYPES[x.dtype])
-        _build.check(fn(x.data_ptr(), b, n, v.data_ptr(), c, out.data_ptr(),
-                        _build.stream_of(x)), "labels")
-        labels.launches += 1
+        for i0, i1 in _build.lane_chunks(b, MAX_LANES):
+            _build.check(fn(x[i0:].data_ptr(), i1 - i0, n, v[i0:].data_ptr(),
+                            c, out[i0:].data_ptr(), _build.stream_of(x)),
+                         "labels")
+            labels.launches += 1
     return out
 
 

@@ -10,17 +10,17 @@ version beside it:
 * :func:`fused_partials` from the centers, the Eq. 4 membership computed
   in registers and reduced at once, so the ``(c, N)`` array never exists
   (replaces ``repro/kernels/fcm_centers.py::fused_partials_pallas``; one
-  call an iteration of ``backend="fused"``).
+  call an iteration of ``backend="fused"``): the batched form's D = 1
+  kernel at B = 1, unit weights (``w is None``) a compile-time case.
 * :func:`fused_partials_batched`, the same over a bucket of lanes of
   vector rows, ``x`` (B, N, D) and ``w`` (B, N): the batched flat step
   of lanes past the whole-solve kernels' bounds (c > 8, rows > 2^20 or
   D > 16), once an iteration under the solver's per-lane-masked loop.
 
 Each block reduces its share of the pixels to per-block partials in a
-scratch buffer, which are folded in a fixed order: by a second launch
-for :func:`fused_partials`, and by the last block to finish in the one
-launch of the other two (in the batched form the last block of each
-lane, :func:`batched_plan` giving a lane its blocks from its own shape).
+scratch buffer, which the last block to finish folds in a fixed order,
+in one launch (in the fused forms the last block of each lane,
+:func:`batched_plan` giving a lane its blocks from its own shape).
 No float atomics, so a run repeats bit for bit. ``w`` is the optional per-pixel weight (histogram counts);
 ``None`` means 1 and is not read.
 """
@@ -87,14 +87,18 @@ class BatchedPlan(NamedTuple):
     part_floats: int      # the partials scratch, one row a block
 
 
-def batched_plan(b: int, n: int, d: int, c: int) -> BatchedPlan:
-    """The batched fused kernel's plan. A lane's chunks, tiles and blocks,
-    and so its reduction order, come from its N, D and c alone, never
-    from B or the card. At D = 1 a thread takes 16, 8 or 4 rows by tier
-    (about the same float work a block: tiles of 4096 rows at c <= 4,
-    1024 at c > 8), so a bucket of BrainWeb slices at c = 12 fills the
-    card and a lone lane of 2^20 rows spreads over it; wider rows take
-    about ``CHUNK_WORK / (tier * D)`` rows a thread and chunks of 4
+def batched_plan(b: int, n: int, d: int, c: int,
+                 weighted: bool = True) -> BatchedPlan:
+    """The batched fused kernel's plan (and, at one lane of scalar rows,
+    the scalar fused partials'). A lane's chunks, tiles and blocks, and
+    so its reduction order, come from its N, D and c (and whether weights
+    are read) alone, never from B or the card. At D = 1 a thread takes 8
+    rows at c <= 8, except 4 with weights at c <= 4, and 4 past c = 8,
+    from per-block stamps on the card (PERF.md): the 1000 KB
+    image's 500 unit-weight blocks sit on the card at once, a bucket of
+    BrainWeb slices at c = 12 fills it and a lone lane of 2^20 rows
+    spreads over it; wider rows take about ``CHUNK_WORK / (tier * D)``
+    rows a thread and chunks of 4
     features (2 past c = 8). A lane takes a block for each tile, at most
     :data:`BATCHED_MAX_BLOCKS` a chunk."""
     if min(b, n, d) < 1:
@@ -102,7 +106,9 @@ def batched_plan(b: int, n: int, d: int, c: int) -> BatchedPlan:
                          f"n={n}, d={d}")
     tier = batched_tier(c, d)
     if d == 1:
-        dch, rpt = 1, 4 * (4 if tier <= 4 else 2 if tier <= 8 else 1)
+        dch = 1
+        rpt = 4 * ((1 if weighted else 2) if tier <= 4 else 2 if tier <= 8
+                   else 1)
     else:
         dch, rpt = (4 if tier <= 8 else 2), max(1, CHUNK_WORK // (tier * d))
     chunks = -(-d // dch)
@@ -111,6 +117,28 @@ def batched_plan(b: int, n: int, d: int, c: int) -> BatchedPlan:
     grid = b * chunks * blocks
     return BatchedPlan(tier, dch, chunks, rpt, tile, blocks, grid,
                        grid * (c * dch + c))
+
+
+#: the scalar fused partials give a lane one row a thread where the
+#: tier's rows would leave it fewer blocks than an H100 has SMs
+SPREAD_BLOCKS = 132
+
+
+def scalar_plan(n: int, c: int, weighted: bool, m: float) -> BatchedPlan:
+    """The plan of :func:`fused_partials`, one lane of N scalar rows: the
+    batched form's (:func:`batched_plan`), except that a lane whose tier
+    rows would leave fewer than :data:`SPREAD_BLOCKS` blocks, or whose m
+    is not 2 (eight ``powf`` a row at c = 4, whose latency wants more
+    threads in flight), takes one row a thread in blocks of
+    :data:`THREADS` rows, at most :data:`BATCHED_MAX_BLOCKS` (past that
+    threads stride). It depends on N, c, whether weights are read and
+    whether m == 2, never on the values."""
+    plan = batched_plan(1, n, 1, c, weighted)
+    if plan.blocks >= SPREAD_BLOCKS and m == 2.0:
+        return plan
+    blocks = min(-(-n // THREADS), BATCHED_MAX_BLOCKS)
+    return plan._replace(rows_per_thread=1, tile=THREADS, blocks=blocks,
+                         grid=blocks, part_floats=blocks * 2 * c)
 
 
 def center_partials_plain(x: torch.Tensor, u: torch.Tensor, m: float,
@@ -217,7 +245,8 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` (N,), ``w`` (N,) or ``None``, ``v`` (c,), float32 ->
     ``(num (c,), den (c,))``. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel (and its fold) or raises."""
+    CUDA tensor launches the kernel (one launch, its fold included;
+    :func:`scalar_plan`) or raises."""
     if v.dim() != 1:
         raise ValueError(f"fused_partials takes (c,) centers, got "
                          f"{tuple(v.shape)}")
@@ -227,13 +256,14 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
     n = x.shape[0]
     if n == 0:
         return _zeros(x, c)
-    n_blocks, part, num, den = _outputs(
-        x, c, max(1, min(-(-n // THREADS), MAX_BLOCKS)))
+    plan = scalar_plan(n, c, w is not None, m)
+    _, part, num, den = _outputs(x, c, plan.blocks)
     _build.check(_build.library().fcm_fused_partials(
         x.data_ptr(), None if w is None else w.data_ptr(), n, v.data_ptr(),
-        c, float(np.float32(m)), exponent(m), part.data_ptr(), n_blocks,
-        num.data_ptr(), den.data_ptr(), _build.stream_of(x)),
-        "fcm_fused_partials")
+        c, float(np.float32(m)), exponent(m), plan.blocks,
+        plan.rows_per_thread, part.data_ptr(),
+        _build.zeroed_ints(x, 1).data_ptr(), num.data_ptr(), den.data_ptr(),
+        _build.stream_of(x)), "fcm_fused_partials")
     fused_partials.launches += 1
     return num, den
 
@@ -299,8 +329,8 @@ def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
     return num, den
 
 
-#: kernel launches since the counts were last set to 0 (fused_partials: a
-#: reduction and its fold; the others one launch, the fold included)
+#: kernel launches since the counts were last set to 0 (one a call, the
+#: fold included)
 center_partials.launches = 0
 fused_partials.launches = 0
 fused_partials_batched.launches = 0

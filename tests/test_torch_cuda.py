@@ -50,6 +50,70 @@ def test_binning_kernel_equals_plain(dev, dtype):
     assert torch.equal(got, KB.histogram_bin_plain(px, 256))
 
 
+def _bincount(arr, n_bins=256):
+    return np.stack([np.bincount(np.clip(r.astype(np.int64), 0, n_bins - 1),
+                                 minlength=n_bins) for r in arr]).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, 20466, 39277, 200000])
+@pytest.mark.parametrize("offset", [0, 1, 7, 15])
+def test_binning_kernel_exact_at_any_alignment(dev, dtype, n, offset):
+    """Three ragged lanes whose buffer starts ``offset`` pixels past a
+    16-byte boundary (uint8: every lane start misaligned; int32 too past
+    offset 0), one launch, exact against the plain version and
+    np.bincount; int32 pixels out of range clip to the end bins. The
+    lengths take one block a lane, a cluster of 2-8 (20466 and 39277
+    uint8, 20466 and 39277 int32) and the last block's fold (200000)."""
+    rng = np.random.default_rng(n + offset)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-40, 300)
+    arr = rng.integers(lo, hi, (3, n))
+    arr[1, : n // 2] = 7                 # a long run of one value
+    flat = torch.from_numpy(arr.reshape(-1)).to(dev, dtype)
+    buf = torch.empty(offset + 3 * n, dtype=dtype, device=dev)
+    buf[offset:] = flat
+    px = buf[offset:].view(3, n)
+    assert (px.data_ptr() % 16 == 0) == (offset == 0)
+    before = KB.histogram_bin.launches
+    got = KB.histogram_bin(px, 256)
+    assert KB.histogram_bin.launches == before + 1
+    assert torch.equal(got, KB.histogram_bin_plain(px, 256))
+    np.testing.assert_array_equal(got.cpu().numpy(), _bincount(arr))
+    assert torch.equal(KB.histogram_bin(px, 256), got)
+
+
+@pytest.mark.parametrize("n_bins", [1, 5, 256, 1000, KB.MAX_BINS])
+def test_binning_kernel_bins_other_than_256(dev, n_bins):
+    """A lane of the 1000 KB image size (201 int32 blocks, folded by
+    the last) and a short one, at bin counts that are not 256 and not a
+    multiple of 4, and at the most bins."""
+    rng = np.random.default_rng(n_bins)
+    arr = rng.integers(-5, 1100, (2, 1_024_000)).astype(np.int32)
+    arr[1, 100:] = 3
+    px = torch.from_numpy(arr).to(dev)
+    got = KB.histogram_bin(px, n_bins)
+    assert torch.equal(got, KB.histogram_bin_plain(px, n_bins))
+    np.testing.assert_array_equal(got.cpu().numpy(), _bincount(arr, n_bins))
+
+
+@pytest.mark.parametrize("n", [100, 30_000])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_binning_kernel_at_the_most_bins_on_short_lanes(dev, n, dtype):
+    """MAX_BINS bins on lanes of one block and of one cluster (30 000
+    int32 pixels are 6 blocks, uint8 2): the run form's 48 KB histogram
+    beside the kernel's static shared memory."""
+    rng = np.random.default_rng(n)
+    arr = rng.integers(0, 256 if dtype == np.uint8 else 13_000,
+                       (3, n)).astype(dtype)
+    px = torch.from_numpy(arr).to(dev)
+    assert KB.bin_blocks(n, px.element_size()) <= KB.MAX_CLUSTER
+    got = KB.histogram_bin(px, KB.MAX_BINS)
+    assert torch.equal(got, KB.histogram_bin_plain(px, KB.MAX_BINS))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _bincount(arr, KB.MAX_BINS))
+
+
 def test_whole_solve_kernel_matches_plain(dev):
     hists = KB.histogram_bin(torch.from_numpy(np.stack(
         [s.ravel() for s in _slices(4)])).to(dev), 256)
@@ -186,6 +250,130 @@ def test_fused_partials_kernel_matches_plain(dev, n, c, m, weighted):
     np.testing.assert_allclose(num.cpu().numpy(), pnum.cpu().numpy(),
                                rtol=1e-5)
     np.testing.assert_allclose(den.cpu().numpy(), pden.cpu().numpy(),
+                               rtol=1e-5)
+
+
+#: rows of c squared distances through fcm::membership_from_d2 with and
+#: without its one-reciprocal form; counts the rows whose memberships
+#: differ in any bit and the rows that took the reciprocal
+_QUOTIENT_CHECK = r"""
+#include <stdint.h>
+#include "fcm_common.cuh"
+
+__device__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16; x *= 0x7feb352dU; x ^= x >> 15; x *= 0x846ca68bU;
+  return x ^ (x >> 16);
+}
+
+template <int MAXC>
+__global__ void check(int c, int mode, unsigned seed,
+                      unsigned long long* counts) {
+  uint32_t s = mix(seed ^ ((blockIdx.x * blockDim.x + threadIdx.x) *
+                           0x9e3779b9U));
+  const float x = (float)(mix(s) % 25600) / 100.f;
+  float a[MAXC], b[MAXC];
+  for (int j = 0; j < MAXC; ++j) {
+    s = mix(s + j + 1);
+    float d2;
+    if (mode == 0) {  // image-like: centers in [0, 256)
+      const float v = (float)(s % 2560000) / 10000.f;
+      d2 = (v - x) * (v - x);
+    } else {  // log-uniform over [2^-45, 2^61), past the form's 2^55
+      d2 = exp2f(-45.f + 105.f * (float)(s & 0xffffff) / 16777216.f) *
+           (1.f + (float)(mix(s) & 0xffff) / 65536.f);
+    }
+    a[j] = b[j] = j < c ? d2 : 0.f;
+  }
+  float dmin = b[0], dmax = b[0];
+  for (int j = 1; j < c; ++j) {
+    dmin = fminf(dmin, b[j]);
+    dmax = fmaxf(dmax, b[j]);
+  }
+  fcm::membership_from_d2<MAXC, false>(c, true, -1.f, a);
+  fcm::membership_from_d2<MAXC, true>(c, true, -1.f, b);
+  bool differ = false;
+  for (int j = 0; j < MAXC; ++j)
+    differ |= __float_as_uint(a[j]) != __float_as_uint(b[j]);
+  if (differ) atomicAdd(counts, 1ULL);
+  if (dmin > 0.f && dmax <= 0x1p55f) atomicAdd(counts + 1, 1ULL);
+}
+
+extern "C" int quotient_check(int c, int mode, unsigned seed, int blocks,
+                              unsigned long long* counts) {
+  if (c <= 4) check<4><<<blocks, 256>>>(c, mode, seed, counts);
+  else if (c <= 8) check<8><<<blocks, 256>>>(c, mode, seed, counts);
+  else if (c <= 16) check<16><<<blocks, 256>>>(c, mode, seed, counts);
+  else check<32><<<blocks, 256>>>(c, mode, seed, counts);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_one_reciprocal_membership_has_the_division_bits(dev):
+    """The membership's c divisions by one sum through one reciprocal
+    (fcm::quotient_by, taken by the fused partials at tiers 4 and 8) give
+    the IEEE divisions' bits: 2^29 random rows, c = 2-32, image-like
+    distances and log-uniform ones on both sides of the form's 2^55
+    bound (the rows past it take the divisions)."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "quotient_check.cu"
+    lib_path = _build.BUILD_DIR / "quotient_check.so"
+    src.write_text(_QUOTIENT_CHECK)
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                          "-I", str(_build.CSRC), str(src), "-o",
+                          str(lib_path)], capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lib = ctypes.CDLL(str(lib_path))
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    blocks = 16384
+    rows = 0
+    for mode in (0, 1):
+        for c in (2, 3, 4, 7, 8, 12, 16, 32):
+            for rep in range(8):
+                assert lib.quotient_check(c, mode, rep * 1000 + c * 10 + mode,
+                                          blocks,
+                                          ctypes.c_void_p(counts.data_ptr())
+                                          ) == 0
+                rows += blocks * 256
+    differ, took = counts.tolist()
+    print(f"one-reciprocal check: {rows} rows, {took} through the "
+          f"reciprocal, {differ} differ")
+    assert differ == 0
+    assert rows // 2 < took < rows
+
+
+@pytest.mark.parametrize("n,c,m,weighted", [(1, 4, 2.0, False),
+                                            (8193, 4, 2.0, False),
+                                            (8193, 4, 2.5, False),
+                                            (1_024_000, 4, 2.0, False),
+                                            (300000, 12, 2.0, False),
+                                            (256, 4, 2.0, True),
+                                            (70000, 32, 2.5, True)])
+def test_fused_partials_one_launch_repeats_and_ignores_alignment(
+        dev, n, c, m, weighted):
+    """One launch a call, the same bits on a second call and on a copy of
+    x one float off 16-byte alignment (scalar loads in place of vector
+    ones; the sums are added in one order either way)."""
+    x, v = _paper_pixels(dev, n, c, seed=3 * n + c)
+    w = (torch.arange(n, device=dev) % 5).to(torch.float32) if weighted \
+        else None
+    before = KC.fused_partials.launches
+    got = KC.fused_partials(x, w, v, m)
+    again = KC.fused_partials(x, w, v, m)
+    assert KC.fused_partials.launches == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    buf = torch.empty(n + 1, device=dev)
+    buf[1:] = x
+    assert buf[1:].data_ptr() % 16 != 0
+    off = KC.fused_partials(buf[1:], w, v, m)
+    assert torch.equal(got[0], off[0]) and torch.equal(got[1], off[1])
+    pnum, pden = KC.fused_partials_plain(x, w, v, m)
+    np.testing.assert_allclose(got[0].cpu().numpy(), pnum.cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got[1].cpu().numpy(), pden.cpu().numpy(),
                                rtol=1e-5)
 
 
@@ -695,9 +883,21 @@ def _row_10(x):
     return KSP.spatial_partials_3d(x, v, 2.0, 1.0)
 
 
+def _row_1(x):
+    return (KB.histogram_bin(x.reshape(x.shape[0], -1).to(torch.uint8),
+                             256),)
+
+
+def _row_3(x):
+    v = torch.stack([x[:, 0, 0] + 0.5, x[:, -1, 0] - 0.25], dim=1)
+    return (KD.labels(x.reshape(x.shape[0], -1), v.contiguous()),)
+
+
 #: PERF.md row -> (call, its wrapper, a lane's shape, launches for 65 537
 #: lanes: one a chunk of at most 65535 where the lanes sit on gridDim.y or z)
 _PAST_65535 = {
+    "1": (_row_1, KB.histogram_bin, (2, 1), 1),
+    "3": (_row_3, KD.labels, (2, 1), 2),
     "6b": (_row_6b, KC.fused_partials_batched, (2, 1), 1),
     "7": (_row_7, KR.resident_streamed_solve, (2, 1), 1),
     "8": (_row_8, KST.stencil_solve, (2, 2), 2),

@@ -23,7 +23,10 @@ groups rounds of lanes from :func:`streamed_plan`; the center partials
 (``csrc/fcm_centers.cu``) take tiles of rows over :func:`batched_plan`
 blocks a lane; the 2-D FCM_S step (``csrc/fcm_spatial.cu``) marches
 warp tasks of :func:`spatial2d_plan`. Their coverage is checked here by
-mirroring the kernels' index rules. The wrappers of the kernels whose
+mirroring the kernels' index rules, as is that of the ingest binning
+(``csrc/histogram_bin.cu``: aligned 16-byte words over
+:func:`bin_blocks` blocks a lane) and of the scalar fused partials (the
+batched form's plan at one lane). The wrappers of the kernels whose
 lanes once sat on a grid axis capped at 65535 are driven past their
 device checks with a fake library at 65 537 lanes. The kernels
 themselves run only on the card (``tests/test_torch_cuda.py``,
@@ -36,10 +39,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build
+from repro_torch.kernels import defuzzify as KD
 from repro_torch.kernels import fcm_centers as KC
 from repro_torch.kernels import fcm_resident as KR
 from repro_torch.kernels import fcm_spatial as KSP
 from repro_torch.kernels import fcm_stencil as KST
+from repro_torch.kernels import histogram_bin as KB
 from repro_torch.kernels import selective_scan as KSS
 from repro_torch.kernels import slic_assign as KS
 from repro_torch.superpixel import slic as SL
@@ -565,6 +570,191 @@ def test_center_partials_quads_cover_every_pixel_once(n):
     assert np.all(np.diff(q[owner == 0]) == g)
 
 
+# -- the ingest binning's words ----------------------------------------------
+
+def _bin_bytes(start, n, itemsize):
+    """The lane bytes each (block, thread, word) of the binning kernel
+    reads, for a lane whose first byte lies ``start`` bytes into the
+    buffer: block blk, thread t, word k reads the 16-byte word (start //
+    16) * 16 + blk * BLOCK_BYTES + 16 (k * THREADS + t) if it starts
+    before the lane's end, and bins the bytes of it inside the lane.
+    Returns each binned byte's offset into the lane."""
+    blocks = KB.bin_blocks(n, itemsize)
+    lo, hi = start, start + n * itemsize
+    blk, k, t = np.meshgrid(np.arange(blocks), np.arange(KB.WORDS),
+                            np.arange(KB.THREADS), indexing="ij")
+    word = (lo // 16) * 16 + blk * KB.BLOCK_BYTES + 16 * (k * KB.THREADS + t)
+    word = word[word < hi]
+    byte = (word[:, None] + np.arange(16)).ravel()
+    return byte[(byte >= lo) & (byte < hi)] - lo
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096, 16384, 39277, 1_024_000])
+@pytest.mark.parametrize("itemsize,start", [(1, 0), (1, 1), (1, 7), (1, 15),
+                                            (1, 39277), (4, 0), (4, 4),
+                                            (4, 12), (4, 4 * 39277)])
+def test_binning_words_cover_every_pixel_once(n, itemsize, start):
+    """Every byte of a lane is binned exactly once, at any alignment of
+    the lane's first byte (uint8 lanes of a (B, 39277) bucket start at
+    every alignment; int32 lanes at multiples of 4), and an int32 pixel
+    never straddles two words; the block count comes from N and the
+    pixel size alone."""
+    got = np.sort(_bin_bytes(start, n, itemsize))
+    assert np.array_equal(got, np.arange(n * itemsize))
+    if itemsize == 4:
+        assert ((start + got[::4]) % 16 <= 12).all()
+    assert KB.bin_blocks(n, itemsize) == -(-(n * itemsize + 15)
+                                           // KB.BLOCK_BYTES)
+
+
+def test_the_route_bucket_bins_in_clusters_of_two_blocks():
+    """A 217x181 uint8 slice is 2 blocks of 20 KB, one cluster, so the
+    route's bucket of 64 lanes is 128 blocks, at most one on each of the
+    H100's 132 SMs; the 1000 KB image alone 51 blocks, past a cluster,
+    folded by its last block; an int32 slice 8, one cluster."""
+    assert KB.BLOCK_BYTES == 20480
+    assert KB.bin_blocks(217 * 181, 1) == 2 <= KB.MAX_CLUSTER
+    assert 64 * KB.bin_blocks(217 * 181, 1) == 128 <= H100_SMS
+    assert KB.bin_blocks(1_024_000, 1) == 51 > KB.MAX_CLUSTER
+    assert KB.bin_blocks(217 * 181, 4) == 8 == KB.MAX_CLUSTER
+
+
+class _FakeBinLibrary:
+    def __init__(self):
+        self.calls = []
+
+    def histogram_bin_u8(self, px, b, n, n_bins, blocks, part, ticket, out,
+                         stream):
+        self.calls.append(("u8", b, n, n_bins, blocks))
+        return 0
+
+    def histogram_bin_i32(self, px, b, n, n_bins, blocks, part, ticket, out,
+                          stream):
+        self.calls.append(("i32", b, n, n_bins, blocks))
+        return 0
+
+
+@pytest.mark.parametrize("dtype,b,n,n_bins", [
+    (torch.uint8, 64, 39277, 256), (torch.uint8, 1, 1_024_000, 256),
+    (torch.int32, 3, 1000, 256), (torch.uint8, 2, 1, 256),
+    (torch.int32, 2, 5000, 7), (torch.int32, 2, 40000, 300)])
+def test_binning_wrapper_launches_once_with_the_plan(monkeypatch, dtype, b, n,
+                                                     n_bins):
+    """One library call a wrapper call, with the plan's blocks, partial
+    rows of n_bins rounded up to 4 ints only where a lane has more blocks
+    than a cluster holds, and one ticket a lane; the output is
+    float32."""
+    lib = _FakeBinLibrary()
+    sizes = []
+    real_empty = torch.empty
+
+    def spy(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes.append((tuple(t.shape), t.dtype))
+        return t
+    monkeypatch.setattr(KB, "_checked", lambda *a: True)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "_counters", {})
+    monkeypatch.setattr(torch, "empty", spy)
+    before = KB.histogram_bin.launches
+    out = KB.histogram_bin(torch.zeros((b, n), dtype=dtype), n_bins)
+    assert KB.histogram_bin.launches == before + 1
+    KB.histogram_bin.launches = before
+    blocks = KB.bin_blocks(n, torch.zeros((), dtype=dtype).element_size())
+    kind = "u8" if dtype == torch.uint8 else "i32"
+    assert lib.calls == [(kind, b, n, n_bins, blocks)]
+    assert out.dtype == torch.float32 and tuple(out.shape) == (b, n_bins)
+    rows = (b * blocks * (-(-n_bins // 4) * 4) if blocks > KB.MAX_CLUSTER
+            else 0)
+    assert ((rows,), torch.int32) in sizes
+    assert _build._counters[(out.device, 0)].numel() >= b
+
+
+# -- the scalar fused partials' plan -----------------------------------------
+
+@pytest.mark.parametrize("n", [1, 3, 255, 1023, 1024, 1025, 8193, 39277,
+                               300000, 1_024_000])
+@pytest.mark.parametrize("c", [1, 4, 8, 12, 32])
+@pytest.mark.parametrize("weighted,m", [(False, 2.0), (True, 2.0),
+                                        (False, 2.5)])
+def test_fused_partials_plan_covers_every_pixel_once(n, c, weighted, m):
+    """The scalar fused partials take the batched form's plan at one lane
+    of scalar rows (8 rows a thread at c <= 8 with unit weights, 4 with
+    weights at c <= 4), or one row a thread where that would leave fewer
+    blocks than an H100's SMs or m != 2: every pixel once, a block count
+    from N, c, the weights' presence and m == 2 alone, never from the
+    values."""
+    plan = KC.scalar_plan(n, c, weighted, m)
+    tier_rows = KC.batched_plan(1, n, 1, c, weighted).rows_per_thread
+    assert tier_rows == (8 if c <= 8 and not (weighted and c <= 4) else 4)
+    spread = -(-n // (KC.THREADS * tier_rows)) >= KC.SPREAD_BLOCKS
+    assert plan.rows_per_thread == (tier_rows if spread and m == 2.0 else 1)
+    if plan.rows_per_thread == 1:
+        tiles = -(-n // KC.THREADS)
+        owner = np.arange(tiles) % plan.blocks
+        rows = (np.arange(tiles)[:, None] * KC.THREADS
+                + np.arange(KC.THREADS)).ravel()
+        blocks = np.repeat(owner, KC.THREADS)[rows < n]
+        rows = rows[rows < n]
+    else:
+        blocks, rows = _batched_rows(n, plan)
+    assert np.array_equal(np.sort(rows), np.arange(n))
+    assert plan.grid == plan.blocks == min(-(-n // plan.tile),
+                                           KC.BATCHED_MAX_BLOCKS)
+    assert len(np.unique(blocks)) == plan.blocks
+    assert plan.part_floats == plan.blocks * 2 * c
+
+
+def test_the_1000kb_image_sits_on_the_card_in_one_wave():
+    """The fused solve's call: 8 rows a thread, 500 blocks (4 an SM at
+    most, the 48-register kernel's 5 an SM allow it); a 217x181 slice
+    and N = 8193 take one row a thread, 154 and 33 blocks."""
+    big = KC.scalar_plan(1_024_000, 4, False, 2.0)
+    assert (big.rows_per_thread, big.blocks) == (8, 500)
+    assert -(-big.blocks // H100_SMS) <= 4
+    assert KC.scalar_plan(39277, 4, False, 2.0).blocks == 154
+    assert KC.scalar_plan(8193, 4, False, 2.5)[3:6] == (1, 256, 33)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n,c", [(1_024_000, 4), (8193, 8), (1, 2),
+                                 (70000, 32)])
+def test_fused_partials_wrapper_launches_the_plan(monkeypatch, weighted, n,
+                                                  c):
+    """One library call a wrapper call with the plan's blocks and rows a
+    thread, a null weight pointer for unit weights, partials of the
+    plan's size and one ticket."""
+    calls, sizes = [], []
+    real_empty = torch.empty
+
+    class Lib:
+        def fcm_fused_partials(self, x, w, nn, v, cc, m, expo, blocks, rpt,
+                               part, ticket, num, den, stream):
+            calls.append((w is None, nn, cc, blocks, rpt))
+            return 0
+
+    def spy(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes.append(tuple(t.shape))
+        return t
+    monkeypatch.setattr(KC, "_checked", lambda *a: True)
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "_counters", {})
+    monkeypatch.setattr(torch, "empty", spy)
+    x = torch.zeros(n)
+    before = KC.fused_partials.launches
+    KC.fused_partials(x, torch.ones(n) if weighted else None, torch.zeros(c),
+                      2.0)
+    assert KC.fused_partials.launches == before + 1
+    KC.fused_partials.launches = before
+    plan = KC.scalar_plan(n, c, weighted, 2.0)
+    assert calls == [(not weighted, n, c, plan.blocks, plan.rows_per_thread)]
+    assert (plan.blocks, 2 * c) in sizes
+    assert _build._counters[(x.device, 0)].numel() >= 1
+
+
 # -- buckets of more than 65535 lanes ----------------------------------------
 
 #: a bucket one lane past two full chunks of 65535 would need; two lanes
@@ -574,7 +764,7 @@ BIG_B = 65537
 
 class _FakeLaneLibrary:
     """Stands in for the kernel library: records, for each call of the
-    five kernels whose lanes once sat on a grid axis capped at 65535, the
+    seven kernels whose lanes once sat on a grid axis capped at 65535, the
     lanes it was given and the pointers of its first input and output."""
     def __init__(self):
         self.calls = []
@@ -606,6 +796,25 @@ class _FakeLaneLibrary:
                                 expo, z_run, part, out, stream):
         self.calls.append((b, x, out))
         return 0
+
+    def histogram_bin_i32(self, px, b, n, n_bins, blocks, part, ticket, out,
+                          stream):
+        self.calls.append((b, px, out))
+        return 0
+
+    def labels_f32(self, x, b, n, v, c, out, stream):
+        self.calls.append((b, x, out))
+        return 0
+
+
+def _drive_1(monkeypatch, x):
+    monkeypatch.setattr(KB, "_checked", lambda *a: True)
+    return KB.histogram_bin(x.reshape(x.shape[0], -1), 256)
+
+
+def _drive_3(monkeypatch, x):
+    monkeypatch.setattr(KD, "_checked", lambda *a: True)
+    return KD.labels(x.reshape(x.shape[0], -1), torch.zeros((x.shape[0], 2)))
 
 
 def _drive_6b(monkeypatch, x):
@@ -647,6 +856,8 @@ def _drive_10(monkeypatch, x):
 #: PERF.md row -> (its _drive_ function, its wrapper, a lane's shape, the
 #: lanes of each library call)
 _PAST_65535 = {
+    "1": (_drive_1, KB.histogram_bin, (2, 1), [BIG_B]),
+    "3": (_drive_3, KD.labels, (2, 1), [65535, 2]),
     "6b": (_drive_6b, KC.fused_partials_batched, (2, 1), [BIG_B]),
     "7": (_drive_7, KR.resident_streamed_solve, (2, 1), [BIG_B]),
     "8": (_drive_8, KST.stencil_solve, (2, 2), [65535, 2]),
@@ -658,10 +869,10 @@ _PAST_65535 = {
 def test_a_bucket_past_65535_lanes_takes_chunks_or_one_call(monkeypatch,
                                                             row):
     """65 537 tiny lanes through each wrapper, driven past its device
-    check with a fake library: rows 8 and 10 (lanes on gridDim.y or z)
-    make one call a chunk, of 65535 and 2 lanes, each into its own slice
-    of the inputs and outputs; rows 6b, 7 and 9 (a 1-D grid) make one
-    call. No wrapper raises, and launches counts the calls."""
+    check with a fake library: rows 3, 8 and 10 (lanes on gridDim.y or
+    z) make one call a chunk, of 65535 and 2 lanes, each into its own
+    slice of the inputs and outputs; rows 1, 6b, 7 and 9 (a 1-D grid)
+    make one call. No wrapper raises, and launches counts the calls."""
     drive, fn, shape, lanes = _PAST_65535[row]
     lib = _FakeLaneLibrary()
     monkeypatch.setattr(_build, "library", lambda: lib)
@@ -736,13 +947,16 @@ def test_batched_blocks_depend_on_the_lane_alone(n, d, c):
 
 def test_the_c12_bucket_fills_the_card_and_a_lone_lane_spreads():
     """16 twelve-class BrainWeb slices: a block for each 1024 rows, 624
-    blocks, more than one for each of an H100's 132 SMs; the lone lane
-    of 1 100 000 rows takes 269 blocks of 4096 rows."""
+    blocks, more than one for each of an H100's 132 SMs; the lone
+    weighted lane of 1 100 000 rows takes the most blocks, 1024 of 1024
+    rows; the 1000 KB image with unit weights 500 blocks of 2048 rows."""
     bucket = KC.batched_plan(16, 39277, 1, 12)
     assert (bucket.tier, bucket.rows_per_thread, bucket.blocks) == (12, 4, 39)
     assert bucket.grid == 624 >= H100_SMS
     lone = KC.batched_plan(1, 1100000, 1, 4)
-    assert lone.blocks == 269 > H100_SMS
+    assert lone.blocks == KC.BATCHED_MAX_BLOCKS > H100_SMS
+    unit = KC.batched_plan(1, 1_024_000, 1, 4, weighted=False)
+    assert (unit.rows_per_thread, unit.blocks) == (8, 500)
 
 
 @pytest.mark.parametrize("c,d,tier", [(1, 1, 4), (4, 1, 4), (5, 1, 8),
