@@ -10,14 +10,20 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
 2. build: compile every kernel under ``src/repro_torch/csrc`` for
    ``sm_90a``, print the build time and ptxas' register report, and hold
    the library's exported bounds and plan constants against the Python
-   plans (the stencil whole-solve's, the 3-D and 2-D marches', the SLIC
-   tile's, the streamed whole-solve's block shape and each tier's
-   occupancy, the batched fused partials' tiers, feature chunks and rows
-   a thread);
+   plans (the resident whole-solve's rows and threads, the labels'
+   pixels a block, the stencil whole-solve's, the 3-D and 2-D
+   marches', the SLIC tile's, the streamed whole-solve's block shape and
+   each tier's occupancy, the batched fused partials' tiers, feature
+   chunks and rows a thread);
 3. kernels: call each kernel's wrapper on tensors on the card at the
    serving path's shapes, hold the result against its plain PyTorch
    version on the same inputs, and time kernel, plain version and the
-   library call computing the same function (where one exists);
+   library call computing the same function (where one exists); the
+   resident whole-solve in its plan's form and, on the histograms, in
+   the run-time body too, with the bucket's iterations and device time
+   an iteration; the labels on the bucket as uint8, int32 and float32,
+   each also 3 pixels off alignment, with each dtype's plan and device
+   time;
 4. engine: serve a 181-slice 217x181 phantom volume (BrainWeb's size)
    through ``FCMServeEngine`` with the launch counts set to 0 just
    before and read just after, hold labels and iteration counts against
@@ -246,10 +252,11 @@ def check_binning(KB, vol_u8, big_u8, dev, card):
                 bound_by=by, library_ms=lib_ms)
 
 
-def check_solve(KR, SV, hists_np, dev):
+def check_solve(KR, SV, hists_np, dev, card):
     """Whole-solve kernel vs its plain version: the 64 phantom
-    histograms plus degenerate lanes, random vector rows at the kernel's
-    row bound, and m != 2."""
+    histograms plus degenerate lanes (in the plan's form, the tier, and
+    in the run-time body), random vector rows at the kernel's row bound,
+    and m != 2; the bucket's device time and time an iteration."""
     k = 256
     zero_img = np.zeros(k, np.float32)
     zero_img[0] = 4000.0                      # all-zero image: one bin
@@ -287,30 +294,49 @@ def check_solve(KR, SV, hists_np, dev):
         v0 = SV.linspace_from_support(lo, hi, c).contiguous()
         tol = SV._tol_from_range((hi - lo).max(dim=1).values,
                                  5e-3).contiguous()
-        v, delta, iters = KR.resident_solve(x, wt, v0, tol, m, 300)
-        torch.cuda.synchronize()
         pv, pdelta, piters = KR.resident_solve_plain(x, wt, v0, tol, m, 300)
-        v_np, pv_np = v.cpu().numpy(), pv.cpu().numpy()
-        it_np, pit_np = iters.cpu().numpy(), piters.cpu().numpy()
-        require(np.isfinite(v_np).all(), f"non-finite centers on {name}")
-        if not np.array_equal(it_np, pit_np):
-            bad = np.nonzero(it_np != pit_np)[0]
-            margin = (pdelta.cpu().numpy() - tol.cpu().numpy())[bad]
-            fail(f"iteration counts differ on {name}: lanes {bad.tolist()}"
-                 f" kernel {it_np[bad].tolist()} plain "
-                 f"{pit_np[bad].tolist()}, delta - tol {margin.tolist()}")
-        np.testing.assert_allclose(v_np, pv_np, rtol=RTOL, atol=ATOL,
-                                   err_msg=name)
-        err = float(np.abs(v_np - pv_np).max())
-        worst = max(worst, err)
-        print(f"  solve {name}: iters equal (max {int(it_np.max())}), "
-              f"max |dv| {err:.3g}")
+        pv_np, pit_np = pv.cpu().numpy(), piters.cpu().numpy()
+        plan = KR.resident_plan(x.shape[1], c, x.shape[2], m)
+        # the plan's form, and on the tier's rows the run-time body too
+        forms = [("plan", None)] + ([("run-time body", plan._replace(
+            tier=False))] if plan.tier else [])
+        for form, forced in forms:
+            if forced is None:
+                v, delta, iters = KR.resident_solve(x, wt, v0, tol, m, 300)
+            else:
+                v, delta, iters = KR._launch_resident(x, wt, v0, tol, m,
+                                                      300, forced)
+            torch.cuda.synchronize()
+            v_np, it_np = v.cpu().numpy(), iters.cpu().numpy()
+            what = f"{name} ({form})"
+            require(np.isfinite(v_np).all(), f"non-finite centers on {what}")
+            if not np.array_equal(it_np, pit_np):
+                bad = np.nonzero(it_np != pit_np)[0]
+                margin = (pdelta.cpu().numpy() - tol.cpu().numpy())[bad]
+                fail(f"iteration counts differ on {what}: lanes "
+                     f"{bad.tolist()} kernel {it_np[bad].tolist()} plain "
+                     f"{pit_np[bad].tolist()}, delta - tol "
+                     f"{margin.tolist()}")
+            np.testing.assert_allclose(v_np, pv_np, rtol=RTOL, atol=ATOL,
+                                       err_msg=what)
+            err = float(np.abs(v_np - pv_np).max())
+            worst = max(worst, err)
+            print(f"  solve {what}: iters equal (max {int(it_np.max())}), "
+                  f"max |dv| {err:.3g}; form {(forced or plan)._asdict()}")
         if timing is None:
-            timing = (x, wt, v0, tol, m, it_np, c)
+            timing = (x, wt, v0, tol, m, pit_np, c)
     x, wt, v0, tol, m, it_np, c = timing
     x, wt, v0, tol = x[:64].contiguous(), wt[:64].contiguous(), \
         v0[:64].contiguous(), tol[:64].contiguous()
     it_np = it_np[:64]
+    dms, per = device_ms(lambda: KR.resident_solve(x, wt, v0, tol, m, 300))
+    _one_kernel(per, "fcm_resident_solve on the 64-lane bucket")
+    most = int(it_np.max())
+    print(f"  solve 64x256 bucket: iterations {sorted(set(it_np.tolist()))}"
+          f" (most {most}); device {_fmt_ms(dms)} a call"
+          + ("" if dms is None else f", {dms * 1e3 / most:.3f} us an "
+             f"iteration of the slowest lane")
+          + f" ({_kernel_names(per)}) [{card}]")
     ms = time_ms(lambda: KR.resident_solve(x, wt, v0, tol, m, 300))
     plain_ms = time_ms(lambda: KR.resident_solve_plain(x, wt, v0, tol, m,
                                                        300), reps=2,
@@ -325,20 +351,34 @@ def check_solve(KR, SV, hists_np, dev):
                 bound_by=by, library_ms=None), int(it_np.max())
 
 
-def check_labels(KD, vol_u8, centers, dev):
+def _off_alignment(t, pixels=3):
+    """The same (B, N) values in a buffer ``pixels`` past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + pixels, dtype=t.dtype, device=t.device)
+    buf[pixels:] = t.reshape(-1)
+    off = buf[pixels:].view(t.shape)
+    require(off.data_ptr() % 16 != 0, "the offset view is aligned")
+    return off
+
+
+def check_labels(KD, vol_u8, centers, dev, card):
+    """The labels kernel vs its plain version, exact: the bucket as
+    uint8, float32 and int32, each also 3 pixels off alignment, the bin
+    values and ties; each dtype's plan and device time on the bucket,
+    one kernel a call."""
     px = torch.from_numpy(vol_u8).to(dev)
     v = torch.from_numpy(np.ascontiguousarray(centers)).to(dev)
     vals = torch.arange(256, dtype=torch.float32, device=dev).repeat(
         v.shape[0], 1)
     ties_x = torch.tensor([[30.0, 10.0, 50.0, 29.0, 31.0, 0.0]], device=dev)
     ties_v = torch.tensor([[10.0, 10.0, 50.0, 50.0]], device=dev)
-    cases = {
-        "64x256 bin values": (vals, v),
-        "64x217*181 uint8": (px, v),
-        "64x217*181 float32": (px.to(torch.float32), v),
-        "64x217*181 int32": (px.to(torch.int32), v),
-        "ties": (ties_x, ties_v),
-    }
+    dtypes = {"uint8": px, "float32": px.to(torch.float32),
+              "int32": px.to(torch.int32)}
+    cases = {"64x256 bin values": (vals, v), "ties": (ties_x, ties_v)}
+    for dt, t in dtypes.items():
+        cases[f"64x217*181 {dt}"] = (t, v)
+        cases[f"64x217*181 {dt}, 3 pixels off alignment"] = (
+            _off_alignment(t), v)
     for name, (x, vv) in cases.items():
         got = KD.labels(x, vv)
         torch.cuda.synchronize()
@@ -349,6 +389,12 @@ def check_labels(KD, vol_u8, centers, dev):
         print(f"  labels {name}: exact")
     require(KD.labels(ties_x, ties_v).cpu().tolist()[0]
             == [0, 0, 2, 0, 2, 0], "ties do not go to the lowest index")
+    for dt, t in dtypes.items():
+        dms, per = device_ms(lambda: KD.labels(t, v))
+        _one_kernel(per, f"labels 64x217*181 {dt}")
+        plan = KD.labels_plan(*t.shape, t.element_size())
+        print(f"  labels 64x217*181 {dt}: plan {plan._asdict()}; device "
+              f"{_fmt_ms(dms)} a call ({_kernel_names(per)}) [{card}]")
     b, n = px.shape
     c = v.shape[1]
     ms = time_ms(lambda: KD.labels(px, v))
@@ -2221,8 +2267,13 @@ def main(dev=None):
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
-    require(lib.fcm_resident_max_rows() == KR.MAX_ROWS,
-            "the kernel's row bound disagrees with fcm_resident.MAX_ROWS")
+    require(lib.fcm_resident_max_rows() == KR.MAX_ROWS
+            and lib.fcm_resident_threads() == KR.THREADS,
+            "the resident kernel's row bound or threads disagree with "
+            "fcm_resident.MAX_ROWS / THREADS")
+    require(lib.labels_block_pixels() == KD.BLOCK_PIXELS,
+            "the labels kernel's pixels a block disagree with "
+            "defuzzify.BLOCK_PIXELS")
     require(lib.fcm_max_c() == KM.MAX_C == KC.MAX_C,
             "the per-iteration kernels' cluster bound disagrees with "
             "fcm_membership.MAX_C")
@@ -2319,13 +2370,14 @@ def main(dev=None):
     k_bin = check_binning(KB, vol_u8, big_u8, dev, card)
     hists = KB.histogram_bin(torch.from_numpy(vol_u8).to(dev), 256)
     print("[kernels] whole-solve")
-    k_solve, _ = check_solve(KR, SV, hists.cpu().numpy(), dev)
+    k_solve, _ = check_solve(KR, SV, hists.cpu().numpy(), dev, card)
     feats = torch.arange(256, dtype=torch.float32, device=dev).repeat(
         64, 1)[..., None].contiguous()
     v, _, _, _ = SV.flat_batched_solve(feats, hists, 4, 2.0, 5e-3, 300,
                                        impl="resident")
     print("[kernels] labels")
-    k_labels = check_labels(KD, vol_u8, v[..., 0].cpu().numpy(), dev)
+    k_labels = check_labels(KD, vol_u8, v[..., 0].cpu().numpy(), dev,
+                            card)
     for name, k in (("histogram_bin", k_bin), ("fcm_resident_solve",
                                                k_solve),
                     ("labels", k_labels)):

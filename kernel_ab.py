@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Times eleven kernels of one source tree on the card (rows 1, 4, 5, 6,
-6b, 7, 8, 9, 10, 11 and 12 of PERF.md's kernel table: the ingest
-binning, the membership, the center partials, the scalar and batched
-fused partials, the HBM-streamed whole-solve, the stencil whole-solve,
-the 2-D and 3-D FCM_S steps, the SLIC assignment and the selective
-scan), at the shapes their main paths give them, so that two commits can
-be compared on one card, in one run.
+"""Times thirteen kernels of one source tree on the card (rows 1-12 and
+6b of PERF.md's kernel table: the ingest binning, the resident
+whole-solve, the labels, the membership, the center partials, the
+scalar and batched fused partials, the HBM-streamed whole-solve, the
+stencil whole-solve, the 2-D and 3-D FCM_S steps, the SLIC assignment
+and the selective scan), at the shapes their main paths give them, so
+that two commits can be compared on one card, in one run.
 
     python3 kernel_ab.py [--tree DIR] [--label NAME] [--rows 1,6,...]
 
@@ -19,6 +19,7 @@ parent, change, change, parent. Needs one CUDA card; prints the card's
 name and power limit, then one JSON line:
 
     {"label": ..., "card": ..., "histogram_bin": {...},
+     "resident_solve": {...}, "labels": {...},
      "membership": {...}, "fused_partials": {...},
      "center_partials": {...}, "fused_partials_batched": {...},
      "streamed_solve": {...}, "selective_scan": {...},
@@ -48,7 +49,14 @@ lane) a probe built from that tree's source reads the same, and the
 
 The shapes: the binning on the histogram route's bucket (64 phantom
 217x181 uint8 slices), the 1000 KB image as one lane and the bucket as
-int32, with ``torch.bincount`` beside it; the membership and the scalar
+int32, with ``torch.bincount`` beside it; the resident whole-solve on
+that bucket's 64 histograms (256 rows, c = 4, m = 2, eps 5e-3), with
+each lane's iterations and the device time over the most of them, and
+on 5 lanes of 1024 clustered 3-D rows at c = 8 (phase 3's), a tree with
+``resident_plan`` also in each form (``by_form``: the tier and the
+run-time body on the bucket); the
+labels on the bucket as uint8, int32 and float32 and on the 1000 KB
+image, c = 4, with the bucket's solved centers; the membership and the scalar
 fused partials at the paper's 1000 KB image (c = 4, m = 2, phase 5's
 centers; the fused partials also on phase 5's other cases: m = 2.5,
 c = 8, N = 1, N = 8193 and 256 weighted histogram rows); the batched
@@ -302,12 +310,8 @@ def row7(torch, tree, dev):
     from repro_torch.data import phantom
     from repro_torch.kernels import _build
     from repro_torch.kernels import fcm_resident as KR
-    slices = [phantom.phantom_slice(217, 181, slice_pos=float(p), seed=z)[0]
-              for z, p in enumerate(np.linspace(0.3, 0.7, 181))]
-    pick = np.linspace(0, 180, 64).round().astype(int)
     cases = {
-        "bucket_64x39277": np.stack([slices[i].reshape(-1) for i in pick])[
-            ..., None],
+        "bucket_64x39277": _bucket_u8(phantom)[..., None],
         "lone_1000KB": phantom.phantom_of_bytes(1000 * 1024)[0].reshape(
             1, -1, 1),
         "lone_rgb512": phantom.phantom_slice_rgb(512, 512, noise=6.0,
@@ -447,6 +451,15 @@ def row9(torch, phantom, dev):
     return out
 
 
+def _bucket_u8(phantom):
+    """The histogram route's bucket: the 64 phantom 217x181 uint8 slices
+    phase 4 picks of the 181-slice volume, (64, 39277)."""
+    slices = [phantom.phantom_slice(217, 181, slice_pos=float(p), seed=z)[0]
+              for z, p in enumerate(np.linspace(0.3, 0.7, 181))]
+    pick = np.linspace(0, 180, 64).round().astype(int)
+    return np.stack([slices[i].reshape(-1) for i in pick])
+
+
 def row1(torch, phantom, dev):
     """The binning on the main path's bucket (64 phantom 217x181 uint8
     slices, the ones phase 4 picks), on the 1000 KB image as one lane,
@@ -454,10 +467,7 @@ def row1(torch, phantom, dev):
     by name, and torch.bincount over the bucket's lanes offset by 256 a
     lane (the library call)."""
     from repro_torch.kernels import histogram_bin as KB
-    slices = [phantom.phantom_slice(217, 181, slice_pos=float(p), seed=z)[0]
-              for z, p in enumerate(np.linspace(0.3, 0.7, 181))]
-    pick = np.linspace(0, 180, 64).round().astype(int)
-    vol = np.stack([slices[i].reshape(-1) for i in pick])
+    vol = _bucket_u8(phantom)
     cases = {"bucket_64x39277_u8": vol,
              "lone_1x1024000_u8": phantom.phantom_of_bytes(1000 * 1024)[0]
              .reshape(1, -1),
@@ -480,6 +490,106 @@ def row1(torch, phantom, dev):
             * 256).reshape(-1)
     out["bincount_ms"] = event_ms(
         torch, lambda: torch.bincount(flat, minlength=64 * 256), 20, 5)
+    return out
+
+
+def row2(torch, SV, phantom, dev):
+    """The resident whole-solve on the main path's bucket (the 64 slices'
+    256-bin histograms, c = 4, m = 2, eps 5e-3) and on phase 3's 5 lanes
+    of 1024 clustered 3-D rows at c = 8 (a run-time form); each lane's
+    iterations and the device time over the most iterations. A tree with
+    ``resident_plan`` also times the bucket in each form (the tier and
+    the run-time body, ``by_form``)."""
+    from repro_torch.kernels import fcm_resident as KR
+    vol = _bucket_u8(phantom)
+    hists = np.stack([np.bincount(r, minlength=256) for r in vol])
+    rng = np.random.default_rng(11)
+    means = rng.uniform(0, 255, (5, 8, 3))
+    pick = rng.integers(0, 8, (5, 1024))
+    blobs = (np.take_along_axis(means, pick[..., None], axis=1)
+             + rng.normal(0, 6, (5, 1024, 3))).astype(np.float32)
+    cases = {"bucket_64x256_c4": (np.broadcast_to(
+        np.arange(256, dtype=np.float32)[None, :, None], (64, 256, 1)),
+        hists, 4),
+        "blobs_5x1024_d3_c8": (blobs, rng.integers(0, 40, (5, 1024)), 8)}
+    out = {}
+    for name, (feats, w, c) in cases.items():
+        x = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(dev)
+        wt = torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(dev)
+        lo, hi = SV.weighted_support(x, wt)
+        v0 = SV.linspace_from_support(lo, hi, c).contiguous()
+        tol = SV._tol_from_range((hi - lo).max(dim=1).values,
+                                 5e-3).contiguous()
+        call = lambda: KR.resident_solve(x, wt, v0, tol, 2.0, 300)  # noqa
+        before = KR.resident_solve.launches
+        v, _, it = call()
+        torch.cuda.synchronize()
+        assert KR.resident_solve.launches == before + 1
+        pv, _, pit = KR.resident_solve_plain(x, wt, v0, tol, 2.0, 300)
+        assert torch.equal(it, pit)
+        np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4)
+        dms, names = device_ms(torch, call, 20)
+        iters = it.cpu().tolist()
+        e = dict(shape=list(x.shape), c=c, iters=iters,
+                 ms=event_ms(torch, call, 20, 5), device_ms=dms,
+                 kernels=names,
+                 device_us_per_iter=None if dms is None
+                 else dms * 1e3 / max(iters))
+        if hasattr(KR, "resident_plan"):
+            k, d = x.shape[1], x.shape[2]
+            e["plan"] = KR.resident_plan(k, c, d, 2.0)._asdict()
+            e["by_form"] = {}
+            for tier in ((True, False) if c == 4 and d == 1 else (False,)):
+                plan = KR.resident_plan(k, c, d, 2.0)._replace(tier=tier)
+                form = lambda: KR._launch_resident(  # noqa: E731
+                    x, wt, v0, tol, 2.0, 300, plan)
+                fv, _, fit = form()
+                torch.cuda.synchronize()
+                assert torch.equal(fit, it)
+                np.testing.assert_allclose(fv.cpu().numpy(),
+                                           pv.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-4)
+                key = "tier" if tier else "run_time"
+                e["by_form"][key] = device_ms(torch, form, 20)[0]
+        out[name] = e
+    return out
+
+
+def row3(torch, SV, phantom, dev):
+    """The labels on the main path's bucket (the 64 slices as uint8, and
+    as int32 and float32, c = 4, the bucket's solved centers) and on the
+    1000 KB image as one uint8 lane; each exact against the plain version,
+    with a tree's ``labels_plan`` where it has one."""
+    from repro_torch.kernels import defuzzify as KD
+    vol = _bucket_u8(phantom)
+    hists = torch.from_numpy(np.stack([np.bincount(r, minlength=256)
+                                       for r in vol]).astype(np.float32))
+    feats = torch.arange(256, dtype=torch.float32).repeat(64, 1)[..., None]
+    v, _, _, _ = SV.flat_batched_solve(feats, hists, 4, 2.0, 5e-3, 300)
+    v = v[..., 0].contiguous().to(dev)
+    big = phantom.phantom_of_bytes(1000 * 1024)[0].reshape(1, -1)
+    cases = {"bucket_64x39277_u8": (vol, v),
+             "bucket_64x39277_i32": (vol.astype(np.int32), v),
+             "bucket_64x39277_f32": (vol.astype(np.float32), v),
+             "lone_1x1024000_u8": (big, v[:1].contiguous())}
+    out = {}
+    for name, (arr, vv) in cases.items():
+        px = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        call = lambda: KD.labels(px, vv)  # noqa: E731
+        before = KD.labels.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert KD.labels.launches == before + 1
+        assert torch.equal(got, KD.labels_plain(px, vv))
+        dms, names = device_ms(torch, call, 20)
+        e = dict(shape=list(arr.shape), dtype=str(arr.dtype),
+                 ms=event_ms(torch, call, 20, 5), device_ms=dms,
+                 kernels=names)
+        if hasattr(KD, "labels_plan"):
+            e["plan"] = KD.labels_plan(*px.shape,
+                                       px.element_size())._asdict()
+        out[name] = e
     return out
 
 
@@ -576,7 +686,8 @@ def row6(torch, phantom, dev):
     return out
 
 
-ROWS = ("1", "4", "5", "6", "6b", "7", "8", "9", "10", "11", "12")
+ROWS = ("1", "2", "3", "4", "5", "6", "6b", "7", "8", "9", "10", "11",
+        "12")
 
 
 def main():
@@ -612,6 +723,10 @@ def main():
 
     if "1" in rows:
         out["histogram_bin"] = row1(torch, phantom, dev)
+    if "2" in rows:
+        out["resident_solve"] = row2(torch, SV, phantom, dev)
+    if "3" in rows:
+        out["labels"] = row3(torch, SV, phantom, dev)
     if "4" in rows:
         out["membership"] = row4(torch, dev)
     if "6" in rows:

@@ -1,5 +1,5 @@
-// Device helpers shared by the per-iteration FCM kernels (fcm_membership.cu,
-// fcm_centers.cu, fcm_spatial.cu, fcm_stencil.cu, fcm_streamed.cu): the Eq. 4
+// Device helpers shared by the FCM kernels (fcm_membership.cu, fcm_centers.cu,
+// fcm_spatial.cu, fcm_stencil.cu, fcm_streamed.cu, fcm_resident.cu): the Eq. 4
 // membership of one pixel from its c squared distances, computed in registers
 // with the same float32 operations as the plain PyTorch version
 // (repro_torch.core.fcm.membership_from_d2), a block's fixed-order fold of
@@ -36,6 +36,11 @@ constexpr int kMaxC = 32;
 // max(a, floor) that propagates NaN, like torch.clamp / jnp.maximum
 __device__ __forceinline__ float floor_at(float a) {
   return a < kFloor ? kFloor : a;
+}
+
+// max that propagates NaN, like jnp.max and torch.max
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (b > a || b != b) ? b : a;
 }
 
 // a / b rounded to nearest, from y = RN(1 / b) (__frcp_rn), in multiplies and

@@ -8,42 +8,64 @@
 //
 // What bounds it on an H100: not bytes (a 256-row histogram lane is
 // 256 * (D + 1) * 4 B = 2 KiB at D = 1) and not operations (about 30 float
-// operations per row, cluster and iteration). The limit is the serial chain:
-// each iteration is a dependent sequence of a per-row pass, a block-wide
-// reduction and a broadcast of the new centers, with two block barriers, and
-// a lane needs tens of iterations. The design keeps that chain on one SM with
-// no trip to device memory and no launch between iterations.
+// operations per row, cluster and iteration). The limit is the serial chain
+// of one iteration times the iterations of the bucket's slowest lane: a
+// per-row pass, a reduction across the block, the new centers and the stop
+// test. The lanes run side by side, one block each, so a 64-lane bucket
+// takes 64 of the 132 SMs and no SM does more than one lane.
 //
-// Design: one block per lane (a full 64-lane bucket is one launch of 64
-// blocks). Each thread keeps its rows and weights in registers for the whole
-// solve; the centers live in shared memory. One iteration:
-//   1. every thread computes, for each of its rows, d2 to each center, the
-//      Eq. 4 membership with the 1e-12 distance floor and the even split over
-//      zero-distance centers, u^m * w, and adds u^m * w * x and u^m * w into
-//      its c * (D + 1) partial sums (its rows in order);
-//   2. each warp reduces the partial sums with a fixed shuffle tree and writes
-//      them to shared memory; after a barrier warp 0 adds the eight warps'
-//      sums in warp order, forms v' = num / max(den, 1e-12) and
-//      delta = max|v' - v| (NaN-propagating, as jnp.max), and publishes both
-//      through shared memory;
-//   3. after a second barrier every thread tests delta >= tol && it < max_iters
-//      on the same shared value, so the loop stays uniform across the block.
-// The reduction order is fixed, so a run repeats bit for bit. It differs from
-// the plain version's order, so centers agree to rounding, not bitwise.
-// With m == 2 the two powers are computed exactly as the plain version does:
-// d^(-1) as 1 / d and u^2 as u * u (torch.pow and XLA take the same special
-// cases for exponents -1 and 2); other m use powf with the float32 exponents
-// -1/(m-1) and m. The library is compiled with --fmad=false so that no
-// multiply-add is contracted where the plain version rounds twice.
+// Design: one block of 256 threads per lane on a 1-D grid (any number of
+// lanes, one launch). Each thread keeps its rows (row tid + 256 r, r < 4)
+// and weights in registers for the whole solve, and so do the centers:
+// every thread holds all c * D of them. One iteration:
+//   1. every thread computes, for each of its rows in order, d2 to each
+//      center, Eq. 4 (fcm::membership_from_d2: the 1e-12 distance floor, the
+//      zero test by the minimum and the even split over zero-distance
+//      centers), u^m * w, and adds u^m * w * x and u^m * w into its
+//      c * (D + 1) sums;
+//   2. each warp reduces its sums with __shfl_xor_sync butterflies, so every
+//      lane holds the warp's sums, and lane 0 stores them into the shared
+//      slot of the iteration's parity;
+//   3. one __syncthreads(); then every warp adds the 8 warps' sums in warp
+//      order and forms v' = num / max(den, 1e-12) and delta = max|v' - v|
+//      (NaN-propagating, as jnp.max) itself: at the tier every thread forms
+//      all 4 centers; in the run-time bodies lane i forms center elements i
+//      and i + 32, a butterfly takes the warp's max, and shuffles hand each
+//      lane the c * D new centers (every thread forming all of them cost
+//      14 % at c = 8, D = 3, kernel_ab.py).
+// Every warp does the same operations in the same order on the same values
+// (and a + b == b + a exactly, so the butterflies leave a warp's lanes
+// equal), so every thread holds the same bits and the loop test
+// delta >= tol && it < max_iters stays uniform with no second barrier and no
+// broadcast across warps. The two parity slots make the one barrier enough:
+// a warp stores into a slot again only after the next iteration's barrier,
+// which every warp reaches after its reads of that slot.
 //
-// Row bound: rows stay in registers, ROWS_PER_THREAD of them per thread, so a
-// lane holds at most THREADS * ROWS_PER_THREAD = 256 * 4 = 1024 rows. At
-// D = 8 a thread keeps 4 * (8 + 1) row values, 8 * 9 partial sums and three
-// c-vectors, about 140 registers, within the 255 a thread may have; 256
-// threads at that count fit one block per SM's 65,536 registers. Larger flat
-// problems take the HBM-streamed solve (fcm_streamed.cu).
+// Forms (resident_plan in kernels/fcm_resident.py picks one from the shape):
+// the tier, c == 4, D == 1 and m == 2 compile-time (the paper's
+// configuration, which the histogram route runs), with one reciprocal for a
+// row's 4 divisions by its sum (fcm::quotient_by, the same bits), and
+// run-time bodies for every other c <= 8, D <= 8 (one instance a D) and m.
+// 8 warps measured faster than 4 (one an SM sub-partition) on the
+// histogram bucket in both forms (kernel_ab.py, PERF.md). Rows a thread at
+// most 4, so a lane holds at most 1024 rows; at D = 8 a thread keeps 4 * 8
+// row values, 8 * 8 centers and 8 * 9 sums in registers, within the 255 a
+// thread may have at 256 threads. Larger flat problems take the
+// HBM-streamed solve (fcm_streamed.cu).
+//
+// The reduction order is fixed (rows a thread in order, the butterfly, the
+// warps in order), so a run repeats bit for bit and a lane's bits do not
+// depend on its bucket. It differs from the plain version's order, so
+// centers agree to rounding, not bitwise. With m == 2 the two powers are
+// computed exactly as the plain version does: d^(-1) as 1 / d and u^2 as
+// u * u (torch.pow and XLA take the same special cases for exponents -1 and
+// 2); other m use powf with the float32 exponents -1/(m-1) and m. The
+// library is compiled with --fmad=false so that no multiply-add is
+// contracted where the plain version rounds twice.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "fcm_common.cuh"
 
 namespace {
 
@@ -52,37 +74,30 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerThread = 4;
 constexpr int kMaxRows = kThreads * kRowsPerThread;
 constexpr int kMaxC = 8;
-constexpr float kFloor = 1e-12f;
 
-// max that propagates NaN, like jnp.max and torch.max
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
-}
-
-// max(a, floor) that propagates NaN, like jnp.maximum / torch.clamp
-__device__ __forceinline__ float floor_at(float a) {
-  return a < kFloor ? kFloor : a;
-}
-
-template <int D>
+// TIER: c == 4, D == 1 and m == 2 at compile time; else c <= kMaxC and m at
+// run time.
+template <int D, bool TIER>
 __global__ void __launch_bounds__(kThreads)
 resident_solve_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ v0,
-                      const float* __restrict__ tol, int k, int c, float m,
+                      const float* __restrict__ tol, int k, int c_rt, float m,
                       float expo, int max_iters, float* __restrict__ v_out,
                       float* __restrict__ delta_out,
                       int* __restrict__ iters_out) {
-  constexpr int kAcc = D + 1;  // D numerator sums and one denominator sum
-  __shared__ float v_s[kMaxC * D];
-  __shared__ float part[kWarps][kMaxC * kAcc];
-  __shared__ float delta_s;
+  constexpr int CM = TIER ? 4 : kMaxC;  // cluster slots held in registers
+  constexpr int kAcc = D + 1;           // D numerator sums and one denominator
+  constexpr int kSums = CM * kAcc;
+  constexpr int kSlot = (kSums + 3) / 4 * 4;  // a warp's sums, whole float4s
+  __shared__ __align__(16) float part[2][kWarps][kSlot];
 
-  const int lane = blockIdx.x;
+  const int c = TIER ? 4 : c_rt;
+  const int cd = c * D;
+  const bool m_is_2 = TIER || m == 2.0f;
+  const long long lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int wid = tid >> 5;
   const int lid = tid & 31;
-  const bool m_is_2 = (m == 2.0f);
-  const int cd = c * D;
 
   float xr[kRowsPerThread][D];
   float wr[kRowsPerThread];
@@ -92,64 +107,48 @@ resident_solve_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const bool ok = row < k;
 #pragma unroll
     for (int d = 0; d < D; ++d)
-      xr[r][d] = ok ? x[((long long)lane * k + row) * D + d] : 0.f;
-    wr[r] = ok ? w[(long long)lane * k + row] : 0.f;
+      xr[r][d] = ok ? x[(lane * k + row) * D + d] : 0.f;
+    wr[r] = ok ? w[lane * k + row] : 0.f;
   }
-  for (int i = tid; i < cd; i += kThreads)
-    v_s[i] = v0[(long long)lane * cd + i];
+  const float* v0l = v0 + lane * cd;
+  float v[CM][D];
+#pragma unroll
+  for (int j = 0; j < CM; ++j)
+#pragma unroll
+    for (int d = 0; d < D; ++d) v[j][d] = j < c ? v0l[j * D + d] : 0.f;
+  // run-time bodies: center elements lid and lid + 32, which this lane forms
+  float own[2] = {lid < cd ? v0l[lid] : 0.f, lid + 32 < cd ? v0l[lid + 32]
+                                                           : 0.f};
   const float tl = tol[lane];
-  __syncthreads();
 
   float delta = INFINITY;
   int it = 0;
   while (delta >= tl && it < max_iters) {
-    float acc[kMaxC][kAcc];
+    float acc[CM][kAcc];
 #pragma unroll
-    for (int j = 0; j < kMaxC; ++j)
+    for (int j = 0; j < CM; ++j)
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) acc[j][a] = 0.f;
 
 #pragma unroll
     for (int r = 0; r < kRowsPerThread; ++r) {
       if (tid + r * kThreads < k) {
-        float d2[kMaxC];
-        int n_zero = 0;
+        float u[CM];
 #pragma unroll
-        for (int j = 0; j < kMaxC; ++j) {
+        for (int j = 0; j < CM; ++j) {
           float s = 0.f;
           if (j < c) {
 #pragma unroll
             for (int d = 0; d < D; ++d) {
-              const float e = v_s[j * D + d] - xr[r][d];
+              const float e = v[j][d] - xr[r][d];
               s = s + e * e;
             }
-            if (s <= 0.f) ++n_zero;
           }
-          d2[j] = s;
+          u[j] = s;
         }
-        float u[kMaxC];
-        if (n_zero > 0) {
-          const float share = 1.0f / (float)n_zero;
+        fcm::membership_from_d2<CM, TIER>(c, m_is_2, expo, u);
 #pragma unroll
-          for (int j = 0; j < kMaxC; ++j) u[j] = d2[j] <= 0.f ? share : 0.f;
-        } else {
-          float p[kMaxC];
-          float ps = 0.f;
-#pragma unroll
-          for (int j = 0; j < kMaxC; ++j) {
-            if (j < c) {
-              const float dd = floor_at(d2[j]);
-              p[j] = m_is_2 ? 1.0f / dd : powf(dd, expo);
-              ps = ps + p[j];
-            } else {
-              p[j] = 0.f;
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < kMaxC; ++j) u[j] = p[j] / ps;
-        }
-#pragma unroll
-        for (int j = 0; j < kMaxC; ++j) {
+        for (int j = 0; j < CM; ++j) {
           if (j < c) {
             const float um = (m_is_2 ? u[j] * u[j] : powf(u[j], m)) * wr[r];
 #pragma unroll
@@ -161,82 +160,135 @@ resident_solve_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
 
 #pragma unroll
-    for (int j = 0; j < kMaxC; ++j) {
+    for (int j = 0; j < CM; ++j) {
       if (j < c) {  // uniform across the block: every lane shuffles
 #pragma unroll
         for (int a = 0; a < kAcc; ++a) {
-          float s = acc[j][a];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1)
-            s = s + __shfl_down_sync(0xffffffffu, s, off);
-          if (lid == 0) part[wid][j * kAcc + a] = s;
+            acc[j][a] = acc[j][a] + __shfl_xor_sync(0xffffffffu, acc[j][a],
+                                                   off);
         }
       }
     }
+    const float(*slot)[kSlot] = part[it & 1];
+    if (lid == 0) {
+#pragma unroll
+      for (int i = 0; i < kSlot; ++i)
+        part[it & 1][wid][i] = i < kSums ? acc[i / kAcc][i % kAcc] : 0.f;
+    }
     __syncthreads();
 
-    if (wid == 0) {
-      float dmax = 0.f;
-      for (int i = lid; i < cd; i += 32) {
-        const int j = i / D;
-        const int d = i - j * D;
-        float num = part[0][j * kAcc + d];
-        float den = part[0][j * kAcc + D];
+    float dmax = 0.f;
+    if constexpr (TIER) {
+      // every thread: the warps' 8 sums in warp order, the 4 centers
+      float tot[kSlot];
 #pragma unroll
-        for (int q = 1; q < kWarps; ++q) {
-          num = num + part[q][j * kAcc + d];
-          den = den + part[q][j * kAcc + D];
+      for (int q = 0; q < kWarps; ++q) {
+#pragma unroll
+        for (int i = 0; i < kSlot / 4; ++i) {
+          const float4 s4 = reinterpret_cast<const float4*>(slot[q])[i];
+          const float in[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tot[4 * i + e] = q == 0 ? in[e] : tot[4 * i + e] + in[e];
         }
-        const float vn = num / floor_at(den);
-        dmax = nan_max(dmax, fabsf(vn - v_s[i]));
-        v_s[i] = vn;
+      }
+#pragma unroll
+      for (int j = 0; j < CM; ++j) {
+        const float vn = tot[j * kAcc] / fcm::floor_at(tot[j * kAcc + 1]);
+        dmax = fcm::nan_max(dmax, fabsf(vn - v[j][0]));
+        v[j][0] = vn;
+      }
+    } else {
+      // lane i: center elements i and i + 32 (j = i / D, d = i % D)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = lid + 32 * h;
+        if (i < cd) {
+          const int at = (i / D) * kAcc + i % D;
+          const int den_at = (i / D) * kAcc + D;
+          float num = slot[0][at];
+          float den = slot[0][den_at];
+#pragma unroll
+          for (int q = 1; q < kWarps; ++q) {
+            num = num + slot[q][at];
+            den = den + slot[q][den_at];
+          }
+          const float vn = num / fcm::floor_at(den);
+          dmax = fcm::nan_max(dmax, fabsf(vn - own[h]));
+          own[h] = vn;
+        }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
-        dmax = nan_max(dmax, __shfl_down_sync(0xffffffffu, dmax, off));
-      if (lid == 0) delta_s = dmax;
+        dmax = fcm::nan_max(dmax, __shfl_xor_sync(0xffffffffu, dmax, off));
+#pragma unroll
+      for (int j = 0; j < CM; ++j) {
+        if (j < c) {  // uniform
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            constexpr int kLanes = 32;
+            const int i = j * D + d;  // compile-time after unrolling
+            v[j][d] = __shfl_sync(0xffffffffu, i < kLanes ? own[0] : own[1],
+                                  i % kLanes);
+          }
+        }
+      }
     }
-    __syncthreads();
-    delta = delta_s;
+    delta = dmax;
     ++it;
   }
 
-  for (int i = tid; i < cd; i += kThreads)
-    v_out[(long long)lane * cd + i] = v_s[i];
   if (tid == 0) {
+#pragma unroll
+    for (int j = 0; j < CM; ++j)
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        if (j < c) v_out[(lane * c + j) * D + d] = v[j][d];
     delta_out[lane] = delta;
     iters_out[lane] = it;
   }
 }
 
-template <int D>
+template <int D, bool TIER>
 int launch(const void* x, const void* w, const void* v0, const void* tol,
            int n_lanes, int k, int c, float m, float expo, int max_iters,
            void* v_out, void* delta_out, void* iters_out, void* stream) {
-  resident_solve_kernel<D><<<n_lanes, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)v0, (const float*)tol, k,
-      c, m, expo, max_iters, (float*)v_out, (float*)delta_out,
-      (int*)iters_out);
+  resident_solve_kernel<D, TIER>
+      <<<n_lanes, kThreads, 0, (cudaStream_t)stream>>>(
+          (const float*)x, (const float*)w, (const float*)v0,
+          (const float*)tol, k, c, m, expo, max_iters, (float*)v_out,
+          (float*)delta_out, (int*)iters_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fcm_resident_max_rows() { return kMaxRows; }
+extern "C" int fcm_resident_threads() { return kThreads; }
 
 // x (B, K, D), w (B, K), v0 (B, c, D), tol (B,) float32, all contiguous ->
-// v (B, c, D), delta (B,) float32, iters (B,) int32.
+// v (B, c, D), delta (B,) float32, iters (B,) int32. tier (from
+// kernels/fcm_resident.py::resident_plan) takes c == 4, D == 1 and m == 2
+// only.
 extern "C" int fcm_resident_solve(const void* x, const void* w, const void* v0,
                                   const void* tol, int n_lanes, int k, int d,
                                   int c, float m, float expo, int max_iters,
-                                  void* v_out, void* delta_out,
+                                  int tier, void* v_out, void* delta_out,
                                   void* iters_out, void* stream) {
   if (n_lanes < 1 || k < 1 || k > kMaxRows || c < 1 || c > kMaxC)
     return (int)cudaErrorInvalidValue;
+  if (tier) {
+    if (c != 4 || d != 1 || m != 2.0f) return (int)cudaErrorInvalidValue;
+    return launch<1, true>(x, w, v0, tol, n_lanes, k, c, m, expo, max_iters,
+                           v_out, delta_out, iters_out, stream);
+  }
 #define REPRO_CASE(DD)                                                      \
   case DD:                                                                  \
-    return launch<DD>(x, w, v0, tol, n_lanes, k, c, m, expo, max_iters,     \
-                      v_out, delta_out, iters_out, stream);
+    return launch<DD, false>(x, w, v0, tol, n_lanes, k, c, m, expo,         \
+                             max_iters, v_out, delta_out, iters_out,        \
+                             stream);
   switch (d) {
     REPRO_CASE(1)
     REPRO_CASE(2)

@@ -95,11 +95,6 @@ constexpr int kOffChip = 0;
 constexpr int kOnChipX = 1;     // x and its halo on chip, x_eff recomputed
 constexpr int kOnChipXEff = 2;  // x_eff on chip too
 
-// max that propagates NaN, like jnp.max and torch.max
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
-}
-
 // threads a block: as many as the registers of the tier allow one block an
 // SM, but at c <= 4 with x_eff held (small bands) two blocks of 512 an SM
 __host__ __device__ constexpr int threads_for(int ct, int form = 0) {
@@ -187,12 +182,12 @@ __device__ __forceinline__ float cluster_update(const float (&num)[CT],
     float dmax = 0.f;
     for (int j = lid; j < c; j += 32) {
       const float vn = f.tot[j] / fcm::floor_at(f.tot[CT + j]);
-      dmax = nan_max(dmax, fabsf(vn - f.v[j]));
+      dmax = fcm::nan_max(dmax, fabsf(vn - f.v[j]));
       f.v[j] = vn;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      dmax = nan_max(dmax, __shfl_down_sync(0xffffffffu, dmax, off));
+      dmax = fcm::nan_max(dmax, __shfl_down_sync(0xffffffffu, dmax, off));
     if (lid == 0) f.delta = dmax;
   }
   __syncthreads();

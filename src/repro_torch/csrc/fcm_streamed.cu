@@ -89,7 +89,6 @@ constexpr int kWarps = kThreads / 32;
 // the most blocks a lane takes: on any card of at least 128 SMs one block an
 // SM, whatever the tier's occupancy
 constexpr int kMaxRanks = 128;
-constexpr float kFloor = 1e-12f;
 
 // rows a block, by feature tier: about the same float work a block (a row
 // costs about c (5 D + 7) operations), and at D = 1 few enough blocks that a
@@ -104,16 +103,6 @@ __host__ __device__ constexpr int min_blocks_for(int n_sums) {
 }
 
 int feat_tier(int d) { return d <= 1 ? 1 : d <= 3 ? 3 : d <= 8 ? 8 : 16; }
-
-// max that propagates NaN, like jnp.max and torch.max
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (b > a || b != b) ? b : a;
-}
-
-// max(a, floor) that propagates NaN, like jnp.maximum / torch.clamp
-__device__ __forceinline__ float floor_at(float a) {
-  return a < kFloor ? kFloor : a;
-}
 
 __device__ __forceinline__ void add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
@@ -304,14 +293,15 @@ streamed_solve_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int j = i / DT;
           const int dd = i - j * DT;
           if (dd < d) {
-            const float vn = tot[j * kAcc + dd] / floor_at(tot[j * kAcc + DT]);
-            dmax = nan_max(dmax, fabsf(vn - v_s[i]));
+            const float vn =
+                tot[j * kAcc + dd] / fcm::floor_at(tot[j * kAcc + DT]);
+            dmax = fcm::nan_max(dmax, fabsf(vn - v_s[i]));
             v_s[i] = vn;
           }
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
-          dmax = nan_max(dmax, __shfl_down_sync(0xffffffffu, dmax, off));
+          dmax = fcm::nan_max(dmax, __shfl_down_sync(0xffffffffu, dmax, off));
         if (lid == 0) delta_s = dmax;
       }
       __syncthreads();

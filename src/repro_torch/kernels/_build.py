@@ -40,12 +40,14 @@ SIGNATURES = {
     "histogram_bin_block_bytes": (),
     "histogram_bin_max_cluster": (),
     "histogram_bin_blocks": (_L, _I),
-    "labels_f32": (_P, _L, _L, _P, _I, _P, _P),
-    "labels_u8": (_P, _L, _L, _P, _I, _P, _P),
-    "labels_i32": (_P, _L, _L, _P, _I, _P, _P),
+    "labels_f32": (_P, _L, _L, _P, _I, _I, _P, _P),
+    "labels_u8": (_P, _L, _L, _P, _I, _I, _P, _P),
+    "labels_i32": (_P, _L, _L, _P, _I, _I, _P, _P),
+    "labels_block_pixels": (),
     "fcm_resident_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                           _P, _P, _P, _P),
+                           _I, _P, _P, _P, _P),
     "fcm_resident_max_rows": (),
+    "fcm_resident_threads": (),
     "fcm_membership": (_P, _L, _P, _I, _F, _F, _P, _P),
     "fcm_center_partials": (_P, _P, _P, _L, _I, _F, _P, _I, _P, _P, _P,
                             _P),

@@ -4,23 +4,48 @@ index.
 
 The CUDA kernel (``csrc/defuzzify.cu``) replaces the TPU's fused label
 kernel (``repro/kernels/defuzzify.py::labels_pallas``): the ``(c, N)``
-distance matrix never reaches device memory.
+distance matrix never reaches device memory. One launch labels a bucket
+of any number of lanes: (lane, segment) blocks on a 1-D grid from
+:func:`labels_plan`, 16-byte pixel words, uint8 pixels through a
+per-block 256-entry label table.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-#: gridDim.y carries the lane index, so a call launches once a chunk of
-#: at most this many lanes (:func:`_build.lane_chunks`); a lane's labels
-#: are its own, so the chunks change no bit.
-MAX_LANES = 65535
 #: centers per lane the kernel stages in shared memory (48 KB)
 MAX_C = 12288
+#: threads a block, and the pixels of one lane a block labels: 16 a
+#: thread, one 16-byte word of uint8 pixels or four of int32 / float32
+THREADS = 256
+BLOCK_PIXELS = 4096
 
 _DTYPES = {torch.float32: "labels_f32", torch.uint8: "labels_u8",
            torch.int32: "labels_i32"}
+
+
+class LabelsPlan(NamedTuple):
+    """The labels kernel's launch for a bucket of B lanes of N pixels."""
+    segs: int               # blocks a lane
+    words_per_thread: int   # 16-byte pixel words a thread loads
+    grid: int               # blocks launched: B * segs
+
+
+def labels_plan(b: int, n: int, itemsize: int) -> LabelsPlan:
+    """The labels kernel's plan, from the shape alone: a block for each
+    :data:`BLOCK_PIXELS` pixels of a lane (the main path's 64 x 39 277
+    bucket is 640 blocks, one wave on an H100), each thread 16 pixels,
+    in ``16 // itemsize``-pixel words."""
+    if min(b, n) < 1 or itemsize not in (1, 4):
+        raise ValueError(f"labels_plan takes positive sizes and 1- or "
+                         f"4-byte pixels, got b={b}, n={n}, "
+                         f"itemsize={itemsize}")
+    segs = -(-n // BLOCK_PIXELS)
+    return LabelsPlan(segs, itemsize, b * segs)
 
 
 def labels_plain(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -60,19 +85,18 @@ def labels(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``(B, N)`` float32 / uint8 / int32 pixels + ``(B, c)`` float32
     centers -> ``(B, N)`` int32 labels, for a bucket of any number of
     lanes. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (once a chunk of :data:`MAX_LANES` lanes) or raises."""
+    the kernel (one launch) or raises."""
     if not _checked(x, v):
         return labels_plain(x, v)
     b, n = x.shape
     c = v.shape[1]
     out = torch.empty((b, n), dtype=torch.int32, device=x.device)
     if b and n:
+        plan = labels_plan(b, n, x.element_size())
         fn = getattr(_build.library(), _DTYPES[x.dtype])
-        for i0, i1 in _build.lane_chunks(b, MAX_LANES):
-            _build.check(fn(x[i0:].data_ptr(), i1 - i0, n, v[i0:].data_ptr(),
-                            c, out[i0:].data_ptr(), _build.stream_of(x)),
-                         "labels")
-            labels.launches += 1
+        _build.check(fn(x.data_ptr(), b, n, v.data_ptr(), c, plan.segs,
+                        out.data_ptr(), _build.stream_of(x)), "labels")
+        labels.launches += 1
     return out
 
 

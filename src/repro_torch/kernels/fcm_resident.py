@@ -5,7 +5,9 @@ Two CUDA kernels, one contract:
 
 - ``csrc/fcm_resident.cu`` replaces the TPU's VMEM-resident whole-solve
   (``repro/kernels/fcm_resident.py::resident_solve_pallas``): one block
-  per lane holds the lane's rows in registers (up to 1024 rows).
+  per lane holds the lane's rows and centers in registers (up to 1024
+  rows), one barrier an iteration, in the form :func:`resident_plan`
+  picks.
 - ``csrc/fcm_streamed.cu`` replaces its HBM-streamed twin
   (``resident_streamed_solve_pallas``): a cooperative launch in which
   each lane takes a group of blocks (:func:`streamed_plan`), re-reads
@@ -27,10 +29,37 @@ import torch
 from . import _build
 
 #: Bounds of one lane (see the derivation in csrc/fcm_resident.cu): rows
-#: stay in registers, 256 threads x 4 rows each.
+#: stay in registers, 256 threads x at most 4 rows each.
 MAX_ROWS = 1024
 MAX_C = 8
 MAX_FEAT = 8
+#: threads a block (a lane) and the most rows a thread of the resident
+#: kernel
+THREADS = 256
+ROWS_PER_THREAD = 4
+
+
+class ResidentPlan(NamedTuple):
+    """The resident kernel's launch for lanes of K rows: one block of
+    :data:`THREADS` threads a lane."""
+    tier: bool              # c == 4, D == 1, m == 2 compiled in
+    rows_per_thread: int    # most rows a thread holds
+
+
+def resident_plan(k: int, c: int, d: int, m: float) -> ResidentPlan:
+    """The resident kernel's form, from the shape alone: the tier (c, D
+    and m compiled in, one reciprocal for a row's divisions) for the
+    paper's c == 4, D == 1, m == 2 (the histogram route), run-time
+    bodies otherwise; 8 warps a lane (faster than 4 in both forms on the
+    histogram bucket, PERF.md), so a thread holds at most
+    :data:`ROWS_PER_THREAD` rows."""
+    if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 1 <= d <= MAX_FEAT):
+        raise ValueError(f"resident_plan holds 1 <= rows <= {MAX_ROWS}, "
+                         f"c <= {MAX_C}, D <= {MAX_FEAT}; got rows={k}, "
+                         f"c={c}, D={d}")
+    tier = c == 4 and d == 1 and float(np.float32(m)) == 2.0
+    return ResidentPlan(tier, -(-k // THREADS))
+
 
 #: Bounds of one lane of the streamed kernel (csrc/fcm_streamed.cu): the
 #: row bound is a wall-clock choice covering the paper's 1000 KB image;
@@ -206,8 +235,9 @@ def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
                    tol: torch.Tensor, m: float, max_iters: int):
     """x (B, K, D) rows, w (B, K) weights, v0 (B, c, D) init centers,
     tol (B,) stop tolerances, all float32 -> (v (B, c, D), delta (B,),
-    iters (B,) int32). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    iters (B,) int32), for a bucket of any number of lanes (one launch).
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
     b, k, d, c = _check_inputs("resident_solve", x, w, v0, tol)
     if not _on_card(x):
         return resident_solve_plain(x, w, v0, tol, m, max_iters)
@@ -217,13 +247,22 @@ def resident_solve(x: torch.Tensor, w: torch.Tensor, v0: torch.Tensor,
             f"D <= {MAX_FEAT} a lane; got rows={k}, c={c}, D={d} (larger "
             f"flat problems take the HBM-streamed whole-solve, "
             f"resident_streamed_solve)")
+    return _launch_resident(x, w, v0, tol, m, max_iters,
+                            resident_plan(k, c, d, m))
+
+
+def _launch_resident(x, w, v0, tol, m, max_iters, plan: ResidentPlan):
+    """One launch of the resident kernel in ``plan``'s form (the checks
+    of :func:`resident_solve` done)."""
+    b, k, d = x.shape
+    c = v0.shape[1]
     v, delta, iters = _outputs(x, b, c, d)
     if b:
         _build.check(_build.library().fcm_resident_solve(
             x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k,
-            d, c, *_exponents(m), int(max_iters), v.data_ptr(),
-            delta.data_ptr(), iters.data_ptr(), _build.stream_of(x)),
-            "fcm_resident_solve")
+            d, c, *_exponents(m), int(max_iters), int(plan.tier),
+            v.data_ptr(), delta.data_ptr(), iters.data_ptr(),
+            _build.stream_of(x)), "fcm_resident_solve")
         resident_solve.launches += 1
     return v, delta, iters
 

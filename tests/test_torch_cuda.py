@@ -136,6 +136,137 @@ def test_labels_kernel_equals_plain(dev):
     assert torch.equal(KD.labels(px, v), KD.labels_plain(px, v))
 
 
+def _hist_lanes(dev, n=6):
+    """Phantom histograms (BrainWeb-size slices) plus an all-zero image,
+    a single-valued image and two lone bins: x (B, 256, 1), w (B, 256)."""
+    hists = KB.histogram_bin(torch.from_numpy(np.stack(
+        [s.ravel() for s in _slices(n, 217, 181)])).to(dev), 256)
+    extra = torch.zeros((3, 256), device=dev)
+    extra[0, 0] = 4000.0
+    extra[1, 77] = 1000.0
+    extra[2, 10] = extra[2, 250] = 5.0
+    w = torch.cat([hists, extra]).contiguous()
+    x = torch.arange(256, dtype=torch.float32, device=dev).repeat(
+        w.shape[0], 1)[..., None].contiguous()
+    return x, w
+
+
+def _solve_init(x, w, c):
+    lo, hi = TS.weighted_support(x, w)
+    v0 = TS.linspace_from_support(lo, hi, c).contiguous()
+    tol = TS._tol_from_range((hi - lo).max(dim=1).values, 5e-3).contiguous()
+    return v0, tol
+
+
+def _vector_lanes(dev, b, k, d, c, seed):
+    x = torch.from_numpy(_blobs(b, k, d, c, seed)).to(dev)
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.integers(0, 40, (b, k)).astype(
+        np.float32)).to(dev)
+    return x, w
+
+
+@pytest.mark.parametrize("c,m,tier", [
+    (4, 2.0, True),        # the plan: the tier
+    (4, 2.0, False),       # the run-time body on the same rows
+    (4, 2.5, False),
+    (3, 2.0, False),
+    (8, 2.0, False)])
+def test_resident_forms_match_plain_on_histograms(dev, c, m, tier):
+    """The tier and the run-time bodies against the plain version on
+    phantom histograms and degenerate lanes: iteration counts equal,
+    centers within rtol/atol, labels of every bin equal."""
+    x, w = _hist_lanes(dev)
+    v0, tol = _solve_init(x, w, c)
+    plan = KR.ResidentPlan(tier, 1)
+    before = KR.resident_solve.launches
+    v, _, it = KR._launch_resident(x, w, v0, tol, m, 300, plan)
+    assert KR.resident_solve.launches == before + 1
+    pv, _, pit = KR.resident_solve_plain(x, w, v0, tol, m, 300)
+    assert torch.equal(it, pit)
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    vals = x[..., 0].contiguous()
+    assert torch.equal(KD.labels(vals, v[..., 0].contiguous()),
+                       KD.labels(vals, pv[..., 0].contiguous()))
+
+
+@pytest.mark.parametrize("b,k,d,c,m", [(3, 1024, 8, 8, 2.5),
+                                       (3, 1024, 8, 8, 2.0),
+                                       (2, 1000, 3, 8, 2.0),
+                                       (2, 513, 2, 5, 2.0),
+                                       (4, 300, 1, 4, 2.0),
+                                       (2, 17, 1, 2, 2.5),
+                                       (2, 1, 1, 1, 2.0)])
+def test_resident_run_time_forms_match_plain_on_vector_rows(dev, b, k, d, c,
+                                                            m):
+    """Ragged clustered vector rows up to K = 1024, D = 8, c = 8 and
+    m = 2.5 (the run-time bodies; K = 300, c = 4, D = 1 the tier), in
+    the plan's form: iteration counts equal, centers within rtol/atol."""
+    x, w = _vector_lanes(dev, b, k, d, c, seed=k + d)
+    v0, tol = _solve_init(x, w, c)
+    v, _, it = KR.resident_solve(x, w, v0, tol, m, 300)
+    pv, _, pit = KR.resident_solve_plain(x, w, v0, tol, m, 300)
+    assert torch.equal(it, pit)
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["hist", "vectors"])
+def test_resident_lane_bits_are_its_own_and_repeat(dev, case):
+    """A lane's bits in its bucket equal that lane solved alone, and a
+    second run repeats the first bit for bit."""
+    if case == "hist":
+        x, w = _hist_lanes(dev)
+        c = 4
+    else:
+        x, w = _vector_lanes(dev, 4, 700, 3, 6, seed=9)
+        c = 6
+    v0, tol = _solve_init(x, w, c)
+    got = KR.resident_solve(x, w, v0, tol, 2.0, 300)
+    again = KR.resident_solve(x, w, v0, tol, 2.0, 300)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for i in (0, x.shape[0] - 1):
+        alone = KR.resident_solve(x[i:i + 1].contiguous(),
+                                  w[i:i + 1].contiguous(),
+                                  v0[i:i + 1].contiguous(),
+                                  tol[i:i + 1].contiguous(), 2.0, 300)
+        for g, a in zip(got, alone):
+            assert torch.equal(g[i:i + 1], a)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.float32])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 255, 4097, 39277])
+@pytest.mark.parametrize("offset", [0, 1, 3, 7, 15])
+def test_labels_kernel_exact_at_any_length_and_offset(dev, dtype, n,
+                                                      offset):
+    """Three lanes whose buffer starts ``offset`` pixels past a 16-byte
+    boundary (every lane's head, words and tail move), one launch, equal
+    to the plain version; c = 4 with a tie, and c = 300 (table entries
+    past one byte) and c = 1."""
+    rng = np.random.default_rng(n + offset)
+    hi = 256 if dtype == torch.uint8 else 300
+    arr = rng.integers(0, hi, (3, n))
+    flat = torch.from_numpy(arr.reshape(-1)).to(dev, dtype)
+    if dtype == torch.float32:
+        flat = flat + torch.from_numpy(rng.uniform(
+            -0.5, 0.5, flat.shape[0]).astype(np.float32)).to(dev)
+    buf = torch.empty(offset + 3 * n, dtype=dtype, device=dev)
+    buf[offset:] = flat
+    px = buf[offset:].view(3, n)
+    assert (px.data_ptr() % 16 == 0) == (offset == 0)
+    centers = [torch.tensor([[10.0, 10.0, 50.0, 130.5]] * 3, device=dev),
+               torch.from_numpy(np.sort(rng.uniform(-5, 260, (3, 300)),
+                                        axis=1).astype(np.float32)).to(dev),
+               torch.tensor([[7.0], [8.0], [9.0]], device=dev)]
+    for v in centers:
+        before = KD.labels.launches
+        got = KD.labels(px, v)
+        assert KD.labels.launches == before + 1
+        assert torch.equal(got, KD.labels_plain(px, v))
+
+
 def test_cuda_tensors_never_take_the_plain_version(dev):
     with pytest.raises(TypeError):
         KB.histogram_bin(torch.zeros((1, 8), dtype=torch.int64,
@@ -888,6 +1019,12 @@ def _row_1(x):
                              256),)
 
 
+def _row_2(x):
+    w = torch.ones(x.shape[:2], device=x.device)
+    v0, tol = _solve_init(x, w, 2)
+    return KR.resident_solve(x, w, v0, tol, 2.0, 300)
+
+
 def _row_3(x):
     v = torch.stack([x[:, 0, 0] + 0.5, x[:, -1, 0] - 0.25], dim=1)
     return (KD.labels(x.reshape(x.shape[0], -1), v.contiguous()),)
@@ -897,7 +1034,8 @@ def _row_3(x):
 #: lanes: one a chunk of at most 65535 where the lanes sit on gridDim.y or z)
 _PAST_65535 = {
     "1": (_row_1, KB.histogram_bin, (2, 1), 1),
-    "3": (_row_3, KD.labels, (2, 1), 2),
+    "2": (_row_2, KR.resident_solve, (2, 1), 1),
+    "3": (_row_3, KD.labels, (2, 1), 1),
     "6b": (_row_6b, KC.fused_partials_batched, (2, 1), 1),
     "7": (_row_7, KR.resident_streamed_solve, (2, 1), 1),
     "8": (_row_8, KST.stencil_solve, (2, 2), 2),
@@ -909,8 +1047,9 @@ _PAST_65535 = {
 def test_a_bucket_past_65535_lanes_gives_the_last_lane_its_own_bits(dev,
                                                                     row):
     """65 537 tiny lanes through each kernel whose lanes once sat on a
-    grid axis capped at 65535: the last lane's results are bit-equal to
-    that lane alone, and the launch count is one a chunk of lanes."""
+    grid axis capped at 65535, and the resident whole-solve: the last
+    lane's results are bit-equal to that lane alone, and the launch count
+    is one a chunk of lanes (one a call on a 1-D grid)."""
     call, fn, shape, launches = _PAST_65535[row]
     x = torch.from_numpy(_tiny_bucket(65537, shape, seed=len(shape))).to(dev)
     before = fn.launches

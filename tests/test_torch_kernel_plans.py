@@ -28,16 +28,26 @@ mirroring the kernels' index rules, as is that of the ingest binning
 :func:`bin_blocks` blocks a lane) and of the scalar fused partials (the
 batched form's plan at one lane). The wrappers of the kernels whose
 lanes once sat on a grid axis capped at 65535 are driven past their
-device checks with a fake library at 65 537 lanes. The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+device checks with a fake library at 65 537 lanes. The labels kernel
+(``csrc/defuzzify.cu``) takes (lane, segment) blocks from
+:func:`labels_plan` and splits a lane into a head, aligned 16-byte
+words and a tail, whose coverage is checked here at every offset. The
+resident whole-solve (``csrc/fcm_resident.cu``) takes its form from
+:func:`resident_plan`; a float32 numpy model of its
+reduction order is held against the JAX package's kernel in interpret
+mode. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.data import phantom as jphantom
+from repro.kernels import fcm_resident as JKR
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import solver as TS
 from repro_torch.kernels import _build
 from repro_torch.kernels import defuzzify as KD
 from repro_torch.kernels import fcm_centers as KC
@@ -764,10 +774,16 @@ BIG_B = 65537
 
 class _FakeLaneLibrary:
     """Stands in for the kernel library: records, for each call of the
-    seven kernels whose lanes once sat on a grid axis capped at 65535, the
-    lanes it was given and the pointers of its first input and output."""
+    kernels whose lanes once sat on a grid axis capped at 65535 and of the
+    resident whole-solve, the lanes it was given and the pointers of its
+    first input and output."""
     def __init__(self):
         self.calls = []
+
+    def fcm_resident_solve(self, x, w, v0, tol, b, k, d, c, m, expo,
+                           max_iters, tier, v, delta, iters, stream):
+        self.calls.append((b, x, v))
+        return 0
 
     def fcm_fused_partials_batched(self, x, w, b, n, d, v, c, m, expo,
                                    blocks, rpt, part, ticket, num, den,
@@ -802,7 +818,7 @@ class _FakeLaneLibrary:
         self.calls.append((b, px, out))
         return 0
 
-    def labels_f32(self, x, b, n, v, c, out, stream):
+    def labels_f32(self, x, b, n, v, c, segs, out, stream):
         self.calls.append((b, x, out))
         return 0
 
@@ -810,6 +826,14 @@ class _FakeLaneLibrary:
 def _drive_1(monkeypatch, x):
     monkeypatch.setattr(KB, "_checked", lambda *a: True)
     return KB.histogram_bin(x.reshape(x.shape[0], -1), 256)
+
+
+def _drive_2(monkeypatch, x):
+    monkeypatch.setattr(KR, "_on_card", lambda t: True)
+    b = x.shape[0]
+    return KR.resident_solve(x, torch.ones(x.shape[:2]),
+                             torch.zeros((b, 2, 1)), torch.zeros((b,)), 2.0,
+                             300)[0]
 
 
 def _drive_3(monkeypatch, x):
@@ -857,7 +881,8 @@ def _drive_10(monkeypatch, x):
 #: lanes of each library call)
 _PAST_65535 = {
     "1": (_drive_1, KB.histogram_bin, (2, 1), [BIG_B]),
-    "3": (_drive_3, KD.labels, (2, 1), [65535, 2]),
+    "2": (_drive_2, KR.resident_solve, (2, 1), [BIG_B]),
+    "3": (_drive_3, KD.labels, (2, 1), [BIG_B]),
     "6b": (_drive_6b, KC.fused_partials_batched, (2, 1), [BIG_B]),
     "7": (_drive_7, KR.resident_streamed_solve, (2, 1), [BIG_B]),
     "8": (_drive_8, KST.stencil_solve, (2, 2), [65535, 2]),
@@ -869,9 +894,9 @@ _PAST_65535 = {
 def test_a_bucket_past_65535_lanes_takes_chunks_or_one_call(monkeypatch,
                                                             row):
     """65 537 tiny lanes through each wrapper, driven past its device
-    check with a fake library: rows 3, 8 and 10 (lanes on gridDim.y or
-    z) make one call a chunk, of 65535 and 2 lanes, each into its own
-    slice of the inputs and outputs; rows 1, 6b, 7 and 9 (a 1-D grid)
+    check with a fake library: rows 8 and 10 (lanes on gridDim.y or z)
+    make one call a chunk, of 65535 and 2 lanes, each into its own slice
+    of the inputs and outputs; rows 1, 2, 3, 6b, 7 and 9 (a 1-D grid)
     make one call. No wrapper raises, and launches counts the calls."""
     drive, fn, shape, lanes = _PAST_65535[row]
     lib = _FakeLaneLibrary()
@@ -1044,3 +1069,284 @@ def test_spatial2d_scratch_holds_the_plan_rows(monkeypatch, b):
     assert calls == [(b, 217, 181, plan.run)]
     assert scratch == [(b, plan.rows, 8)]
     assert _build._counters[(torch.device("cpu"), 0)].numel() >= b
+
+
+# -- the labels kernel's plan ------------------------------------------------
+
+def _label_pixels(start, b, n, itemsize):
+    """The pixels the labels kernel labels, mirroring its index rules, for
+    a (b, n) bucket whose first pixel lies ``start`` bytes past a 16-byte
+    boundary: lane l's pixels [l n, l n + n) split into a head up to the
+    first pixel on a 16-byte boundary (at most n pixels), whole 16-byte
+    words of ``16 // itemsize`` pixels, and a tail; block (l, s), thread
+    t, word q loads word s * THREADS * wpt + q * THREADS + t of the
+    lane's words; segment 0's thread t < 16 labels the head's pixel t and
+    thread 16 + t the tail's. Returns every labelled pixel (a flat index,
+    once for each time it is labelled) and each word's byte address."""
+    plan = KD.labels_plan(b, n, itemsize)
+    per = 16 // itemsize
+    t = np.arange(KD.THREADS)
+    q = np.arange(plan.words_per_thread)[:, None]
+    pixels, words = [], []
+    for lane in range(b):
+        g0 = lane * n
+        lead = ((16 - (start + g0 * itemsize) % 16) % 16) // itemsize
+        a0 = g0 + min(lead, n)
+        n_words = (g0 + n - a0) // per
+        t0 = a0 + n_words * per
+        for seg in range(plan.segs):
+            wi = (seg * KD.THREADS * plan.words_per_thread + q * KD.THREADS
+                  + t).ravel()
+            first = a0 + wi[wi < n_words] * per
+            words.append(start + first * itemsize)
+            pixels.append((first[:, None] + np.arange(per)).ravel())
+            if seg == 0:
+                head, tail = g0 + t[:16], t0 + t[:16]
+                pixels += [head[head < a0], tail[tail < g0 + n]]
+    return np.concatenate(pixels), np.concatenate(words)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 255, 39277])
+@pytest.mark.parametrize("itemsize,offset", [(1, o) for o in range(16)]
+                         + [(4, o) for o in range(4)])
+def test_labels_plan_covers_every_pixel_once(n, itemsize, offset):
+    """Every pixel of every lane of a 3-lane bucket is labelled exactly
+    once, through the head, the aligned words or the tail, at every
+    offset of the buffer (uint8 lanes of odd length start at every
+    alignment; 4-byte pixels at every 4-byte offset); every word load is
+    16-byte aligned, and the blocks come from the shape alone."""
+    b = 3
+    pixels, words = _label_pixels(offset * itemsize, b, n, itemsize)
+    assert np.array_equal(np.sort(pixels), np.arange(b * n))
+    assert (words % 16 == 0).all()
+    plan = KD.labels_plan(b, n, itemsize)
+    assert plan.segs == -(-n // KD.BLOCK_PIXELS)
+    assert plan.grid == b * plan.segs
+    assert plan.words_per_thread * 16 // itemsize * KD.THREADS == \
+        KD.BLOCK_PIXELS
+
+
+def test_the_route_bucket_labels_in_one_wave():
+    """64 BrainWeb slices of 217x181 (39 277 pixels) are 10 blocks a lane,
+    640 blocks as uint8 and as int32, within one wave of the H100's 132
+    SMs x 8 blocks of 256 threads; the 1000 KB image 250 blocks; 65 537
+    lanes of 2 pixels one block a lane, on a 1-D grid."""
+    for itemsize in (1, 4):
+        assert KD.labels_plan(64, 39277, itemsize) == KD.LabelsPlan(
+            10, itemsize, 640)
+    assert 640 <= H100_SMS * 2048 // KD.THREADS
+    assert KD.labels_plan(1, 1_024_000, 1).grid == 250
+    assert KD.labels_plan(65537, 2, 4).grid == 65537
+    with pytest.raises(ValueError):
+        KD.labels_plan(1, 5, 2)
+    with pytest.raises(ValueError):
+        KD.labels_plan(0, 5, 1)
+
+
+class _FakeLabelsLibrary:
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, kind, x, b, n, v, c, segs, out, stream):
+        self.calls.append((kind, b, n, c, segs))
+        return 0
+
+    def labels_u8(self, *a):
+        return self._record("u8", *a)
+
+    def labels_i32(self, *a):
+        return self._record("i32", *a)
+
+    def labels_f32(self, *a):
+        return self._record("f32", *a)
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.uint8, "u8"),
+                                        (torch.int32, "i32"),
+                                        (torch.float32, "f32")])
+@pytest.mark.parametrize("b,n,c", [(64, 39277, 4), (1, 1_024_000, 4),
+                                   (65537, 2, 2), (3, 1, 12)])
+def test_labels_wrapper_launches_once_with_the_plan(monkeypatch, dtype, kind,
+                                                    b, n, c):
+    """One library call a wrapper call at any number of lanes, with the
+    plan's blocks a lane, into a (B, N) int32 output."""
+    lib = _FakeLabelsLibrary()
+    monkeypatch.setattr(KD, "_checked", lambda *a: True)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    before = KD.labels.launches
+    out = KD.labels(torch.zeros((b, n), dtype=dtype), torch.zeros((b, c)))
+    assert KD.labels.launches == before + 1
+    KD.labels.launches = before
+    segs = KD.labels_plan(b, n, torch.zeros((), dtype=dtype)
+                          .element_size()).segs
+    assert lib.calls == [(kind, b, n, c, segs)]
+    assert out.dtype == torch.int32 and tuple(out.shape) == (b, n)
+
+
+# -- the resident whole-solve's plan and reduction order ---------------------
+
+@pytest.mark.parametrize("k", [1, 31, 256, 512, 513, 1000, 1024])
+@pytest.mark.parametrize("c,d,m", [(4, 1, 2.0), (4, 1, 2.5), (3, 1, 2.0),
+                                   (8, 1, 2.0), (4, 2, 2.0), (8, 8, 2.5),
+                                   (1, 1, 2.0), (4, 3, 2.0)])
+def test_resident_plan_takes_the_tier_for_the_papers_shape_alone(k, c, d,
+                                                                 m):
+    """The tier (c, D and m compiled in) for c == 4, D == 1, m == 2 and
+    for nothing else; 8 warps a lane, so a thread holds at most 4 rows;
+    from the shape alone."""
+    plan = KR.resident_plan(k, c, d, m)
+    assert plan.tier == (c == 4 and d == 1 and m == 2.0)
+    assert plan.rows_per_thread == -(-k // KR.THREADS)
+    assert plan.rows_per_thread <= KR.ROWS_PER_THREAD
+    assert KR.THREADS * KR.ROWS_PER_THREAD == KR.MAX_ROWS
+
+
+def test_the_histogram_bucket_takes_the_tier_one_row_a_thread():
+    """The histogram route's lanes: 256 rows, c = 4, D = 1, m = 2; the
+    float32 m of 2 exactly is the tier, a near miss is not."""
+    assert KR.resident_plan(256, 4, 1, 2.0) == KR.ResidentPlan(True, 1)
+    assert not KR.resident_plan(256, 4, 1, 2.001).tier
+
+
+@pytest.mark.parametrize("k,c,d", [(0, 4, 1), (1025, 4, 1), (256, 9, 1),
+                                   (256, 4, 9), (256, 0, 1)])
+def test_resident_plan_refuses_what_the_kernel_cannot_hold(k, c, d):
+    with pytest.raises(ValueError):
+        KR.resident_plan(k, c, d, 2.0)
+
+
+class _FakeResidentLibrary:
+    def __init__(self):
+        self.calls = []
+
+    def fcm_resident_solve(self, x, w, v0, tol, b, k, d, c, m, expo,
+                           max_iters, tier, v, delta, iters, stream):
+        self.calls.append(dict(b=b, k=k, d=d, c=c, m=m, tier=tier))
+        return 0
+
+
+@pytest.mark.parametrize("b,k,d,c,m", [(64, 256, 1, 4, 2.0),
+                                       (8, 256, 1, 4, 2.5),
+                                       (5, 1024, 3, 8, 2.0),
+                                       (3, 17, 1, 2, 2.0),
+                                       (2, 600, 8, 8, 2.5)])
+def test_resident_wrapper_launches_the_plan(monkeypatch, b, k, d, c, m):
+    """One library call a wrapper call, in the plan's form; driven past
+    its device check with a fake library."""
+    lib = _FakeResidentLibrary()
+    monkeypatch.setattr(KR, "_on_card", lambda t: True)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    before = KR.resident_solve.launches
+    KR.resident_solve(torch.zeros((b, k, d)), torch.ones((b, k)),
+                      torch.zeros((b, c, d)), torch.zeros((b,)), m, 300)
+    assert KR.resident_solve.launches == before + 1
+    KR.resident_solve.launches = before
+    plan = KR.resident_plan(k, c, d, m)
+    assert lib.calls == [dict(b=b, k=k, d=d, c=c, m=float(np.float32(m)),
+                              tier=int(plan.tier))]
+
+
+def _resident_model(x, w, v0, tol, max_iters, threads=KR.THREADS):
+    """The resident kernel at m == 2 in float32 numpy, in its order: each
+    lane alone; each thread adds its rows t, t + threads, ... in order
+    into its c (D + 1) sums (Eq. 4 as fcm::membership_from_d2: the
+    floored reciprocals summed in cluster order, one division a cluster,
+    the even split over zero distances); a butterfly over each warp's 32
+    lanes (lane l adds lane l ^ 16, 8, 4, 2, 1); the warps' sums in warp
+    order; v' = num / max(den, 1e-12), delta = max|v' - v|. Returns (v,
+    delta, iters) as the kernel does."""
+    f32 = np.float32
+    b, k, d = x.shape
+    c = v0.shape[1]
+    rpt = -(-k // threads)
+    pad = rpt * threads
+    valid = (np.arange(pad) < k).reshape(rpt, threads)
+    flips = [np.arange(32) ^ off for off in (16, 8, 4, 2, 1)]
+    vs, deltas, iters = [], [], []
+    for lane in range(b):
+        xl = np.zeros((pad, d), f32)
+        xl[:k] = x[lane]
+        wl = np.zeros(pad, f32)
+        wl[:k] = w[lane]
+        v = v0[lane].astype(f32)
+        delta, it = f32(np.inf), 0
+        while delta >= tol[lane] and it < max_iters:
+            d2 = np.zeros((c, pad), f32)
+            for dd in range(d):
+                e = v[:, dd, None] - xl[None, :, dd]
+                d2 = d2 + e * e
+            zero = d2 <= 0
+            p = f32(1) / np.maximum(d2, f32(1e-12))
+            ps = np.zeros(pad, f32)
+            for j in range(c):
+                ps = ps + p[j]
+            share = f32(1) / np.maximum(zero.sum(axis=0), 1).astype(f32)
+            u = np.where(zero.any(axis=0)[None],
+                         np.where(zero, share[None], f32(0)), p / ps)
+            um = (u * u) * wl[None]
+            terms = np.concatenate([um[..., None] * xl[None], um[..., None]],
+                                   axis=2).reshape(c, rpt, threads, d + 1)
+            acc = np.zeros((c, threads, d + 1), f32)
+            for r in range(rpt):
+                acc = np.where(valid[r][None, :, None], acc + terms[:, r],
+                               acc)
+            acc = acc.reshape(c, threads // 32, 32, d + 1)
+            for flip in flips:
+                acc = acc + acc[:, :, flip]
+            tot = acc[:, 0, 0]
+            for q in range(1, threads // 32):
+                tot = tot + acc[:, q, 0]
+            v_new = tot[:, :d] / np.maximum(tot[:, d:], f32(1e-12))
+            delta = np.abs(v_new - v).max()
+            v, it = v_new, it + 1
+        vs.append(v)
+        deltas.append(delta)
+        iters.append(it)
+    return np.stack(vs), np.array(deltas, f32), np.array(iters, np.int32)
+
+
+def _resident_inputs(case):
+    """Seeded inputs: BrainWeb-size phantom histograms with degenerate
+    lanes, ragged clustered vector rows, or scalar lanes of 1000 rows (4
+    rows a thread but the last)."""
+    if case == "phantom":
+        w = np.stack([np.bincount(jphantom.phantom_slice(
+            217, 181, slice_pos=float(s), seed=i)[0].ravel(), minlength=256)
+            for i, s in enumerate(np.linspace(0.3, 0.7, 6))])
+        zero = np.zeros(256)
+        zero[0] = 4000
+        one = np.zeros(256)
+        one[77] = 1000
+        two = np.zeros(256)
+        two[[10, 250]] = 5
+        w = np.concatenate([w, zero[None], one[None], two[None]])
+        x = np.broadcast_to(np.arange(256.0)[None, :, None], w.shape + (1,))
+        return x.astype(np.float32), w.astype(np.float32), 4
+    rng = np.random.default_rng(5)
+    k, d, c = (300, 2, 3) if case == "vectors" else (1000, 1, 4)
+    means = rng.uniform(0, 255, (c, d))
+    x = means[rng.integers(0, c, (2, k))] + rng.normal(0, 5, (2, k, d))
+    return (x.astype(np.float32),
+            rng.integers(1, 30, (2, k)).astype(np.float32), c)
+
+
+@pytest.mark.parametrize("case", ["phantom", "vectors", "rows1000"])
+def test_the_resident_reduction_order_matches_pallas(case):
+    """The kernel's fixed order against the JAX package's kernel in
+    interpret mode on the same seeded inputs: centers within rtol 1e-5 /
+    atol 1e-4 (values run 0-255, the background center sits near 0) and
+    equal iteration counts."""
+    x, w, c = _resident_inputs(case)
+    lo, hi = TS.weighted_support(torch.from_numpy(x), torch.from_numpy(w))
+    v0 = TS.linspace_from_support(lo, hi, c).numpy()
+    tol = TS._tol_from_range((hi - lo).max(dim=1).values, 5e-3).numpy()
+    x4, w3 = jops.tile_rows_batched(jnp.asarray(x), jnp.asarray(w))
+    jv, _, ji = JKR.resident_solve_pallas(x4, w3, jnp.asarray(v0),
+                                          jnp.asarray(tol), 2.0, 300,
+                                          interpret=True)
+    mv, md, mi = _resident_model(x, w, v0, tol, 300)
+    np.testing.assert_array_equal(mi, np.asarray(ji))
+    np.testing.assert_allclose(mv, np.asarray(jv), rtol=1e-5, atol=1e-4)
+    assert (md < tol).all()
