@@ -84,7 +84,27 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    just after (7 scans), against the same forward with the plain scan
    (loss and the first mamba mixer's output); and take three
    ``make_train_step`` steps at the reduced config on the card and on
-   the CPU (a full-width group's train step needs about 208 GB).
+   the CPU (a full-width group's train step needs about 208 GB);
+9. async: the 181-slice volume through ``submit_async`` from 4 submitter
+   threads at ``max_wait_ms=10`` on the histogram route (9a) and the
+   pixel route (9b), every result bit-equal to a synchronous ``segment``
+   on the card, the kernels launched once a bucket from the flusher
+   thread, the ladder's counters at 0 and every breaker closed; with
+   submit-to-result p50 / p99, images/s, flushes and bucket sizes; then
+   chaos from seeded fault plans (9c): two launch errors retried, launch
+   failures past the retries that degrade two chunks and open the
+   histogram breaker (the chunks solved by the plain solver on the card,
+   within RTOL/ATOL of 9a, n_iters equal, labels equal up to near-ties),
+   the half-open probe after a 0.5 s cooldown that runs the kernels and
+   closes it, two NaN lanes salvaged with their batchmates bit-equal, a
+   killed flusher replaced, a burst past ``max_queue_depth=64`` with
+   mixed deadlines whose outcomes add up, and ``shutdown(drain=False)``;
+   then (9d) where an async flush's time goes: the 9a run timed bucket by
+   bucket (stages, the launch call's host time, the fence's wait, the
+   device span by CUDA events) on a fresh engine and on the same engine
+   again, the volume six times over so flushes overlap the submitters
+   (at the default and at a 0.1 ms interpreter switch interval), against
+   a synchronous flush, and the device's own events under the profiler.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -94,6 +114,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2227,6 +2248,530 @@ def lm_path(KSS, counters, dev, card):
     return dict(launches=fwd["selective_scan"], **k_scan)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: async serving and chaos on the card
+# ---------------------------------------------------------------------------
+
+#: every wait of phase 9 on a future, seconds: a hang fails the phase
+FUTURE_WAIT = 120.0
+#: submitter threads of the async runs
+SUBMITTERS = 4
+
+
+def _resolve_all(futs, what):
+    """{image index: result or exception} of (index, future) pairs; fails
+    if a future is still pending after FUTURE_WAIT."""
+    out = {}
+    for i, f in futs:
+        try:
+            out[i] = f.result(timeout=FUTURE_WAIT)
+        except TimeoutError:
+            fail(f"{what}: request for image {i} unresolved after "
+                 f"{FUTURE_WAIT} s")
+        except Exception as e:  # noqa: BLE001 - typed errors are outcomes
+            out[i] = e
+    require(len(out) == len(futs) and all(f.done() for _, f in futs),
+            f"{what}: not every future resolved")
+    return out
+
+
+def _submit_threads(eng, imgs, method="histogram"):
+    """Submit image i from thread i % SUBMITTERS; returns [(i, future)]."""
+    futs = []
+    lock = threading.Lock()
+
+    def worker(t):
+        for i in range(t, len(imgs), SUBMITTERS):
+            f = eng.submit_async(imgs[i], method=method)
+            with lock:
+                futs.append((i, f))
+
+    ts = [threading.Thread(target=worker, args=(t,))
+          for t in range(SUBMITTERS)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=FUTURE_WAIT)
+        require(not t.is_alive(), "a submitter thread hung")
+    return sorted(futs, key=lambda p: p[0])
+
+
+def _flush_buckets(eng):
+    """(flushes, bucket sizes as 'bucket:n', p50 flush wall ms, ms summed
+    over the run by stage: gather, launch (fenced), scatter) from the
+    engine's traces."""
+    traces = eng.tracer.traces()
+    buckets = [c for t in traces for c in t.get("children", ())
+               if c["name"] == "bucket"]
+    sizes = [f"{c['attrs']['bucket']}:{c['attrs']['n']}" for c in buckets]
+    stages = {}
+    for c in buckets:
+        for s in c.get("children", ()):
+            stages[s["name"]] = stages.get(s["name"], 0.0) + s["wall_s"] * 1e3
+    flush_ms = float(np.median([t["wall_s"] for t in traces])) * 1e3
+    return len(traces), sizes, flush_ms, stages
+
+
+def _ladder_zero(eng, what):
+    st = eng.stats()
+    ft = st["fault_tolerance"]
+    for k in ("retries", "degraded", "salvaged", "breaker_trips"):
+        require(all(v == 0 for v in ft[k].values()),
+                f"{what}: {k} {ft[k]} in a clean run")
+    require(all(s == "closed" for s in ft["breaker_state"].values()),
+            f"{what}: breakers {ft['breaker_state']}")
+    require(eng.healthy(), f"{what}: engine not healthy")
+    require(st["pending_futures"] == 0, f"{what}: futures still pending")
+
+
+def _bit_equal(got, want, what):
+    require(np.array_equal(got.centers, want.centers),
+            f"{what}: centers differ from the synchronous run's")
+    require(np.array_equal(got.labels, want.labels),
+            f"{what}: labels differ from the synchronous run's")
+    require(got.n_iters == want.n_iters,
+            f"{what}: n_iters {got.n_iters} vs {want.n_iters}")
+
+
+def _scalar_near_ties(got, want, img, centers, what):
+    """Pixels where two scalar label maps differ; each must be a near-tie:
+    the pixel's float64 squared distances to its two labels' centers
+    within SPATIAL_TIE_RTOL. A histogram label flips every pixel of one
+    value, so no share bound applies. Returns their count."""
+    idx = np.flatnonzero(got != want)
+    if idx.size:
+        x = img.reshape(-1)[idx].astype(np.float64)
+        v = np.asarray(centers, np.float64)
+        a = (x - v[got.reshape(-1)[idx]]) ** 2
+        b = (x - v[want.reshape(-1)[idx]]) ** 2
+        bad = np.abs(a - b) > SPATIAL_TIE_RTOL * np.maximum(a, b)
+        require(not bad.any(), f"{what}: {int(bad.sum())} labels differ by "
+                f"more than a near-tie")
+    return int(idx.size)
+
+
+def _hold_degraded(res, ref, imgs, what):
+    """Plain-solver results against the kernel path's: centers within
+    RTOL/ATOL, n_iters equal, labels equal up to near-ties."""
+    ties = 0
+    for i, r in res.items():
+        require(not isinstance(r, Exception), f"{what}: image {i}: {r!r}")
+        np.testing.assert_allclose(r.centers, ref[i].centers, rtol=RTOL,
+                                   atol=ATOL, err_msg=f"{what} image {i}")
+        require(r.n_iters == ref[i].n_iters,
+                f"{what}: image {i} n_iters {r.n_iters} vs "
+                f"{ref[i].n_iters}")
+        ties += _scalar_near_ties(r.labels, ref[i].labels, imgs[i],
+                                  r.centers, f"{what} image {i}")
+    return ties
+
+
+def _async_run(FCMServeEngine, cfg, sizes, counters, imgs, method, ref,
+               dev, card, what):
+    """9a / 9b: the volume through submit_async from SUBMITTERS threads
+    at max_wait_ms=10, held bit-equal to the synchronous run ``ref``."""
+    eng = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device=dev,
+                         max_wait_ms=10.0, trace_ring=4096)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        futs = _submit_threads(eng, imgs, method=method)
+        res = _resolve_all(futs, what)
+        wall = max(f.resolve_t for _, f in futs) - t0
+        launches = _counts(counters)
+        require(len({r.request_id for r in res.values()}) == len(imgs),
+                f"{what}: request ids not unique")
+        for i, r in res.items():
+            require(not isinstance(r, Exception), f"{what}: image {i}: "
+                    f"{r!r}")
+            _bit_equal(r, ref[i], f"{what} image {i}")
+        _ladder_zero(eng, what)
+        st = eng.stats()
+        batches = st["batches" if method == "histogram" else
+                     f"{method}_batches"]
+        flushes, buckets, flush_ms, stages = _flush_buckets(eng)
+        lat = np.array([f.latency_s for _, f in futs])
+        return dict(launches=launches, batches=batches, wall=wall,
+                         p50=float(np.percentile(lat, 50)),
+                         p99=float(np.percentile(lat, 99)),
+                         flushes=flushes, buckets=buckets,
+                         flush_ms=flush_ms, stages=stages)
+    finally:
+        eng.shutdown()
+
+
+def _print_async(what, n, run, card):
+    print(f"  {what}: {n} requests from {SUBMITTERS} threads, bit-equal to "
+          f"the synchronous run; submit-to-result p50 "
+          f"{run['p50'] * 1e3:.2f} ms, p99 {run['p99'] * 1e3:.2f} ms, "
+          f"{n / run['wall']:.1f} images/s, {run['flushes']} flushes "
+          f"(p50 {run['flush_ms']:.2f} ms), buckets (size:real) "
+          f"{run['buckets']}; ms summed over the run by stage "
+          f"{ {k: round(v, 3) for k, v in run['stages'].items()} }; "
+          f"launches { {k: v for k, v in run['launches'].items() if v} } "
+          f"[{card}]")
+
+
+def async_path(FCMServeEngine, TE, TFI, job, counters, imgs, dev, card):
+    """Phase 9: async serving and the fault-tolerance ladder on the card."""
+    from repro_torch.serving.admission import (DeadlineExceeded,
+                                               EngineShutdown, Overloaded)
+    cfg, sizes = job.fcm, job.serving_batch_sizes
+    n = len(imgs)
+    sync = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device=dev)
+    ref_h = dict(enumerate(sync.segment(imgs)))
+    ref_p = dict(enumerate(sync.segment(imgs, method="pixel")))
+
+    print("[async] histogram route, full width (9a)")
+    run = _async_run(FCMServeEngine, cfg, sizes, counters, imgs,
+                        "histogram", ref_h, dev, card, "9a")
+    want = {**{k: 0 for k in counters},
+            **{k: run["batches"] for k in ("histogram_bin",
+                                           "fcm_resident_solve", "labels")}}
+    require(run["batches"] >= 3 and run["launches"] == want,
+            f"9a: launches {run['launches']} for {run['batches']} buckets")
+    _print_async("9a histogram", n, run, card)
+
+    print("[async] pixel route (9b)")
+    run = _async_run(FCMServeEngine, cfg, sizes, counters, imgs,
+                        "pixel", ref_p, dev, card, "9b")
+    want = {**{k: 0 for k in counters},
+            **{k: run["batches"] for k in ("fcm_streamed_solve",
+                                           "labels")}}
+    require(run["batches"] >= 3 and run["launches"] == want,
+            f"9b: launches {run['launches']} for {run['batches']} buckets")
+    _print_async("9b pixel", n, run, card)
+
+    print("[async] chaos on the card (9c)")
+    kernels3 = ("histogram_bin", "fcm_resident_solve", "labels")
+
+    def engine(specs, **kw):
+        kw.setdefault("max_wait_ms", 1e6)
+        return FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0,
+                              device=dev, retry_backoff_s=1e-3,
+                              faults=TFI.FaultPlan(seed=25, specs=specs),
+                              **kw)
+
+    def submit_all(eng):
+        futs = [(i, eng.submit_async(im)) for i, im in enumerate(imgs)]
+        eng.drain()
+        return futs
+
+    # retries: the first two launch attempts fail, the third runs
+    eng = engine((TFI.FaultSpec(site="launch", kind="error",
+                                route="histogram", times=2),), retries=2)
+    try:
+        res = _resolve_all(submit_all(eng), "9c retries")
+        ft = eng.stats()["fault_tolerance"]
+        require(ft["retries"]["histogram"] == 2
+                and ft["degraded"]["histogram"] == 0,
+                f"9c retries: counters {ft}")
+        for i, r in res.items():
+            _bit_equal(r, ref_h[i], f"9c retries image {i}")
+    finally:
+        eng.shutdown()
+    print(f"  retries: 2 failed launch attempts retried, route.retries 2, "
+          f"{n} results bit-equal to 9a")
+
+    # breaker: every attempt of the first two chunks fails (retries=1,
+    # threshold 2): both degrade and the breaker opens; the later chunks
+    # (at least one: 181 requests, 64 a chunk) find it open. All take the
+    # plain solver on the card.
+    eng = engine((TFI.FaultSpec(site="launch", kind="error",
+                                route="histogram", times=4),),
+                 retries=1, breaker_threshold=2, breaker_cooldown_s=0.5)
+    seen, solve_ms = [], []
+    real = TE.SV.solve_batched
+
+    def spy(problem, cfg_=None, **kw):
+        t = time.perf_counter()
+        out = real(problem, cfg_, **kw)
+        solve_ms.append((time.perf_counter() - t) * 1e3)
+        seen.append((kw.get("backend"), out.centers.device.type))
+        return out
+
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        TE.SV.solve_batched = spy
+        try:
+            t0 = time.perf_counter()
+            res = _resolve_all(submit_all(eng), "9c breaker")
+            t_deg = time.perf_counter() - t0
+        finally:
+            TE.SV.solve_batched = real
+        ft = eng.stats()["fault_tolerance"]
+        require(ft["retries"]["histogram"] == 2
+                and ft["degraded"]["histogram"] == 2
+                and ft["breaker_trips"]["histogram"] == 1
+                and ft["breaker_state"]["histogram"] == "open",
+                f"9c breaker: counters {ft}")
+        require(len(seen) >= 3 and all(s == ("reference", "cuda")
+                                       for s in seen),
+                f"9c breaker: plain solves {seen}, expected a reference "
+                f"solve on cuda for each of at least 3 chunks")
+        require(sum(_counts(counters).values()) == 0,
+                f"9c breaker: kernels launched {_counts(counters)} while "
+                f"the route was degraded")
+        ties = _hold_degraded(res, ref_h, imgs, "9c breaker")
+        print(f"  breaker: 2 chunks degraded after 2 retries, 1 trip, "
+              f"{len(seen) - 2} chunk(s) past the open breaker; {len(seen)} "
+              f"plain solves (backend reference) on cuda of "
+              f"{[round(t, 2) for t in solve_ms]} ms (chunks in "
+              f"{t_deg * 1e3:.1f} ms), "
+              f"centers within rtol {RTOL} / atol {ATOL} of 9a, n_iters "
+              f"equal, {ties} label near-ties [{card}]")
+
+        # recovery: after the cooldown a half-open probe runs the kernels
+        time.sleep(0.6)
+        for fn in counters.values():
+            fn.launches = 0
+        futs = [(i, eng.submit_async(imgs[i])) for i in range(16)]
+        eng.drain()
+        res = _resolve_all(futs, "9c recovery")
+        launches = _counts(counters)
+        ft = eng.stats()["fault_tolerance"]
+        require(all(launches[k] == 1 for k in kernels3)
+                and ft["breaker_state"]["histogram"] == "closed",
+                f"9c recovery: launches {launches}, breakers "
+                f"{ft['breaker_state']}")
+        for i, r in res.items():
+            _bit_equal(r, ref_h[i], f"9c recovery image {i}")
+    finally:
+        eng.shutdown()
+    print(f"  recovery: after the 0.5 s cooldown the half-open probe "
+          f"launched rows 1-3 once each, the breaker closed, 16 results "
+          f"bit-equal to 9a")
+
+    # salvage: lanes 0 and 5 of the first bucket poisoned after the solve
+    eng = engine((TFI.FaultSpec(site="solve", kind="nan", route="histogram",
+                                lanes=(0, 5), times=1),))
+    try:
+        futs = submit_all(eng)
+        res = _resolve_all(futs, "9c salvage")
+        ft = eng.stats()["fault_tolerance"]
+        require(ft["salvaged"]["histogram"] == 2,
+                f"9c salvage: counters {ft}")
+        lane_of = {f.request_id: i for i, f in futs}
+        poisoned = {lane_of[0], lane_of[5]}
+        for i, r in res.items():
+            if i not in poisoned:
+                _bit_equal(r, ref_h[i], f"9c salvage batchmate {i}")
+        ties = _hold_degraded({i: res[i] for i in poisoned}, ref_h, imgs,
+                              "9c salvage")
+    finally:
+        eng.shutdown()
+    print(f"  salvage: 2 poisoned lanes re-solved on the plain solver "
+          f"(route.salvaged 2, {ties} label near-ties), {n - 2} batchmates "
+          f"bit-equal to 9a")
+
+    # flusher kill: the thread dies once and is replaced
+    eng = engine((TFI.FaultSpec(site="flusher", kind="kill", times=1),),
+                 max_wait_ms=10.0)
+    try:
+        res = _resolve_all(_submit_threads(eng, imgs), "9c kill")
+        ft = eng.stats()["fault_tolerance"]
+        require(ft["flusher_restarts"] >= 1 and ft["flusher_kills"] == 1,
+                f"9c kill: {ft}")
+        for i, r in res.items():
+            require(not isinstance(r, Exception), f"9c kill: image {i}: "
+                    f"{r!r}")
+            _bit_equal(r, ref_h[i], f"9c kill image {i}")
+    finally:
+        eng.shutdown()
+    print(f"  flusher kill: {ft['flusher_kills']} kill, "
+          f"{ft['flusher_restarts']} restart(s), {n} futures resolved "
+          f"bit-equal to 9a")
+
+    # overload: a burst past max_queue_depth with mixed deadlines
+    deadlines = [(None, 5.0, 0.02, 0.002)[i % 4] for i in range(n)]
+    eng = engine((), max_wait_ms=10.0, max_queue_depth=64)
+    try:
+        futs = [(i, eng.submit_async(im, deadline=deadlines[i]))
+                for i, im in enumerate(imgs)]
+        res = _resolve_all(futs, "9c overload")
+        kinds = {"result": 0, "Overloaded": 0, "DeadlineExceeded": 0}
+        for i, r in res.items():
+            if isinstance(r, (Overloaded, DeadlineExceeded)):
+                kinds[type(r).__name__] += 1
+            else:
+                require(not isinstance(r, Exception),
+                        f"9c overload: image {i}: {r!r}")
+                _bit_equal(r, ref_h[i], f"9c overload image {i}")
+                kinds["result"] += 1
+        st = eng.stats()
+        require(sum(kinds.values()) == n and kinds["Overloaded"]
+                == st["fault_tolerance"]["shed"]["histogram"]
+                and kinds["DeadlineExceeded"]
+                == st["deadline_expired"]["histogram"],
+                f"9c overload: outcomes {kinds}, stats "
+                f"{st['fault_tolerance']['shed']}, "
+                f"{st['deadline_expired']}")
+    finally:
+        eng.shutdown()
+    print(f"  overload: {n} requests at max_queue_depth 64, deadlines "
+          f"none/5 s/20 ms/2 ms: {kinds} (sum {sum(kinds.values())}), "
+          f"results bit-equal to 9a [{card}]")
+
+    # shutdown(drain=False): queued futures fail with EngineShutdown
+    eng = engine(())
+    futs = [(i, eng.submit_async(imgs[i])) for i in range(30)]
+    eng.shutdown(drain=False)
+    res = _resolve_all(futs, "9c shutdown")
+    require(all(isinstance(r, EngineShutdown) for r in res.values()),
+            f"9c shutdown: outcomes "
+            f"{set(type(r).__name__ for r in res.values())}")
+    print("  shutdown(drain=False): 30 queued futures failed with "
+          "EngineShutdown")
+
+
+def _timed_launches(eng, dev, submitting):
+    """Wrap the engine's launch under the ladder so each bucket records
+    the host's wall time in the launch call, CUDA events around it on the
+    engine's stream (the device span from the call's start to its last
+    kernel's end), and whether submitter threads were still running when
+    it began. The launch span's wall less the call's is the fence's
+    wait."""
+    rec = []
+    orig = eng._launch_attempts
+
+    def timed(route, prog, inputs):
+        stream = torch.cuda.current_stream(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        busy = submitting.is_set()
+        t0 = time.perf_counter()
+        e0.record(stream)
+        out = orig(route, prog, inputs)
+        e1.record(stream)
+        rec.append(dict(host=time.perf_counter() - t0, ev=(e0, e1),
+                        busy=busy))
+        return out
+
+    eng._launch_attempts = timed
+    return rec
+
+
+def _anatomy(eng, rec, what, card):
+    """Print where a run's flushes spent their time: bucket medians of the
+    stages from the trace ring, the launch call's host time, the fence's
+    wait and the device span, and each stage's median over the buckets
+    begun while submitters ran and over those begun after."""
+    torch.cuda.synchronize()
+    buckets = [c for t in eng.tracer.traces() for c in t.get("children", ())
+               if c["name"] == "bucket"]
+    stage = {}
+    for c in buckets:
+        for sp in c.get("children", ()):
+            stage.setdefault(sp["name"], []).append(sp["wall_s"] * 1e3)
+    require(len(rec) == len(stage.get("launch", ())),
+            f"{what}: {len(rec)} timed launches, "
+            f"{len(stage.get('launch', ()))} launch spans")
+    dev_ms = [r["ev"][0].elapsed_time(r["ev"][1]) for r in rec]
+    fence = [w - r["host"] * 1e3 for w, r in zip(stage["launch"], rec)]
+    busy = [r["busy"] for r in rec]
+
+    def med(xs):
+        return round(float(np.median(xs)), 3) if len(xs) else None
+
+    def split(xs):
+        return (med([x for x, b in zip(xs, busy) if b]),
+                med([x for x, b in zip(xs, busy) if not b]))
+
+    print(f"  {what}: {len(rec)} buckets ({sum(busy)} begun while "
+          f"submitters ran); median ms a bucket: "
+          f"{ {k: med(v) for k, v in stage.items()} }, launch call "
+          f"{med([r['host'] * 1e3 for r in rec])}, fence wait {med(fence)}"
+          f", device span {med(dev_ms)}; (while submitters ran, after): "
+          f"{ {k: split(v) for k, v in stage.items()} }, device span "
+          f"{split(dev_ms)} [{card}]")
+
+
+def async_anatomy(FCMServeEngine, job, imgs, dev, card):
+    """9d: where an async flush's time goes. The 9a run timed bucket by
+    bucket on a fresh engine and again on the same (warm) engine; the
+    volume six times over on a fresh engine, so that flushes overlap
+    the submitters, at the interpreter's default switch interval and at
+    0.1 ms; a synchronous flush of the volume for comparison; then the
+    9a run under torch.profiler for the device's own events."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, sizes = job.fcm, job.serving_batch_sizes
+    submitting = threading.Event()
+
+    def engine():
+        return FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0,
+                              device=dev, max_wait_ms=10.0, trace_ring=4096)
+
+    def run(eng, rec, reps=1):
+        rec.clear()
+        eng.tracer.clear()
+        submitting.set()
+        try:
+            futs = _submit_threads(eng, imgs * reps)
+        finally:
+            submitting.clear()
+        _resolve_all(futs, "9d")
+        eng.drain()     # waits for the last flush's trace
+
+    eng = engine()
+    try:
+        rec = _timed_launches(eng, dev, submitting)
+        run(eng, rec)
+        _anatomy(eng, rec, "fresh engine (as 9a)", card)
+        run(eng, rec)
+        _anatomy(eng, rec, "the same engine again (warm)", card)
+    finally:
+        eng.shutdown()
+    old = sys.getswitchinterval()
+    for interval in (old, 1e-4):
+        eng = engine()
+        try:
+            rec = _timed_launches(eng, dev, submitting)
+            sys.setswitchinterval(interval)
+            run(eng, rec, reps=6)
+        finally:
+            sys.setswitchinterval(old)
+            eng.shutdown()
+        _anatomy(eng, rec, f"fresh engine, the volume 6 times, switch "
+                 f"interval {interval * 1e3:g} ms", card)
+    eng = engine()
+    try:
+        rec = _timed_launches(eng, dev, submitting)
+        eng.segment(imgs)
+        eng.tracer.clear()
+        rec.clear()
+        eng.segment(imgs)
+        _anatomy(eng, rec, "synchronous segment, warm, caller's thread",
+                 card)
+    finally:
+        eng.shutdown()
+    eng = engine()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(eng, [])
+            wall = time.perf_counter() - t0
+    finally:
+        eng.shutdown()
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("Activity Buffer")):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) * 1e-3
+    print(f"  profiled 9a run: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy:.3f} ms [{card}]")
+    for us, count, key in rows[:8]:
+        print(f"    {us / 1e3:9.4f} ms  x{count:<4d} "
+              f"({us / count:8.2f} us each) {key[:60]}")
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2254,7 +2799,9 @@ def main(dev=None):
     from repro_torch.kernels import histogram_bin as KB
     from repro_torch.kernels import selective_scan as KSS
     from repro_torch.kernels import slic_assign as KS
+    from repro_torch import faults as TFI
     from repro_torch.serving import FCMServeEngine
+    from repro_torch.serving import fcm_engine as TE
     from repro_torch.superpixel import slic as SL
     dev = torch.device("cuda") if dev is None else dev
 
@@ -2491,6 +3038,13 @@ def main(dev=None):
     t8 = time.perf_counter()
     k_scan = lm_path(KSS, counters, dev, card)
     print(f"[lm] {time.perf_counter() - t8:.1f} s")
+
+    # -- 9. async serving and chaos on the card -----------------------------
+    t9 = time.perf_counter()
+    async_path(FCMServeEngine, TE, TFI, job, counters, imgs, dev, card)
+    print("[async] where an async flush's time goes (9d)")
+    async_anatomy(FCMServeEngine, job, imgs, dev, card)
+    print(f"[async] {time.perf_counter() - t9:.1f} s")
 
     kernels = [
         dict(name="histogram_bin", route="cuda",

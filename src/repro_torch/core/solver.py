@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import _device as DV
+from .. import faults as FI
 from ..kernels import ops as kops
 from . import fcm as F
 from . import histogram as H
@@ -698,6 +699,9 @@ def solve_batched(problem: FCMProblem, cfg: Optional[F.FCMConfig] = None, *,
             feats, w, problem.c, problem.m, eps, max_iters, impl=impl)
         if problem.scalar:
             v = v[..., 0]
+    inj = FI.get()
+    if inj is not None:
+        v = inj.corrupt("solve_batched", v)
     n_iters = iters.cpu().numpy()
     final_delta = delta.cpu().numpy()
     cen = v.cpu().numpy()

@@ -105,6 +105,17 @@ RESTYPES = {"fcm_stencil_smem_bytes": _L, "fcm_spatial3d_rows": _L,
             "fcm_spatial2d_blocks": _L, "histogram_bin_block_bytes": _L,
             "histogram_bin_blocks": _L}
 
+
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be had: ``nvcc`` is missing, a source
+    fails to compile, the link fails, the build directory cannot be
+    written, or the library does not load or lacks a symbol."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel returned a nonzero ``cudaError_t``."""
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: ptxas' report (registers, shared memory, spills per kernel) of the
@@ -124,8 +135,9 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
-                       "the CUDA toolkit is installed (set CUDA_HOME)")
+    raise KernelBuildError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed (set "
+                           "CUDA_HOME)")
 
 
 def sources():
@@ -145,15 +157,22 @@ def _digest() -> str:
 
 def _compile(nvcc: str, out: Path) -> str:
     """Compile every source in parallel, link them into ``out``; returns
-    the compilers' combined report. Raises with the report on failure."""
+    the compilers' combined report. Raises :class:`KernelBuildError` with
+    the report on failure."""
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         procs = []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            try:
+                procs.append((src, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            except OSError as e:
+                for _, _, proc in procs:
+                    proc.kill()
+                    proc.wait()
+                raise KernelBuildError(f"cannot run {nvcc}: {e}") from e
         logs, failed = [], []
         for src, obj, proc in procs:
             text, _ = proc.communicate()
@@ -162,34 +181,47 @@ def _compile(nvcc: str, out: Path) -> str:
                 failed.append(src.name)
         report = "\n".join(logs)
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
+            raise KernelBuildError(f"nvcc failed on {failed}:\n{report}")
         staged = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
              *[str(obj) for _, obj, _ in procs], "-o", str(staged)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+            raise KernelBuildError(
+                f"linking the kernels failed:\n{link.stdout}")
         os.replace(staged, out)     # atomic: concurrent builders agree
     return report
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call. Raises if the
-    build fails; there is no fallback."""
+    """The loaded kernel library, built on first call. Raises
+    :class:`KernelBuildError` if the build or the load fails; there is no
+    fallback."""
     global _lib, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        path = BUILD_DIR / f"libfcm_kernels-{_digest()}.so"
-        if not path.exists():
-            t0 = time.perf_counter()
-            build_log = _compile(_nvcc(), path)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+        try:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            path = BUILD_DIR / f"libfcm_kernels-{_digest()}.so"
+            if not path.exists():
+                t0 = time.perf_counter()
+                build_log = _compile(_nvcc(), path)
+                build_seconds = time.perf_counter() - t0
+        except OSError as e:
+            raise KernelBuildError(f"cannot build the kernels in "
+                                   f"{BUILD_DIR}: {e}") from e
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {path}: {e}") from e
         for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
+            try:
+                fn = getattr(lib, name)
+            except AttributeError as e:
+                raise KernelBuildError(
+                    f"{path} lacks the symbol {name}") from e
             fn.argtypes = list(args)
             fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
@@ -197,10 +229,11 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a launch returned a nonzero ``cudaError_t``."""
+    """Raise :class:`KernelLaunchError` if a launch returned a nonzero
+    ``cudaError_t``."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+        raise KernelLaunchError(f"{what}: CUDA launch failed with "
+                                f"cudaError_t {err}")
 
 
 def stream_of(t) -> int:

@@ -207,8 +207,8 @@ def streamed_occupancy(device, c: int, d: int, m: float):
     if key not in _occupancy:
         blocks = _build.library().fcm_streamed_blocks_per_sm(c, d, m32)
         if blocks < 1:
-            raise RuntimeError(f"fcm_streamed_blocks_per_sm: CUDA error "
-                               f"{-blocks}")
+            raise _build.KernelLaunchError(
+                f"fcm_streamed_blocks_per_sm: CUDA error {-blocks}")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _occupancy[key] = (sms, blocks)
     return _occupancy[key]

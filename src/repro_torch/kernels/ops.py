@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from .. import faults as FI
 from . import defuzzify as KD
 from . import fcm_centers as KC
 from . import fcm_membership as KM
@@ -245,6 +246,11 @@ def select_step(kind: str, *, prefer: Optional[str] = None,
     kinds = sorted({k for k, _ in _STEP_REGISTRY})
     if kind not in kinds:
         raise ValueError(f"unknown step kind {kind!r}; one of {kinds}")
+    inj = FI.get()
+    if inj is not None:
+        # Chaos hook: a dispatch-time failure for one (kind, impl),
+        # injected without patching internals.
+        inj.maybe_fail("kernel", route=f"{kind}/{prefer or 'auto'}")
     platform = platform or _default_platform()
     if prefer is not None:
         impl = _STEP_REGISTRY.get((kind, prefer))

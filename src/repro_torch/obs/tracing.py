@@ -8,7 +8,8 @@ propagate (the span records ``status="error"`` and the error repr).
 
 CUDA work is asynchronous, so a span that only brackets a launch times
 the enqueue, not the math. :meth:`Span.fence` synchronises the card when
-the launch result holds CUDA tensors and records the span-start ->
+the launch result holds CUDA tensors (the card that holds them, not
+the thread's current one) and records the span-start ->
 ready interval as ``device_s``, while returning the value:
 ``outs = sp.fence(prog.launch(*inputs))``. On the CPU it waits for
 nothing.
@@ -33,14 +34,19 @@ from . import metrics as M
 __all__ = ["Span", "Tracer"]
 
 
-def _holds_cuda(value) -> bool:
+def _cuda_devices(value, found=None) -> set:
+    """The CUDA devices that hold the tensors in ``value``."""
+    found = set() if found is None else found
     if isinstance(value, torch.Tensor):
-        return value.device.type == "cuda"
-    if isinstance(value, (tuple, list)):
-        return any(_holds_cuda(v) for v in value)
-    if isinstance(value, dict):
-        return any(_holds_cuda(v) for v in value.values())
-    return False
+        if value.device.type == "cuda":
+            found.add(value.device)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _cuda_devices(v, found)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _cuda_devices(v, found)
+    return found
 
 
 class Span:
@@ -63,11 +69,12 @@ class Span:
 
     def fence(self, value):
         """Wait until ``value``'s device work is done (a
-        ``torch.cuda.synchronize()`` when it holds CUDA tensors; nothing
-        on the CPU); record the span-start -> ready interval as this
-        span's device time."""
-        if _holds_cuda(value):
-            torch.cuda.synchronize()
+        ``torch.cuda.synchronize`` of each card that holds its tensors,
+        whatever the calling thread's current device; nothing on the
+        CPU); record the span-start -> ready interval as this span's
+        device time."""
+        for device in _cuda_devices(value):
+            torch.cuda.synchronize(device)
         self.device_s = time.perf_counter() - self._t0
         return value
 

@@ -1,6 +1,8 @@
-"""Segmentation serving: the route-registry engine (histogram route,
-synchronous API)."""
+"""Segmentation serving: the route-registry engine, its synchronous
+(``submit`` / ``flush``) and async (``submit_async`` ->
+:class:`SegmentationFuture`) front doors."""
 from . import fcm_engine  # noqa: F401
 from .admission import (DeadlineExceeded, EngineShutdown,  # noqa: F401
-                        InvalidInput, Overloaded, SolveFailed)
+                        InvalidInput, Overloaded, SegmentationFuture,
+                        SolveFailed)
 from .fcm_engine import FCMServeEngine, SegmentationResult  # noqa: F401

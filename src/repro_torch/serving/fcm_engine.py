@@ -46,10 +46,37 @@ the bucket) past it; labels are the argmax of the final Eq. 4'
 membership, in plain PyTorch on the payloads' device, as the JAX
 package computes them.
 
-Async admission, retries, the circuit breaker, per-request salvage and
-mesh dispatch are not ported yet. A lane whose
-centers come back non-finite fails with
+Every route also gives ``build_problem`` (one batched problem for a
+chunk) and a materializer; the fault-tolerance ladder runs them on the
+plain solver. **Async admission**: ``submit_async`` queues through the
+same per-route queues and returns a
+:class:`~repro_torch.serving.admission.SegmentationFuture`; a lazy,
+supervised background flusher thread forms batches (a bucket group at
+the target shape ``batch_sizes[-1]``, or the oldest async request older
+than ``max_wait_ms``), admits by deadline and sheds the least urgent
+request past ``max_queue_depth``. ``drain`` flushes synchronously and
+``shutdown`` drains or fails what is queued. **The ladder** acts on the
+one transient failure the port has, an injected
+:class:`~repro_torch.faults.InjectedFault`: such a launch failure is
+retried ``retries`` times with exponential backoff; a
+chunk whose launch still fails counts toward its route's circuit
+breaker and is solved by ``solve_batched(backend="reference")`` on the
+engine's device (``route.degraded``); an open breaker sends chunks there
+until one half-open probe after ``breaker_cooldown_s`` closes it. A lane
+whose centers come back non-finite is re-solved alone on that plain
+path (``route.salvaged``) while its batchmates finish untouched; still
+non-finite, it fails with
 :class:`~repro_torch.serving.admission.SolveFailed`.
+
+Every other error never enters the ladder: no retry, no breaker count,
+no degraded chunk. A kernel that fails to build or to launch (a
+:class:`~repro_torch.kernels._build.KernelBuildError`, a
+:class:`~repro_torch.kernels._build.KernelLaunchError`), torch's own
+CUDA errors, running out of card memory and a fault in a wrapper all
+fail the route's requests, so the plain path never answers for a kernel
+that is broken. Seeded faults
+(:mod:`repro_torch.faults`) hook the ``ingest``, ``launch``, ``solve``
+and ``flusher`` sites here. Mesh dispatch is not ported.
 """
 from __future__ import annotations
 
@@ -64,6 +91,7 @@ import numpy as np
 import torch
 
 from .. import _device as DV
+from .. import faults as FI
 from .. import obs
 from ..core import fcm as F
 from ..core import solver as SV
@@ -71,7 +99,8 @@ from ..core import spatial as SP
 from ..core.batched import hist_rows
 from ..kernels import ops as kops
 from ..superpixel import pipeline as SX
-from .admission import InvalidInput, SolveFailed
+from .admission import (DeadlineExceeded, EngineShutdown, InvalidInput,
+                        Overloaded, SegmentationFuture, SolveFailed)
 
 
 @dataclasses.dataclass
@@ -147,18 +176,20 @@ class RouteSpec:
     ``ingest(engine, img, rid)`` validates and reduces the payload;
     ``bucket_key(engine, payload)`` decides which payloads may share one
     launch; ``materialize`` turns fitted centers into one request's
-    labels (cache hits and duplicates of ``cacheable`` routes, routes
-    without a program);
+    labels (cache hits and duplicates of ``cacheable`` routes, the
+    plain path);
     ``program_key(engine, chunk)`` names the program shape a chunk
     shares and ``make_program(engine, key, bucket)`` builds that
-    :class:`RouteProgram`, cached per (route generation, bucket, key). A
-    route without a program gives ``build_problem(engine, chunk,
-    bucket)``, which stacks a chunk (plus padding lanes up to
-    ``bucket``) into one batched
+    :class:`RouteProgram`, cached per (route generation, bucket, key). Every
+    route gives ``build_problem(engine, chunk, bucket)``, which stacks a
+    chunk (plus padding lanes up to ``bucket``) into one batched
     :class:`~repro_torch.core.solver.FCMProblem` and names the config
-    whose eps/max_iters govern the fit. ``cacheable`` routes carry a
-    ``.key``/``.hist`` payload and go through the histogram LRU and
-    intra-flush dedup.
+    whose eps/max_iters govern the fit: a route without a program solves
+    it, and the degraded path and the salvage solve it on the plain
+    solver. ``materialize_batch(engine, chunk, centers, n_iters)``, where
+    given, labels a whole solved chunk at once. ``cacheable`` routes
+    carry a ``.key``/``.hist`` payload and go through the histogram LRU
+    and intra-flush dedup.
     """
     name: str
     ingest: Callable[["FCMServeEngine", np.ndarray, int], Any]
@@ -173,6 +204,9 @@ class RouteSpec:
     build_problem: Optional[
         Callable[["FCMServeEngine", List[Any], int],
                  Tuple[SV.FCMProblem, F.FCMConfig]]] = None
+    materialize_batch: Optional[
+        Callable[["FCMServeEngine", List[Any], np.ndarray, np.ndarray],
+                 List["SegmentationResult"]]] = None
     cacheable: bool = False
     stats_prefix: str = ""        # "" keeps the legacy histogram names
 
@@ -254,6 +288,18 @@ def _ensure_hist(eng: "FCMServeEngine", p: _Pending) -> _Pending:
         if p.key is None:
             p.key = p.hist.tobytes()
     return p
+
+
+def _build_histogram(eng, chunk, bucket):
+    hists = np.stack([_ensure_hist(eng, p).hist for p in chunk])
+    n_pad = bucket - len(chunk)
+    if n_pad:
+        # Uniform-histogram padding lanes converge fast and are dropped.
+        hists = np.concatenate([hists,
+                                np.ones((n_pad, eng.n_bins), np.float32)])
+    hists = torch.from_numpy(hists).to(eng.device)
+    return SV.batch_problems(hist_rows(hists), hists, cfg=eng.cfg,
+                             device=eng.device), eng.cfg
 
 
 def _label_lut(centers: np.ndarray, n_bins: int) -> np.ndarray:
@@ -359,6 +405,7 @@ register_route(RouteSpec(
     materialize=_materialize_histogram,
     program_key=_histogram_program_key,
     make_program=_make_histogram_program,
+    build_problem=_build_histogram,
     cacheable=True))
 
 
@@ -375,6 +422,35 @@ def _ingest_pixel(eng, img, rid) -> _PendingPixels:
             f"use method='histogram' or 'spatial' for volumes")
     # a copy: the caller may reuse its buffer between submit() and flush()
     return _PendingPixels(rid, np.array(img))
+
+
+def _pixel_rows(img: np.ndarray) -> np.ndarray:
+    imgf = img.astype(np.float32)
+    return (imgf.reshape(-1, img.shape[-1]) if img.ndim == 3
+            else imgf.reshape(-1))
+
+
+def _build_pixel(eng, chunk, bucket):
+    xs = np.stack([_pixel_rows(q.pixels) for q in chunk])
+    n_pad = bucket - len(chunk)
+    if n_pad:
+        # Padding lanes replay the first image and are dropped on output.
+        xs = np.concatenate([xs, np.repeat(xs[:1], n_pad, axis=0)])
+    return SV.batch_problems(xs, cfg=eng.cfg, device=eng.device), eng.cfg
+
+
+def _materialize_pixel(eng, q, centers, n_iters, cache_hit):
+    img = q.pixels
+    spatial_shape = img.shape[:-1] if img.ndim == 3 else img.shape
+    # Argmin labels, never the (c, N) membership: the labels kernel on
+    # the card for scalar rows.
+    labels = kops.defuzzify_labels(
+        torch.from_numpy(_pixel_rows(img)).to(eng.device),
+        torch.from_numpy(np.asarray(centers, np.float32)).to(eng.device))
+    return SegmentationResult(q.request_id,
+                              labels.cpu().numpy().reshape(spatial_shape),
+                              np.asarray(centers), n_iters, cache_hit,
+                              method="pixel")
 
 
 def _pixel_program_key(eng, chunk):
@@ -463,6 +539,45 @@ def _spatial_neighbors(eng, ndim: int) -> int:
     return eng.spatial_cfg.neighbors if ndim == 2 else 6
 
 
+def _build_spatial(eng, chunk, bucket):
+    imgs = np.stack([q.pixels.astype(np.float32) for q in chunk])
+    n_pad = bucket - len(chunk)
+    if n_pad:
+        imgs = np.concatenate([imgs, np.repeat(imgs[:1], n_pad, axis=0)])
+    scfg = eng.spatial_cfg
+    stencil = SV.StencilSpec(alpha=scfg.alpha,
+                             neighbors=_spatial_neighbors(eng,
+                                                          imgs.ndim - 1))
+    return SV.batch_problems(imgs, stencil=stencil, cfg=scfg,
+                             device=eng.device), scfg
+
+
+def _materialize_spatial(eng, q, centers, n_iters, cache_hit):
+    # The single-request face of the batch materializer (the salvage
+    # labels one request at a time); it must not drift from it.
+    return _materialize_spatial_batch(eng, [q], np.asarray(centers)[None],
+                                      np.asarray([n_iters]))[0]
+
+
+def _materialize_spatial_batch(eng, chunk, centers, n_iters):
+    """The argmax of the Eq. 4' membership of every request of a solved
+    chunk, in one batched plain-PyTorch pass on the engine's device, as
+    the route's program labels."""
+    scfg = eng.spatial_cfg
+    neighbors = _spatial_neighbors(eng, chunk[0].pixels.ndim)
+    imgs = torch.from_numpy(np.stack([q.pixels for q in chunk]).astype(
+        np.float32)).to(eng.device)
+    v = torch.from_numpy(np.asarray(centers[:len(chunk)], np.float32)).to(
+        eng.device)
+    u = SP.spatial_membership(imgs, v, float(scfg.m), float(scfg.alpha),
+                              neighbors, batched=True)
+    labels = torch.argmax(u, dim=1).to(torch.int32).cpu().numpy()
+    return [SegmentationResult(q.request_id, labels[i],
+                               np.asarray(centers[i]), int(n_iters[i]),
+                               False, method="spatial")
+            for i, q in enumerate(chunk)]
+
+
 def _spatial_program_key(eng, chunk):
     return ("sp",) + chunk[0].pixels.shape  # bucket_key groups by shape
 
@@ -547,11 +662,14 @@ def _materialize_superpixel(eng, q, centers, n_iters, cache_hit):
 register_route(RouteSpec(
     name="pixel", ingest=_ingest_pixel,
     bucket_key=lambda eng, p: ("pixel",) + p.pixels.shape,
+    materialize=_materialize_pixel, build_problem=_build_pixel,
     program_key=_pixel_program_key, make_program=_make_pixel_program,
     stats_prefix="pixel"))
 register_route(RouteSpec(
     name="spatial", ingest=_ingest_spatial,
     bucket_key=lambda eng, p: ("spatial",) + p.pixels.shape,
+    materialize=_materialize_spatial, build_problem=_build_spatial,
+    materialize_batch=_materialize_spatial_batch,
     program_key=_spatial_program_key, make_program=_make_spatial_program,
     stats_prefix="spatial"))
 register_route(RouteSpec(
@@ -564,13 +682,36 @@ register_route(RouteSpec(
 METHODS = tuple(ROUTES)
 
 
+def _route_of(method: str) -> RouteSpec:
+    route = ROUTES.get(method)
+    if route is None:
+        raise ValueError(f"unknown method {method!r}; registered "
+                         f"routes: {METHODS}")
+    return route
+
+
+def _failed_future(method: str, t_submit: float, err: BaseException,
+                   deadline: Optional[float] = None) -> SegmentationFuture:
+    """A future already failed with ``err``: a request that took no
+    request id and no queue slot."""
+    fut = SegmentationFuture(-1, method, deadline=deadline)
+    fut.submit_t = t_submit
+    fut.set_exception(err)
+    return fut
+
+
 class FCMServeEngine:
     """Static-bucket batching engine for FCM segmentation requests.
 
     ``submit`` ingests an image (any 2-D/3-D shape, 8-bit-range values);
     ``flush`` answers cache hits and runs one program per bucketed
-    chunk; ``segment`` is submit-all-then-flush. The engine runs on
-    ``device`` (``None`` = the card; with no card it raises).
+    chunk; ``segment`` is submit-all-then-flush. ``submit_async``
+    queues through the same per-route queues and returns a
+    :class:`~repro_torch.serving.admission.SegmentationFuture` that a
+    lazy background flusher thread resolves; ``drain`` flushes
+    synchronously and ``shutdown`` stops the flusher. The engine runs on
+    ``device`` (``None`` = the card; with no card it raises); its
+    flusher thread runs each flush on that card.
     """
 
     def __init__(self, cfg: F.FCMConfig = F.FCMConfig(),
@@ -582,10 +723,23 @@ class FCMServeEngine:
                  spatial_cfg: Optional[SP.SpatialFCMConfig] = None,
                  tracing: bool = True,
                  trace_ring: int = 64,
-                 device=None):
+                 device=None,
+                 max_wait_ms: float = 10.0,
+                 faults: Optional[Any] = None,
+                 retries: int = 2,
+                 retry_backoff_s: float = 0.05,
+                 breaker_threshold: int = 3,
+                 breaker_cooldown_s: float = 5.0,
+                 max_queue_depth: Optional[int] = None):
         if not batch_sizes or any(b <= 0 for b in batch_sizes):
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         self.device = DV.resolve_device(device)
+        #: the card the flusher thread runs on: a new thread's current
+        #: device is device 0, whatever this engine's is
+        self._cuda_index = (
+            None if self.device.type != "cuda"
+            else self.device.index if self.device.index is not None
+            else torch.cuda.current_device())
         self.cfg = cfg
         self.spatial_cfg = spatial_cfg or SP.SpatialFCMConfig(
             n_clusters=cfg.n_clusters, m=cfg.m, eps=cfg.eps,
@@ -612,18 +766,60 @@ class FCMServeEngine:
         self.metrics = obs.MetricsRegistry()
         self.tracer = obs.Tracer(max_traces=trace_ring, enabled=tracing,
                                  metrics=self.metrics)
-        #: request id -> submit perf_counter, consumed when the result
-        #: materializes (the per-route latency histogram)
-        self._submit_t: Dict[int, float] = {}
-        #: guards queues and id allocation: submit may race a flush
-        self._lock = threading.Lock()
+        # -- fault tolerance ------------------------------------------------
+        #: bounded retry of a failed launch, retry_backoff_s * 2^attempt
+        #: apart
+        self.retries = int(retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        #: consecutive post-retry launch failures that open a route's
+        #: breaker (its chunks then take the plain solver); after
+        #: breaker_cooldown_s one half-open probe launch tests recovery
+        self.breaker_threshold = int(breaker_threshold)
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        #: queued-request ceiling past which the least urgent async
+        #: request (or the incoming one) is shed; None = unbounded
+        self.max_queue_depth = (None if max_queue_depth is None
+                                else int(max_queue_depth))
+        if faults is None:
+            self._faults: Optional[FI.FaultInjector] = None
+        elif isinstance(faults, FI.FaultInjector):
+            self._faults = faults
+        else:
+            self._faults = FI.FaultInjector(faults, registry=self.metrics)
+        #: route -> {"state", "failures", "opened_t"}; guarded by _lock
+        self._breakers: Dict[str, Dict[str, Any]] = {}
+        #: hard (BaseException) flusher deaths seen
+        self._flusher_kills = 0
+        #: request id -> (submit perf_counter, route name), consumed when
+        #: the result materializes (the per-route latency histogram)
+        self._submit_t: Dict[int, Tuple[float, str]] = {}
+        # -- async admission ----------------------------------------------
+        #: guards queues, futures, id allocation and the shutdown flag;
+        #: the condition wakes the flusher on submits and shutdown
+        self._lock = threading.RLock()
+        self._cond = threading.Condition(self._lock)
+        #: serializes flush bodies (flusher thread vs. flush / drain
+        #: callers): queue swaps stay atomic under _lock, the solve runs
+        #: outside it, and the kernels of one stream run in turn
+        self._flush_lock = threading.Lock()
+        #: request id -> unresolved future (async requests only)
+        self._futures: Dict[int, SegmentationFuture] = {}
+        self.max_wait_ms = float(max_wait_ms)
+        self._closed = False
+        self._flusher: Optional[threading.Thread] = None
+        #: per-route count of queued async requests (guarded by _lock)
+        self._async_n: Dict[str, int] = {}
         self.metrics.counter("requests")
         self.metrics.counter("cache_hits")
         self.metrics.gauge("queue.depth")
+        self.metrics.counter("flusher.restarts")
         for route in ROUTES.values():
             for k in ("requests", "cache_hits", "batches", "images",
-                      "padded", "iters"):
+                      "padded", "iters", "deadline_expired", "retries",
+                      "shed", "salvaged", "degraded", "breaker_trips",
+                      "invalid_input"):
                 self._route_counter(k, route.name)
+            self.metrics.gauge("route.breaker_state", route=route.name)
             for stage in ("ingest", "solve", "materialize", "compress"):
                 self._stage_seconds(route.name, stage)
             self._latency_hist(route.name)
@@ -661,30 +857,68 @@ class FCMServeEngine:
         """Caller holds ``_lock``."""
         for name, q in self._queues.items():
             self.metrics.gauge("queue.depth", route=name).set(len(q))
-        self.metrics.gauge("queue.depth").set(
-            sum(len(q) for q in self._queues.values()))
+        self.metrics.gauge("queue.depth").set(self.queue_depth)
 
     def _finish(self, route: RouteSpec, results: Dict[int, Any],
                 r: SegmentationResult) -> None:
-        """Record one materialized result and its submit->result latency."""
+        """Record one materialized result and its submit->result latency,
+        and resolve the request's future if it was submitted async."""
         results[r.request_id] = r
-        t = self._submit_t.pop(r.request_id, None)
-        if t is not None:
-            self._latency_hist(route.name).record(time.perf_counter() - t)
+        sub = self._submit_t.pop(r.request_id, None)
+        if sub is not None:
+            self._latency_hist(route.name).record(
+                time.perf_counter() - sub[0])
+        fut = self._futures.pop(r.request_id, None)
+        if fut is not None:
+            fut.try_set_result(r)
 
-    # -- submit / flush ----------------------------------------------------
+    def _fail_request(self, p: Any, err: BaseException) -> bool:
+        """Resolve one request with a typed error; True when an async
+        future took it (a synchronous caller has no future: its flush
+        raises the error)."""
+        self._submit_t.pop(p.request_id, None)
+        fut = self._futures.pop(p.request_id, None)
+        if fut is not None:
+            fut.try_set_exception(err)
+            return True
+        return False
+
+    # -- submit ------------------------------------------------------------
 
     def _ingest(self, method: str, img: np.ndarray):
-        route = ROUTES.get(method)
-        if route is None:
-            raise ValueError(f"unknown method {method!r}; registered "
-                             f"routes: {METHODS}")
+        """Validate and reduce one payload through its route, outside the
+        admission lock (superpixel ingest runs SLIC). A raise consumes
+        neither a request id nor a queue slot."""
+        route = _route_of(method)
         img = np.asarray(img)
-        with self.tracer.span("ingest", ring=False, route=method) as sp:
-            _validate_payload(img)
-            pending = route.ingest(self, img, self._next_id)
+        try:
+            with self.tracer.span("ingest", ring=False, route=method) as sp:
+                if self._faults is not None:
+                    self._faults.maybe_fail("ingest", route=method)
+                _validate_payload(img)
+                pending = route.ingest(self, img, self._next_id)
+        except InvalidInput:
+            self._route_counter("invalid_input", method).inc()
+            raise
         self._stage_seconds(method, "ingest").inc(sp.wall_s)
         return pending
+
+    def _enqueue(self, method: str, pending, t_submit: float) -> int:
+        """Allocate the request id and queue the payload (caller holds
+        ``_lock``)."""
+        if self._closed:
+            raise EngineShutdown("engine is shut down; no new submits")
+        rid = self._next_id
+        self._next_id += 1
+        # The id ingest saw was advisory (submitters race for ids); the
+        # queued payload carries the real one.
+        pending.request_id = rid
+        self.metrics.counter("requests").inc()
+        self._route_counter("requests", method).inc()
+        self._submit_t[rid] = (t_submit, method)
+        self._queues.setdefault(method, []).append(pending)
+        self._set_queue_gauges()
+        return rid
 
     def submit(self, img: np.ndarray, method: str = "histogram") -> int:
         """Queue one image on a registered route; returns its request id.
@@ -692,40 +926,175 @@ class FCMServeEngine:
         t_submit = time.perf_counter()
         pending = self._ingest(method, img)
         with self._lock:
-            rid = self._next_id
-            self._next_id += 1
-            pending.request_id = rid
-            self.metrics.counter("requests").inc()
-            self._route_counter("requests", method).inc()
-            self._submit_t[rid] = t_submit
-            self._queues.setdefault(method, []).append(pending)
-            self._set_queue_gauges()
-        return rid
+            return self._enqueue(method, pending, t_submit)
+
+    def submit_async(self, img: np.ndarray, method: str = "histogram",
+                     deadline: Optional[float] = None) -> SegmentationFuture:
+        """Queue one image and return a future for its result.
+
+        ``deadline`` is relative seconds from now: a request still queued
+        when it passes resolves with
+        :class:`~repro_torch.serving.admission.DeadlineExceeded` instead
+        of running (a non-positive deadline fails at submit, consuming no
+        request id or queue slot). Batches form in the background, when a
+        bucket group reaches ``batch_sizes[-1]`` or the oldest waiting
+        async request exceeds ``max_wait_ms``, or at ``drain()``. Raises
+        :class:`~repro_torch.serving.admission.EngineShutdown` after
+        ``shutdown()``.
+        """
+        t_submit = time.perf_counter()
+        _route_of(method)
+        if self._closed:    # before ingest: a closed engine does no work
+            raise EngineShutdown("engine is shut down; no new submits")
+        if deadline is not None and deadline <= 0:
+            self._route_counter("deadline_expired", method).inc()
+            return _failed_future(method, t_submit, DeadlineExceeded(
+                f"deadline {deadline}s already expired at submit"),
+                deadline=t_submit)
+        try:
+            pending = self._ingest(method, img)
+        except (InvalidInput, FI.InjectedFault) as e:
+            # A payload that fails ingest fails its own future only: no
+            # request id, no queue slot.
+            return _failed_future(method, t_submit, e)
+        abs_deadline = None if deadline is None else t_submit + deadline
+        with self._lock:
+            if (self.max_queue_depth is not None
+                    and self.queue_depth >= self.max_queue_depth
+                    and not self._shed_for(
+                        float("inf") if abs_deadline is None
+                        else abs_deadline)):
+                # Every queued request is at least as urgent: shed the
+                # incoming one.
+                self._route_counter("shed", method).inc()
+                return _failed_future(method, t_submit, Overloaded(
+                    f"queue depth {self.queue_depth} at max_queue_depth="
+                    f"{self.max_queue_depth}; request shed"),
+                    deadline=abs_deadline)
+            rid = self._enqueue(method, pending, t_submit)
+            fut = SegmentationFuture(rid, method, deadline=abs_deadline)
+            fut.submit_t = t_submit
+            self._futures[rid] = fut
+            self._ensure_flusher()
+            # Wake the flusher only when this submit can change its
+            # schedule: the route's first queued async request starts a
+            # max_wait window, and a multiple of the target shape may
+            # complete a bucket group.
+            n_async = self._async_n.get(method, 0) + 1
+            self._async_n[method] = n_async
+            if (n_async == 1 or len(self._queues[method])
+                    % self.batch_sizes[-1] == 0):
+                self._cond.notify_all()
+        return fut
+
+    def _shed_for(self, incoming_deadline: float) -> bool:
+        """Overload shedding (caller holds ``_lock``): fail the least
+        urgent queued async request, the one with the farthest (or no)
+        deadline, with :class:`Overloaded`, freeing its slot for a
+        strictly more urgent incoming one. False when nothing queued is
+        less urgent (ties shed the incoming request) or only synchronous
+        requests are queued (their callers hold no future)."""
+        worst: Optional[Tuple[Tuple[float, int], str, Any]] = None
+        for name, q in self._queues.items():
+            for p in q:
+                fut = self._futures.get(p.request_id)
+                if fut is None:
+                    continue
+                d = (fut.deadline if fut.deadline is not None
+                     else float("inf"))
+                key = (d, p.request_id)
+                if worst is None or key > worst[0]:
+                    worst = (key, name, p)
+        if worst is None or worst[0][0] <= incoming_deadline:
+            return False
+        (_, rid), name, p = worst
+        self._queues[name].remove(p)
+        self._set_queue_gauges()
+        if self._async_n.get(name):
+            self._async_n[name] -= 1
+        self._route_counter("shed", name).inc()
+        self._submit_t.pop(rid, None)
+        fut = self._futures.pop(rid, None)
+        if fut is not None:
+            fut.try_set_exception(Overloaded(
+                f"request {rid} shed under overload (queue at "
+                f"max_queue_depth={self.max_queue_depth})"))
+        return True
 
     @staticmethod
     def _normalize(hist: np.ndarray) -> np.ndarray:
         return hist / max(float(hist.sum()), 1.0)
 
-    def flush(self) -> List[SegmentationResult]:
+    # -- flush -------------------------------------------------------------
+
+    def flush(self, raise_errors: bool = True) -> List[SegmentationResult]:
         """Run every queued request; returns results in submit order.
-        Leaves one root trace per flush in ``tracer``'s ring."""
+        Leaves one root trace per flush in ``tracer``'s ring.
+
+        Thread-safe: the queue swap is atomic under the admission lock
+        and flush bodies are serialized, so no request runs twice. A
+        route whose batch raises fails that route's unresolved futures
+        with the error; with ``raise_errors`` (the synchronous default)
+        the first error then propagates, while the background flusher
+        passes ``False`` so one failing route never kills the thread
+        serving the others."""
         results: Dict[int, SegmentationResult] = {}
-        with self._lock:
-            drained = self._queues
-            self._queues = {name: [] for name in drained}
-            self._set_queue_gauges()
-        n_queued = sum(len(v) for v in drained.values())
-        with self.tracer.span("flush", queued=n_queued):
-            for route in ROUTES.values():
-                pend = drained.get(route.name) or []
-                if not pend:
-                    continue
-                try:
-                    self._flush_route(route, pend, results)
-                finally:
-                    for p in pend:          # failed requests are done too
-                        self._submit_t.pop(p.request_id, None)
+        first_err: Optional[BaseException] = None
+        with self._flush_lock:
+            with self._lock:
+                drained = self._queues
+                self._queues = {name: [] for name in drained}
+                self._async_n = {}
+                self._set_queue_gauges()
+            n_queued = sum(len(v) for v in drained.values())
+            with self.tracer.span("flush", queued=n_queued):
+                for route in ROUTES.values():
+                    pend = self._admit_order(route,
+                                             drained.get(route.name) or [])
+                    if not pend:
+                        continue
+                    try:
+                        self._flush_route(route, pend, results)
+                    except BaseException as e:  # noqa: BLE001
+                        for p in pend:
+                            if p.request_id not in results:
+                                self._fail_request(p, e)
+                        if first_err is None:
+                            first_err = e
+        if first_err is not None and raise_errors:
+            raise first_err
         return [results[rid] for rid in sorted(results)]
+
+    def _admit_order(self, route: RouteSpec, pend: List[Any]) -> List[Any]:
+        """Deadline admission on a drained route queue: overdue async
+        requests fail with ``DeadlineExceeded`` without spending a lane,
+        and the rest run most urgent first, so tight deadlines land in
+        the earliest chunk of their bucket group. Synchronous requests
+        carry no deadline and keep their submit order."""
+        now = time.perf_counter()
+        keep: List[Any] = []
+        for p in pend:
+            fut = self._futures.get(p.request_id)
+            if (fut is not None and fut.deadline is not None
+                    and now > fut.deadline):
+                self._futures.pop(p.request_id, None)
+                self._submit_t.pop(p.request_id, None)
+                self._route_counter("deadline_expired", route.name).inc()
+                fut.try_set_exception(DeadlineExceeded(
+                    f"request {p.request_id} missed its deadline "
+                    f"while queued"))
+                continue
+            keep.append(p)
+
+        def urgency(p):
+            fut = self._futures.get(p.request_id)
+            d = (fut.deadline
+                 if fut is not None and fut.deadline is not None
+                 else float("inf"))
+            return (d, p.request_id)
+
+        keep.sort(key=urgency)
+        return keep
 
     def _flush_route(self, route: RouteSpec, pend: List[Any],
                      results: Dict[int, SegmentationResult]) -> None:
@@ -752,11 +1121,142 @@ class FCMServeEngine:
             self._finish(route, results, route.materialize(
                 self, p, fitted[p.key], 0, True))
 
+    def drain(self) -> List[SegmentationResult]:
+        """Flush everything queued now, resolving every pending future;
+        returns the materialized results. If the flusher is mid-flush,
+        this waits for that batch (flush bodies serialize), so every
+        request submitted before the call is resolved on return."""
+        return self.flush()
+
     def segment(self, imgs: Sequence[np.ndarray],
                 method: str = "histogram") -> List[SegmentationResult]:
         ids = [self.submit(im, method=method) for im in imgs]
         by_id = {r.request_id: r for r in self.flush()}
         return [by_id[i] for i in ids]
+
+    # -- background flusher ------------------------------------------------
+
+    def _ensure_flusher(self) -> None:
+        """Start the batch-formation thread lazily (caller holds
+        ``_lock``), so an engine serving only the synchronous API never
+        runs one. Called on every async submit: a flusher that died hard
+        is replaced before a new request could hang on it."""
+        if self._flusher is not None and not self._flusher.is_alive():
+            self.metrics.counter("flusher.restarts").inc()
+            self._flusher = None
+        if self._flusher is None:
+            self._flusher = threading.Thread(
+                target=self._flusher_loop, name="fcm-serve-flusher",
+                daemon=True)
+            self._flusher.start()
+
+    def _flush_due(self) -> Optional[float]:
+        """Batch-formation policy (caller holds ``_lock``): seconds until
+        the next flush is due; ``0.0`` when some bucket group reached the
+        target shape or the oldest async request exceeded
+        ``max_wait_ms``, ``None`` when no async request waits."""
+        now = time.perf_counter()
+        oldest: Optional[float] = None
+        target = self.batch_sizes[-1]
+        for name, q in self._queues.items():
+            route = ROUTES.get(name)
+            if route is None or not q:
+                continue
+            group_sizes: Dict[Hashable, int] = {}
+            async_here = False
+            for p in q:
+                k = route.bucket_key(self, p)
+                group_sizes[k] = group_sizes.get(k, 0) + 1
+                fut = self._futures.get(p.request_id)
+                if fut is not None:
+                    async_here = True
+                    if oldest is None or fut.submit_t < oldest:
+                        oldest = fut.submit_t
+            # Pure synchronous queues belong to their caller's flush.
+            if async_here and any(n >= target
+                                  for n in group_sizes.values()):
+                return 0.0
+        if oldest is None:
+            return None
+        return max(0.0, oldest + self.max_wait_ms / 1000.0 - now)
+
+    def _flusher_flush(self) -> None:
+        """One flush from the flusher thread, on the engine's card."""
+        if self._cuda_index is None:
+            self.flush(raise_errors=False)
+            return
+        with torch.cuda.device(self._cuda_index):
+            self.flush(raise_errors=False)
+
+    def _flusher_loop(self) -> None:
+        # Supervised: a raise anywhere in an iteration restarts the loop
+        # in place (counted in flusher.restarts). Only a BaseException
+        # (thread death) escapes; then a replacement starts at once when
+        # work is pending, and the next async submit re-ensures one.
+        while True:
+            try:
+                if self._faults is not None:
+                    self._faults.maybe_fail("flusher")
+                with self._lock:
+                    while True:
+                        if self._closed:
+                            return
+                        wait = self._flush_due()
+                        if wait is not None and wait <= 0.0:
+                            break
+                        self._cond.wait(timeout=wait)
+                # Outside the lock: per-route errors land in the affected
+                # futures (raise_errors=False).
+                self._flusher_flush()
+            except FI.FlusherKilled:
+                with self._lock:
+                    self._flusher_kills += 1
+                    self._flusher = None
+                    if not self._closed and (
+                            self.queue_depth > 0
+                            or sum(self._async_n.values()) > 0):
+                        self.metrics.counter("flusher.restarts").inc()
+                        self._ensure_flusher()
+                return
+            except Exception:   # noqa: BLE001 — supervised restart
+                self.metrics.counter("flusher.restarts").inc()
+                continue
+
+    def shutdown(self, drain: bool = True) -> None:
+        """Stop the flusher and close admission. With ``drain`` (the
+        default) everything queued is flushed and every future resolves;
+        with ``drain=False`` queued requests are dropped and their
+        futures fail with
+        :class:`~repro_torch.serving.admission.EngineShutdown`. Later
+        submits raise ``EngineShutdown``; a second call does nothing."""
+        with self._lock:
+            already = self._closed
+            self._closed = True
+            self._cond.notify_all()
+            flusher = self._flusher
+        if flusher is not None and flusher.is_alive():
+            flusher.join()
+        if already:
+            return
+        if drain:
+            self.flush(raise_errors=False)
+            return
+        with self._lock:
+            dropped: List[Any] = []
+            for name in self._queues:
+                dropped.extend(self._queues[name])
+                self._queues[name] = []
+            self._async_n = {}
+            self._set_queue_gauges()
+        err = EngineShutdown("engine shut down with the request queued")
+        for p in dropped:
+            self._fail_request(p, err)
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    # -- cache / buckets / programs ----------------------------------------
 
     def _answer_from_cache(self, route: RouteSpec, pend: List[Any],
                            results: Dict[int, SegmentationResult]):
@@ -813,19 +1313,167 @@ class FCMServeEngine:
                 del self._programs[next(iter(self._programs))]
         return prog
 
+    # -- the ladder: retry, circuit breaker, degraded chunk, salvage -------
+
+    _BREAKER_GAUGE = {"closed": 0.0, "half_open": 0.5, "open": 1.0}
+
+    def _breaker(self, route_name: str) -> Dict[str, Any]:
+        b = self._breakers.get(route_name)
+        if b is None:
+            b = {"state": "closed", "failures": 0, "opened_t": 0.0}
+            self._breakers[route_name] = b
+        return b
+
+    def _set_breaker(self, route_name: str, b: Dict[str, Any],
+                     state: str) -> None:
+        b["state"] = state
+        self.metrics.gauge("route.breaker_state", route=route_name).set(
+            self._BREAKER_GAUGE[state])
+
+    def _breaker_allows(self, route_name: str) -> bool:
+        """May this chunk ride the route's program? ``closed``: yes;
+        ``open``: no until ``breaker_cooldown_s`` has passed, then one
+        half-open probe launch tests recovery; ``half_open``: no (a probe
+        is in flight)."""
+        with self._lock:
+            b = self._breaker(route_name)
+            if b["state"] == "closed":
+                return True
+            if b["state"] == "open" and (
+                    time.perf_counter() - b["opened_t"]
+                    >= self.breaker_cooldown_s):
+                self._set_breaker(route_name, b, "half_open")
+                return True
+            return False
+
+    def _breaker_success(self, route_name: str) -> None:
+        with self._lock:
+            b = self._breaker(route_name)
+            if b["state"] != "closed" or b["failures"]:
+                b["failures"] = 0
+                self._set_breaker(route_name, b, "closed")
+
+    def _breaker_failure(self, route_name: str) -> None:
+        """One post-retry launch failure: count toward the trip threshold
+        (closed) or send the probe's breaker straight back to open with a
+        fresh cooldown (half_open)."""
+        with self._lock:
+            b = self._breaker(route_name)
+            if b["state"] == "half_open":
+                b["opened_t"] = time.perf_counter()
+                self._route_counter("breaker_trips", route_name).inc()
+                self._set_breaker(route_name, b, "open")
+                return
+            b["failures"] += 1
+            if (b["state"] == "closed"
+                    and b["failures"] >= self.breaker_threshold):
+                b["opened_t"] = time.perf_counter()
+                self._route_counter("breaker_trips", route_name).inc()
+                self._set_breaker(route_name, b, "open")
+
+    def _breaker_abandon_probe(self, route_name: str) -> None:
+        """A probe that raised past the ladder (any error but an injected
+        fault) proved nothing: back to open, its cooldown
+        already spent, so the next chunk probes again. No trip counts."""
+        with self._lock:
+            b = self._breaker(route_name)
+            if b["state"] == "half_open":
+                self._set_breaker(route_name, b, "open")
+
+    def _launch_attempts(self, route: RouteSpec, prog: RouteProgram,
+                         inputs: Tuple) -> Tuple:
+        """One program launch under the bounded-retry policy: an injected
+        fault, the one transient failure the port has, is retried up to
+        ``retries`` times with exponential backoff. Any other error, and
+        the last injected one, propagates."""
+        attempt = 0
+        while True:
+            try:
+                if self._faults is not None:
+                    self._faults.maybe_fail("launch", route=route.name)
+                return prog.launch(*inputs)
+            except FI.InjectedFault:
+                if attempt >= self.retries:
+                    raise
+                self._route_counter("retries", route.name).inc()
+                time.sleep(self.retry_backoff_s * (2 ** attempt))
+                attempt += 1
+
+    def _route_cfg(self, route: RouteSpec):
+        """The config whose eps/max_iters govern this route's fits."""
+        if route.name == "spatial":
+            return self.spatial_cfg
+        if route.name == "superpixel":
+            return self.superpixel_cfg
+        return self.cfg
+
+    def _corrupt(self, route: RouteSpec, centers: np.ndarray) -> np.ndarray:
+        """The ``solve`` fault site, on a chunk's fitted centers."""
+        if self._faults is None:
+            return centers
+        return np.asarray(self._faults.corrupt("solve", centers,
+                                               route=route.name))
+
+    def _salvage_requests(self, route: RouteSpec, bad: List[Any],
+                          results: Dict[int, SegmentationResult],
+                          fitted: Dict[bytes, np.ndarray]) -> None:
+        """Re-solve poisoned requests in a bucket of their own on the
+        plain solver (``backend="reference"``, on the engine's device)
+        and finish them from the clean centers: one non-finite lane costs
+        a re-solve of that lane, not its batch. A request still
+        non-finite fails with :class:`SolveFailed` (async: on its future;
+        synchronous: raised to the flushing caller)."""
+        self._route_counter("salvaged", route.name).inc(len(bad))
+        problem, cfg = route.build_problem(self, bad,
+                                           self._bucket_for(len(bad)))
+        res = SV.solve_batched(problem, cfg, backend="reference")
+        centers = res.centers.cpu().numpy()
+        doomed: Optional[BaseException] = None
+        for lane, p in enumerate(bad):
+            if not bool(res.healthy[lane]):
+                err = SolveFailed(
+                    f"request {p.request_id}: non-finite centers even "
+                    f"on the reference backend")
+                if not self._fail_request(p, err) and doomed is None:
+                    doomed = err
+                continue
+            r = route.materialize(self, p, centers[lane],
+                                  int(res.n_iters[lane]), False)
+            r.converged = bool(res.converged[lane])
+            self._finish(route, results, r)
+            if route.cacheable and getattr(p, "key", None) is not None:
+                fitted[p.key] = centers[lane]
+                if self.cache_size > 0 and p.hist is not None:
+                    self._cache_put(p.key, centers[lane], p.hist)
+        if doomed is not None:
+            raise doomed
+
     def _run_program(self, route: RouteSpec, prog: RouteProgram,
                      chunk: List[Any], bucket: int,
                      results: Dict[int, SegmentationResult]):
-        """gather -> launch -> scatter; finishes the finite lanes and
-        returns (centers, n_iters, total_iters, deltas, bad requests,
-        the three spans)."""
+        """gather -> launch (under the retry policy) -> scatter; finishes
+        the finite lanes and returns (centers, n_iters, total_iters,
+        deltas, bad requests, the three spans). Returns None when the
+        launch failed past its retries: the breaker has counted it and
+        the chunk is degraded. Any error but an injected fault
+        propagates."""
         with self.tracer.span("gather", route=route.name) as sp_g:
             inputs = prog.gather(self, chunk, bucket)
-        with self.tracer.span("launch", route=route.name) as sp_s:
-            outs = sp_s.fence(prog.launch(*inputs))
+        try:
+            with self.tracer.span("launch", route=route.name) as sp_s:
+                outs = sp_s.fence(self._launch_attempts(route, prog, inputs))
+        except FI.InjectedFault:
+            self._breaker_failure(route.name)
+            self._route_counter("degraded", route.name).inc()
+            return None
+        except Exception:
+            self._breaker_abandon_probe(route.name)
+            raise
+        self._breaker_success(route.name)
         with self.tracer.span("scatter", route=route.name) as sp_m:
             res_list, centers, n_iters, total_iters, deltas = \
                 prog.scatter(self, chunk, outs)
+        centers = self._corrupt(route, centers)
         finite = np.isfinite(
             centers.reshape(centers.shape[0], -1)).all(axis=1)
         bad: List[Any] = []
@@ -839,26 +1487,31 @@ class FCMServeEngine:
                 (sp_g, sp_s, sp_m))
 
     def _run_solve(self, route: RouteSpec, chunk: List[Any], bucket: int,
-                   results: Dict[int, SegmentationResult]):
-        """A route without a program: build_problem -> solve_batched
-        (backend auto) -> materialize each finite lane. Returns what
-        :meth:`_run_program` returns."""
+                   results: Dict[int, SegmentationResult], backend: str):
+        """build_problem -> solve_batched(backend) -> materialize each
+        finite lane: a route without a program (``"auto"``) or a degraded
+        chunk (``"reference"``, the plain solver on the engine's device).
+        Returns what :meth:`_run_program` returns."""
         with self.tracer.span("build", route=route.name) as sp_g:
             problem, cfg = route.build_problem(self, chunk, bucket)
         with self.tracer.span("solve", route=route.name) as sp_s:
-            res = SV.solve_batched(problem, cfg, backend="auto")
+            res = SV.solve_batched(problem, cfg, backend=backend)
             sp_s.fence(res.centers)
         with self.tracer.span("materialize", route=route.name) as sp_m:
-            centers = res.centers.cpu().numpy()
+            centers = self._corrupt(route, res.centers.cpu().numpy())
             finite = np.isfinite(
                 centers.reshape(centers.shape[0], -1)).all(axis=1)
-            bad: List[Any] = []
-            for lane, p in enumerate(chunk):
-                if not bool(finite[lane]):
-                    bad.append(p)
-                    continue
-                r = route.materialize(self, p, centers[lane],
-                                      int(res.n_iters[lane]), False)
+            good = [lane for lane in range(len(chunk)) if finite[lane]]
+            bad = [p for lane, p in enumerate(chunk) if not finite[lane]]
+            if route.materialize_batch is not None:
+                done = (route.materialize_batch(
+                    self, [chunk[lane] for lane in good], centers[good],
+                    res.n_iters[good]) if good else [])
+            else:
+                done = [route.materialize(self, chunk[lane], centers[lane],
+                                          int(res.n_iters[lane]), False)
+                        for lane in good]
+            for lane, r in zip(good, done):
                 r.converged = bool(res.converged[lane])
                 self._finish(route, results, r)
         return (centers, res.n_iters, res.total_iters, res.final_delta, bad,
@@ -868,38 +1521,54 @@ class FCMServeEngine:
                     results: Dict[int, SegmentationResult],
                     fitted: Dict[bytes, np.ndarray]) -> None:
         prog = self._program_for(route, chunk, bucket)
+        use_prog = prog is not None and self._breaker_allows(route.name)
+        out = None
         with self.tracer.span("bucket", route=route.name, bucket=bucket,
-                              n=len(chunk), fused=prog is not None,
+                              n=len(chunk), fused=use_prog,
                               requests=[p.request_id for p in chunk]):
-            if prog is not None:
+            if use_prog:
                 out = self._run_program(route, prog, chunk, bucket, results)
-            else:
-                out = self._run_solve(route, chunk, bucket, results)
-        centers, n_iters, total_iters, deltas, bad, spans = out
-        sp_g, sp_s, sp_m = spans
-        self._stage_seconds(route.name, "ingest").inc(sp_g.wall_s)
-        self._stage_seconds(route.name, "solve").inc(sp_s.wall_s)
-        self._stage_seconds(route.name, "materialize").inc(sp_m.wall_s)
+            if out is None:
+                out = self._run_solve(
+                    route, chunk, bucket, results,
+                    "auto" if prog is None else "reference")
+            centers, n_iters, total_iters, deltas, bad, spans = out
+            sp_g, sp_s, sp_m = spans
+            self._stage_seconds(route.name, "ingest").inc(sp_g.wall_s)
+            self._stage_seconds(route.name, "solve").inc(sp_s.wall_s)
+            self._stage_seconds(route.name, "materialize").inc(sp_m.wall_s)
+            try:
+                if bad:
+                    # Poisoned lanes re-solve alone; their batchmates are
+                    # already finished, untouched.
+                    with self.tracer.span("salvage", route=route.name,
+                                          n=len(bad)):
+                        self._salvage_requests(route, bad, results, fitted)
+            finally:
+                self._account(route, chunk, bucket, centers, n_iters,
+                              total_iters, deltas, bad, fitted)
+
+    def _account(self, route: RouteSpec, chunk: List[Any], bucket: int,
+                 centers: np.ndarray, n_iters, total_iters, deltas,
+                 bad: List[Any], fitted: Dict[bytes, np.ndarray]) -> None:
+        """A bucket's counters, convergence telemetry and cache entries;
+        poisoned lanes never enter the cache."""
         self._route_counter("batches", route.name).inc()
         self._route_counter("images", route.name).inc(len(chunk))
         self._route_counter("padded", route.name).inc(bucket - len(chunk))
         self._route_counter("iters", route.name).inc(int(total_iters))
         self._occupancy_hist(route.name).record(len(chunk) / bucket)
         h = self._iters_hist(route.name)
-        for it in n_iters[:len(chunk)]:
+        for it in np.asarray(n_iters)[:len(chunk)]:
             h.record(int(it))
         self.metrics.gauge("route.last_final_delta", route=route.name).set(
-            float(np.max(deltas[:len(chunk)])))
+            float(np.max(np.asarray(deltas)[:len(chunk)])))
         if route.cacheable and self.cache_size > 0:
             bad_ids = {p.request_id for p in bad}
             for lane, p in enumerate(chunk):
-                if p.request_id not in bad_ids:   # poisoned: never cached
+                if p.request_id not in bad_ids:
                     fitted[p.key] = centers[lane]
                     self._cache_put(p.key, centers[lane], p.hist)
-        if bad:
-            raise SolveFailed(
-                f"requests {[p.request_id for p in bad]}: non-finite "
-                f"centers")
 
     # -- cache -------------------------------------------------------------
 
@@ -937,9 +1606,10 @@ class FCMServeEngine:
         return sum(len(q) for q in self._queues.values())
 
     def stats(self) -> Dict[str, Any]:
-        """The flat stat keys of the JAX engine for the counters this
-        port has (rendered from the metrics registry), plus the per-route
-        ``latency`` and ``convergence`` blocks. Plain JSON types only."""
+        """The flat stat keys of the JAX engine (rendered from the
+        metrics registry), plus the per-route ``latency``,
+        ``convergence``, admission and ``fault_tolerance`` blocks and the
+        ``faults`` provenance. Plain JSON types only."""
         s: Dict[str, Any] = {}
         s["requests"] = self.metrics.counter("requests").snapshot()
         s["cache_hits"] = self.metrics.counter("cache_hits").snapshot()
@@ -998,7 +1668,63 @@ class FCMServeEngine:
         s["batch_occupancy"] = {
             r.name: self._occupancy_hist(r.name).snapshot()
             for r in ROUTES.values()}
+        s["deadline_expired"] = {
+            r.name: self._route_counter("deadline_expired",
+                                        r.name).snapshot()
+            for r in ROUTES.values()}
+        s["pending_futures"] = len(self._futures)
+        with self._lock:
+            breaker_state = {name: b["state"]
+                             for name, b in self._breakers.items()}
+        s["fault_tolerance"] = {
+            k: {r.name: self._route_counter(k, r.name).snapshot()
+                for r in ROUTES.values()}
+            for k in ("retries", "shed", "salvaged", "degraded",
+                      "breaker_trips", "invalid_input")}
+        s["fault_tolerance"].update(
+            breaker_state=breaker_state,
+            flusher_restarts=self.metrics.counter(
+                "flusher.restarts").snapshot(),
+            flusher_kills=self._flusher_kills)
+        s["faults"] = (self._faults.snapshot() if self._faults is not None
+                       else FI.clean_snapshot())
         return obs.json_safe(s)
+
+    def healthy(self) -> bool:
+        """Liveness: False once shut down, or while async requests are
+        pending with no live flusher to drain them. An open breaker is
+        degraded service, not death: it flips :meth:`readiness`."""
+        with self._lock:
+            if self._closed:
+                return False
+            if sum(self._async_n.values()) > 0 and (
+                    self._flusher is None
+                    or not self._flusher.is_alive()):
+                return False
+        return True
+
+    def readiness(self) -> Dict[str, Any]:
+        """One JSON-safe health snapshot for probes: liveness, per-route
+        breaker state, the flusher's life and restarts, and the queue
+        against the overload limit."""
+        with self._lock:
+            breaker_state = {r.name: self._breaker(r.name)["state"]
+                             for r in ROUTES.values()}
+            flusher_alive = (self._flusher is not None
+                             and self._flusher.is_alive())
+            depth = self.queue_depth
+        return obs.json_safe({
+            "healthy": self.healthy(),
+            "ready": not self._closed
+            and all(st != "open" for st in breaker_state.values()),
+            "breaker_state": breaker_state,
+            "flusher_alive": flusher_alive,
+            "flusher_restarts":
+                self.metrics.counter("flusher.restarts").snapshot(),
+            "flusher_kills": self._flusher_kills,
+            "queue_depth": depth,
+            "max_queue_depth": self.max_queue_depth,
+        })
 
     def reset_stats(self) -> None:
         """Zero every counter/gauge/histogram and drop the trace ring;
