@@ -104,7 +104,24 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    device span by CUDA events) on a fresh engine and on the same engine
    again, the volume six times over so flushes overlap the submitters
    (at the default and at a 0.1 ms interpreter switch interval), against
-   a synchronous flush, and the device's own events under the profiler.
+   a synchronous flush, and the device's own events under the profiler;
+10. mesh: the visible cards' count and the launch guard's cost; meshes of
+   1, 2 and 4 shards (the 4 as (2, 2) over ``("data", "model")``), shard
+   k on card k % count, so one card is named several times where fewer
+   are visible; 10a ``fit_sharded`` in the pixel and histogram forms on
+   the 181-slice volume (7 109 137 px) and the 1000 KB image cut to an odd
+   N, each against ``solve`` on the card (fused) and on the CPU (centers
+   within RTOL/ATOL, n_iters equal, labels up to float64 near-ties), with
+   k launches of the fused partials an iteration (pixels) or k binnings,
+   one whole-solve and k labels (histogram); 10b ``fit_batched_sharded``
+   on the volume's 181 slice histograms on 2 and 4 shards, bit-equal to
+   ``solve_batched`` on the card, one whole-solve a shard; 10c the volume
+   through the histogram, pixel and spatial routes of engines at buckets
+   (1, 8, 64) meshed on 2 and 4 shards, bit-equal to a single-device
+   engine through ``segment`` and ``submit_async`` + ``drain``, each
+   route kernel launched shards x buckets times, a bucket of 1 on the
+   single-device path, ``set_mesh(None)`` and a one-device mesh bit-equal
+   again; the p50 flush and its stages, meshed and single.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -2772,6 +2789,247 @@ def async_anatomy(FCMServeEngine, job, imgs, dev, card):
               f"({us / count:8.2f} us each) {key[:60]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh (one process, shards on the visible cards)
+# ---------------------------------------------------------------------------
+
+#: phase 10's meshes by shard count: (shape, axis names)
+MESH_LAYOUTS = {1: ((1,), ("data",)), 2: ((2,), ("data",)),
+                4: ((2, 2), ("data", "model"))}
+#: phase 10c's buckets, and the flushes timed per engine and route
+MESH_BUCKETS = (1, 8, 64)
+MESH_FLUSHES = 5
+#: 10a's second image: the 1000 KB image cut to an odd N (padding on
+#: every mesh of more than one shard)
+ODD_N = BIG_BYTES - 3
+
+
+def mesh_of(TD, size):
+    """A mesh of ``size`` shards over the visible cards, shard k on card
+    k % count: one card is named more than once where fewer are
+    visible."""
+    shape, axes = MESH_LAYOUTS[size]
+    n = torch.cuda.device_count()
+    return TD.make_mesh(shape, axes, devices=[
+        torch.device("cuda", k % n) for k in range(size)])
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def sharded_fits(TD, SV, F, counters, x, what, dev, card):
+    """10a on one image: fit_sharded in the pixel and histogram forms on
+    meshes of 1, 2 and 4 shards, each held against the single-device
+    solve on the card (the fused kernel) and on the CPU, with the launch
+    counts set to 0 just before the fit and read just after."""
+    cfg = F.FCMConfig(n_clusters=4, m=2.0, eps=5e-3, max_iters=300)
+    x_dev = torch.from_numpy(x).to(dev)
+    want = {"card": SV.solve(SV.pixel_problem(x_dev, device=dev), cfg,
+                             backend="fused"),
+            "cpu": SV.solve(SV.pixel_problem(x, device="cpu"), cfg,
+                            backend="reference")}
+    zero = {k: 0 for k in counters}
+    for histogram in (False, True):
+        form = "histogram" if histogram else "pixels"
+        for size in (1, 2, 4):
+            mesh = mesh_of(TD, size)
+            _zero(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = TD.fit_sharded(x_dev, mesh, cfg, histogram=histogram)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = _counts(counters)
+            expect = ({**zero, "histogram_bin": size,
+                       "fcm_resident_solve": 1, "labels": size}
+                      if histogram else
+                      {**zero, "fcm_fused_partials": size * res.n_iters,
+                       "labels": size})
+            tag = f"{what} {form} on {size} shard(s)"
+            require(used == expect, f"{tag}: launches {used}, expected "
+                    f"{ {k: v for k, v in expect.items() if v} }")
+            got_v = res.centers.cpu().numpy()
+            got_l = res.labels.cpu().numpy()
+            require(got_l.shape == (x.size,) and np.isfinite(got_v).all(),
+                    f"{tag}: labels {got_l.shape} or centers {got_v}")
+            ties = {}
+            for where, ref in want.items():
+                np.testing.assert_allclose(
+                    got_v, ref.centers.cpu().numpy(), rtol=RTOL, atol=ATOL,
+                    err_msg=f"{tag} against the {where} solve")
+                require(res.n_iters == ref.n_iters,
+                        f"{tag}: n_iters {res.n_iters}, {ref.n_iters} in "
+                        f"the {where} solve")
+                ties[where] = _scalar_near_ties(
+                    got_l, ref.labels.cpu().numpy(), x, got_v,
+                    f"{tag} against the {where} solve")
+            print(f"  {tag} {tuple(d.index for d in mesh.devices)}: "
+                  f"{res.n_iters} iterations, {wall * 1e3:.2f} ms, "
+                  f"launches { {k: v for k, v in used.items() if v} }, "
+                  f"near-ties against the card / CPU solve {ties['card']} "
+                  f"/ {ties['cpu']} [{card}]")
+
+
+def batch_sharded_fit(TD, TB, SV, F, KB, counters, imgs, dev, card):
+    """10b: fit_batched_sharded on the volume's slice histograms (181
+    lanes, so padding lanes on 2 and 4 shards) against solve_batched on
+    the card, bit for bit."""
+    cfg = F.FCMConfig(n_clusters=4, m=2.0, eps=5e-3, max_iters=300)
+    px = torch.from_numpy(np.stack([im.reshape(-1) for im in imgs])).to(dev)
+    hists = KB.histogram_bin(px, 256)
+    want = SV.solve_batched(SV.batch_problems(TB.hist_rows(hists), hists,
+                                              device=dev), cfg)
+    for size in (2, 4):
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = TB.fit_batched_sharded(hists, mesh_of(TD, size), cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = _counts(counters)["fcm_resident_solve"]
+        tag = f"batch-sharded fit of {len(imgs)} lanes on {size} shards"
+        require(used == size, f"{tag}: {used} whole-solve launches")
+        require(torch.equal(got.centers, want.centers),
+                f"{tag}: centers differ from solve_batched's")
+        require(np.array_equal(got.n_iters, want.n_iters)
+                and got.total_iters == want.total_iters,
+                f"{tag}: iterations differ from solve_batched's")
+        print(f"  {tag}: bit-equal to solve_batched on the card, "
+              f"total_iters {got.total_iters}, {used} launches of the "
+              f"resident whole-solve, {wall * 1e3:.2f} ms [{card}]")
+
+
+#: the kernels each route's program launches once a shard
+MESH_ROUTE_KERNELS = {
+    "histogram": ("histogram_bin", "fcm_resident_solve", "labels"),
+    "pixel": ("fcm_streamed_solve", "labels"),
+    "spatial": ("fcm_stencil_solve",)}
+
+
+def _bit_equal_all(got, want, what):
+    """Every result's labels, centers and n_iters bit-equal to the
+    single-device engine's."""
+    require(len(got) == len(want), f"{what}: {len(got)} results")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(np.array_equal(g.centers, w.centers)
+                and np.array_equal(g.labels, w.labels)
+                and g.n_iters == w.n_iters,
+                f"{what} image {i}: differs from the single-device engine")
+
+
+def _timed_flushes(eng, imgs, route):
+    """p50 of MESH_FLUSHES synchronous flushes of ``imgs``, and the ms a
+    flush spent in each bucket stage (gather, launch fenced, scatter)
+    from the engine's traces."""
+    eng.reset_stats()
+    p50 = float(np.median(serve_timed(eng, imgs, MESH_FLUSHES,
+                                      method=route)))
+    stages = _flush_buckets(eng)[3]
+    return p50, {k: round(v / MESH_FLUSHES, 3) for k, v in stages.items()}
+
+
+def mesh_engine(TD, FCMServeEngine, job, counters, imgs, dev, card):
+    """10c: the volume through the histogram, pixel and spatial routes of
+    engines meshed on 2 and 4 shards, against a single-device engine on
+    the card: bit-equal through segment and submit_async + drain, after
+    set_mesh(None) and with a one-device mesh; the kernels launched once
+    a shard a bucket, and a bucket of 1 on the single-device path."""
+    def engine(mesh=None):
+        return FCMServeEngine(job.fcm, batch_sizes=MESH_BUCKETS,
+                              cache_size=0, spatial_cfg=job.spatial,
+                              device=dev, mesh=mesh)
+
+    single = engine()
+    ref, timed = {}, {}
+    for route in MESH_ROUTE_KERNELS:
+        ref[route] = single.segment(imgs, method=route)
+        timed[route] = _timed_flushes(single, imgs, route)
+    single.shutdown()
+    n_buckets = -(-len(imgs) // MESH_BUCKETS[-1])
+    for size in (2, 4):
+        mesh = mesh_of(TD, size)
+        eng = engine(mesh)
+        for route, kernels in MESH_ROUTE_KERNELS.items():
+            tag = f"{route} route on {size} shards"
+            _zero(counters)
+            res = eng.segment(imgs, method=route)
+            used = _counts(counters)
+            expect = {k: (size * n_buckets if k in kernels else 0)
+                      for k in counters}
+            require(used == expect, f"{tag}: launches {used}, expected "
+                    f"{size} a bucket of each of {kernels}")
+            _bit_equal_all(res, ref[route], tag)
+            lat, stages = _timed_flushes(eng, imgs, route)
+            # async on an engine of its own, shut down (its flusher
+            # joined) before the next synchronous flush: a flusher that
+            # wakes as drain() ends may take requests another caller
+            # queues for its own flush
+            aeng = engine(mesh)
+            futs = [aeng.submit_async(im, method=route) for im in imgs]
+            aeng.drain()
+            aeng.shutdown()
+            _bit_equal_all([f.result(timeout=FUTURE_WAIT) for f in futs],
+                           ref[route], f"{tag}, async")
+            print(f"  {tag}: bit-equal to the single-device engine (segment "
+                  f"and submit_async), launches "
+                  f"{ {k: v for k, v in used.items() if v} }; p50 flush "
+                  f"{lat * 1e3:.2f} ms meshed, {timed[route][0] * 1e3:.2f} "
+                  f"ms single, over {MESH_FLUSHES} flushes; ms a flush by "
+                  f"stage meshed {stages}, single {timed[route][1]} "
+                  f"[{card}]")
+        _zero(counters)
+        one = eng.segment(imgs[:1])
+        require(eng._mesh_for_bucket(1) is None
+                and counters["histogram_bin"].launches == 1,
+                f"a bucket of 1 on {size} shards launched "
+                f"{counters['histogram_bin'].launches} binning kernels")
+        _bit_equal_all(one, ref["histogram"][:1], "a bucket of 1")
+        for label, other in (("set_mesh(None)", None),
+                             ("a one-device mesh", mesh_of(TD, 1))):
+            eng.set_mesh(other)
+            for route in MESH_ROUTE_KERNELS:
+                _bit_equal_all(eng.segment(imgs, method=route), ref[route],
+                               f"{route} route after {label}")
+        eng.shutdown()
+        print(f"  {size} shards: a bucket of 1 ran the single-device path; "
+              f"set_mesh(None) and a one-device mesh bit-equal on every "
+              f"route")
+
+
+def guard_us(_build, dev, calls=100_000):
+    """Host microseconds of one enter and exit of the kernels' launch
+    guard (``_build.on_device``) on a tensor of the current card: what
+    every wrapper call pays for fault (k)'s repair."""
+    x = torch.zeros(1, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        with _build.on_device(x):
+            pass
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def mesh_path(TD, TB, SV, F, KB, _build, FCMServeEngine, job, counters,
+              imgs, big_u8, dev, card):
+    """Phase 10: the pixel-sharded fit (10a), the batch-sharded fit (10b)
+    and the meshed engine (10c)."""
+    print(f"[mesh] {torch.cuda.device_count()} visible card(s); meshes name "
+          f"card k % count for shard k [{card}]")
+    print(f"  the launch guard: {guard_us(_build, dev):.3f} us an enter and "
+          f"exit with the tensor's card current [{card}]")
+    volume = np.stack(imgs).reshape(-1).astype(np.float32)
+    odd = big_u8.reshape(-1)[:ODD_N].astype(np.float32)
+    print("[mesh] 10a the pixel-sharded fit")
+    sharded_fits(TD, SV, F, counters, volume,
+                 f"{len(imgs)}-slice volume ({volume.size} px)", dev, card)
+    sharded_fits(TD, SV, F, counters, odd, f"{ODD_N}-px image", dev, card)
+    print("[mesh] 10b the batch-sharded fit")
+    batch_sharded_fit(TD, TB, SV, F, KB, counters, imgs, dev, card)
+    print("[mesh] 10c the meshed engine")
+    mesh_engine(TD, FCMServeEngine, job, counters, imgs, dev, card)
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2787,6 +3045,8 @@ def main(dev=None):
 
     from repro_torch.configs import fcm_brainweb
     from repro_torch.core import fcm as F
+    from repro_torch.core import batched as TB
+    from repro_torch.core import distributed as TD
     from repro_torch.core import solver as SV
     from repro_torch.data import phantom
     from repro_torch.kernels import _build
@@ -3045,6 +3305,12 @@ def main(dev=None):
     print("[async] where an async flush's time goes (9d)")
     async_anatomy(FCMServeEngine, job, imgs, dev, card)
     print(f"[async] {time.perf_counter() - t9:.1f} s")
+
+    # -- 10. the mesh: sharded fits and the meshed engine -------------------
+    t10 = time.perf_counter()
+    mesh_path(TD, TB, SV, F, KB, _build, FCMServeEngine, job, counters,
+              imgs, big_u8, dev, card)
+    print(f"[mesh] {time.perf_counter() - t10:.1f} s")
 
     kernels = [
         dict(name="histogram_bin", route="cuda",

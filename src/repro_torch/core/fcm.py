@@ -167,3 +167,43 @@ class FCMResult:
     converged: bool = True
     #: False when the returned centers contain NaN/Inf.
     healthy: bool = True
+
+
+# --- deprecated adapters (the JAX package's fit_* names) --------------------
+
+def fused_center_step(x: torch.Tensor, v: torch.Tensor,
+                      m: float) -> torch.Tensor:
+    """One ``v -> v'`` step with Eq. 4 substituted into Eq. 3 (the
+    unit-weight scalar case of
+    :func:`repro_torch.core.solver.weighted_center_step`)."""
+    return update_centers(x, update_membership(x, v, m), m)
+
+
+def fit_baseline(x, cfg: FCMConfig = FCMConfig(), u0=None,
+                 device=None) -> FCMResult:
+    """DEPRECATED alias for the paper's staged pipeline — use
+    ``solver.solve(solver.pixel_problem(x, cfg), backend="staged")``.
+
+    The membership kept between stages, the convergence test read on the
+    host each iteration; on the card the stages are the center-partials
+    and membership kernels, on the CPU their plain versions, so the JAX
+    adapter's ``use_pallas`` switch has no counterpart. On ``device``
+    (``None`` = the card)."""
+    from . import solver as SV
+    SV.warn_deprecated("fit_baseline",
+                       "solver.solve(pixel_problem(x), backend='staged')")
+    return SV.solve_staged(SV.pixel_problem(x, cfg, device=device),
+                           eps=cfg.eps, max_iters=cfg.max_iters,
+                           seed=cfg.seed, u0=u0, keep_membership=True)
+
+
+def fit_fused(x, cfg: FCMConfig = FCMConfig(), v0=None,
+              keep_membership: bool = False, device=None) -> FCMResult:
+    """DEPRECATED alias for the center fixed point — use
+    ``solver.solve(solver.pixel_problem(x, cfg))``. Runs the plain loop
+    (``backend="reference"``), as the JAX package's adapter does. On
+    ``device`` (``None`` = the card)."""
+    from . import solver as SV
+    SV.warn_deprecated("fit_fused", "solver.solve(pixel_problem(x, cfg))")
+    return SV.solve(SV.pixel_problem(x, cfg, v0=v0, device=device), cfg,
+                    backend="reference", keep_membership=keep_membership)

@@ -49,3 +49,26 @@ def weighted_center_step(vals: torch.Tensor, w: torch.Tensor,
     from . import solver as SV
     out = SV.weighted_center_step(vals, w, F._as_2d(v), m)
     return out[:, 0] if v.dim() == 1 else out
+
+
+def fit_histogram(x, cfg: F.FCMConfig = F.FCMConfig(), n_bins: int = 256,
+                  hist=None, device=None) -> F.FCMResult:
+    """DEPRECATED alias — use
+    ``solver.solve(solver.histogram_problem(x, cfg))``.
+
+    FCM via histogram compression on the plain loop
+    (``backend="reference"``, as the JAX package's adapter runs it);
+    ``hist`` may be supplied directly, and labels come back per pixel.
+    On ``device`` (``None`` = the card)."""
+    from .. import _device as DV
+    from . import solver as SV
+    SV.warn_deprecated("fit_histogram",
+                       "solver.solve(histogram_problem(x, cfg))")
+    dev = DV.resolve_device(device)
+    x = DV.as_f32(x, dev)
+    problem = SV.histogram_problem(x, cfg, hist=hist, n_bins=n_bins,
+                                   device=dev)
+    res = SV.solve(problem, cfg, backend="reference")
+    return F.FCMResult(centers=res.centers,
+                       labels=F.labels_from_centers(x, res.centers),
+                       n_iters=res.n_iters, final_delta=res.final_delta)

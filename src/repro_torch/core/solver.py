@@ -42,6 +42,7 @@ Every entry point runs on the card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -59,6 +60,15 @@ _BIG = 3.4e38
 
 BACKENDS = ("auto", "reference", "resident", "fused", "staged",
             "sequential")
+
+
+def warn_deprecated(old: str, new: str) -> None:
+    """The deprecation warning of the legacy ``fit_*`` adapters, as the
+    JAX package words it (``stacklevel=3``: the adapter's caller)."""
+    warnings.warn(
+        f"{old} is deprecated; build an FCMProblem and call {new} "
+        f"(see README 'Migrating from the fit_* zoo')",
+        DeprecationWarning, stacklevel=3)
 
 
 def _record_telemetry(kind: str, impl: str, n_iters: int,
@@ -640,6 +650,8 @@ class BatchedFCMResult:
     #: (B,) bool — lane was re-solved on the plain loop after the primary
     #: impl left it poisoned or (a kernel impl) unconverged.
     salvaged: Optional[np.ndarray] = None
+    #: per-lane labels, where a deprecated ``fit_*`` adapter computes them
+    labels: Optional[list] = None
 
 
 def _salvage_lanes(problem: FCMProblem, idx: np.ndarray, eps: float,

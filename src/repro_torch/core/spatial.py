@@ -161,3 +161,32 @@ def spatial_center_step(img: torch.Tensor, v: torch.Tensor, m: float = 2.0,
     um = u ** m
     num = (um * x_eff.reshape(b, 1, -1)).sum(dim=-1)
     return num / torch.clamp(um.sum(dim=-1), min=F._D2_FLOOR)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated adapter over the solver
+# ---------------------------------------------------------------------------
+
+def fit_spatial(img, cfg: SpatialFCMConfig = SpatialFCMConfig(),
+                use_pallas: bool = False, v0=None,
+                keep_membership: bool = False, device=None) -> F.FCMResult:
+    """DEPRECATED alias — use
+    ``solver.solve(solver.spatial_problem(img, cfg))``.
+
+    FCM_S over a 2-D image or 3-D volume; ``labels`` (and ``membership``
+    when kept) keep the grid's shape. ``use_pallas=True`` runs the
+    stencil kernels on a card (``backend="auto"``, the counterpart of
+    the JAX package's ``"pallas"``), else the plain loop. The JAX
+    adapter's ``block_rows`` and ``interpret`` tune its Pallas kernel and
+    have no counterpart here. On ``device`` (``None`` = the card)."""
+    from .. import _device as DV
+    from . import solver as SV
+    SV.warn_deprecated("fit_spatial",
+                       "solver.solve(spatial_problem(img, cfg))")
+    img = DV.as_f32(img, DV.resolve_device(device))
+    if img.dim() not in (2, 3):
+        raise ValueError(f"fit_spatial needs (H, W) or (D, H, W) input, "
+                         f"got shape {tuple(img.shape)}")
+    return SV.solve(SV.spatial_problem(img, cfg, v0=v0, device=img.device),
+                    cfg, backend="auto" if use_pallas else "reference",
+                    keep_membership=keep_membership)

@@ -12,6 +12,7 @@ the CPU tests import every module, and this machine class has no
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -240,6 +241,24 @@ def stream_of(t) -> int:
     """PyTorch's current stream on ``t``'s device, as a raw handle."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_ALREADY = contextlib.nullcontext()
+
+
+def on_device(t):
+    """The context every library call for ``t`` (a tensor, or a device)
+    runs in: ``torch.cuda.device`` of its card for CUDA, a null context
+    otherwise or when that card is already current. The library's
+    ``<<<>>>`` launches and its attribute and occupancy queries go to the
+    calling thread's *current* device, and :func:`stream_of` hands it a
+    stream of ``t``'s device; under this guard the two are one card
+    whatever device the caller has current."""
+    import torch
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(t)
+    if dev.type != "cuda" or dev.index == torch.cuda.current_device():
+        return _ALREADY
+    return torch.cuda.device(dev)
 
 
 #: (device, stream) -> the int32 counters the kernels there share

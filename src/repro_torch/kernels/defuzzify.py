@@ -94,8 +94,9 @@ def labels(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if b and n:
         plan = labels_plan(b, n, x.element_size())
         fn = getattr(_build.library(), _DTYPES[x.dtype])
-        _build.check(fn(x.data_ptr(), b, n, v.data_ptr(), c, plan.segs,
-                        out.data_ptr(), _build.stream_of(x)), "labels")
+        with _build.on_device(x):
+            _build.check(fn(x.data_ptr(), b, n, v.data_ptr(), c, plan.segs,
+                            out.data_ptr(), _build.stream_of(x)), "labels")
         labels.launches += 1
     return out
 

@@ -231,11 +231,12 @@ def center_partials(x: torch.Tensor, u: torch.Tensor, m: float,
     if n == 0:
         return _zeros(x, c)
     n_blocks, part, num, den = _outputs(x, c, center_blocks(n))
-    _build.check(_build.library().fcm_center_partials(
-        x.data_ptr(), u.data_ptr(), None if w is None else w.data_ptr(), n,
-        c, float(np.float32(m)), part.data_ptr(), n_blocks,
-        _build.zeroed_ints(x, 1).data_ptr(), num.data_ptr(), den.data_ptr(),
-        _build.stream_of(x)), "fcm_center_partials")
+    with _build.on_device(x):
+        _build.check(_build.library().fcm_center_partials(
+            x.data_ptr(), u.data_ptr(), None if w is None else w.data_ptr(),
+            n, c, float(np.float32(m)), part.data_ptr(), n_blocks,
+            _build.zeroed_ints(x, 1).data_ptr(), num.data_ptr(),
+            den.data_ptr(), _build.stream_of(x)), "fcm_center_partials")
     center_partials.launches += 1
     return num, den
 
@@ -258,12 +259,13 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
         return _zeros(x, c)
     plan = scalar_plan(n, c, w is not None, m)
     _, part, num, den = _outputs(x, c, plan.blocks)
-    _build.check(_build.library().fcm_fused_partials(
-        x.data_ptr(), None if w is None else w.data_ptr(), n, v.data_ptr(),
-        c, float(np.float32(m)), exponent(m), plan.blocks,
-        plan.rows_per_thread, part.data_ptr(),
-        _build.zeroed_ints(x, 1).data_ptr(), num.data_ptr(), den.data_ptr(),
-        _build.stream_of(x)), "fcm_fused_partials")
+    with _build.on_device(x):
+        _build.check(_build.library().fcm_fused_partials(
+            x.data_ptr(), None if w is None else w.data_ptr(), n,
+            v.data_ptr(), c, float(np.float32(m)), exponent(m), plan.blocks,
+            plan.rows_per_thread, part.data_ptr(),
+            _build.zeroed_ints(x, 1).data_ptr(), num.data_ptr(),
+            den.data_ptr(), _build.stream_of(x)), "fcm_fused_partials")
     fused_partials.launches += 1
     return num, den
 
@@ -319,12 +321,14 @@ def fused_partials_batched(x: torch.Tensor, w: torch.Tensor,
     plan = batched_plan(b, n, d, c)
     part = torch.empty((plan.part_floats,), dtype=torch.float32,
                        device=x.device)
-    _build.check(_build.library().fcm_fused_partials_batched(
-        x.data_ptr(), w.data_ptr(), b, n, d, v.data_ptr(), c,
-        float(np.float32(m)), exponent(m), plan.blocks,
-        plan.rows_per_thread, part.data_ptr(),
-        _build.zeroed_ints(x, b).data_ptr(), num.data_ptr(), den.data_ptr(),
-        _build.stream_of(x)), "fcm_fused_partials_batched")
+    with _build.on_device(x):
+        _build.check(_build.library().fcm_fused_partials_batched(
+            x.data_ptr(), w.data_ptr(), b, n, d, v.data_ptr(), c,
+            float(np.float32(m)), exponent(m), plan.blocks,
+            plan.rows_per_thread, part.data_ptr(),
+            _build.zeroed_ints(x, b).data_ptr(), num.data_ptr(),
+            den.data_ptr(), _build.stream_of(x)),
+            "fcm_fused_partials_batched")
     fused_partials_batched.launches += 1
     return num, den
 

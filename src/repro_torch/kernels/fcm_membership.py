@@ -57,10 +57,11 @@ def membership(x: torch.Tensor, v: torch.Tensor, m: float) -> torch.Tensor:
                          f"got c={c}")
     u = torch.empty((c, n), dtype=torch.float32, device=x.device)
     if n:
-        _build.check(_build.library().fcm_membership(
-            x.data_ptr(), n, v.data_ptr(), c, float(np.float32(m)),
-            exponent(m), u.data_ptr(), _build.stream_of(x)),
-            "fcm_membership")
+        with _build.on_device(x):
+            _build.check(_build.library().fcm_membership(
+                x.data_ptr(), n, v.data_ptr(), c, float(np.float32(m)),
+                exponent(m), u.data_ptr(), _build.stream_of(x)),
+                "fcm_membership")
         membership.launches += 1
     return u
 

@@ -205,7 +205,8 @@ def streamed_occupancy(device, c: int, d: int, m: float):
     m32 = float(np.float32(m))
     key = (device, c, d, m32 == 2.0)
     if key not in _occupancy:
-        blocks = _build.library().fcm_streamed_blocks_per_sm(c, d, m32)
+        with _build.on_device(device):
+            blocks = _build.library().fcm_streamed_blocks_per_sm(c, d, m32)
         if blocks < 1:
             raise _build.KernelLaunchError(
                 f"fcm_streamed_blocks_per_sm: CUDA error {-blocks}")
@@ -222,11 +223,13 @@ def _launch_streamed(x, w, v0, tol, m, max_iters, b, k, d, c):
     part = torch.empty((b * 2 * plan.ranks * c * (d + 1),),
                        dtype=torch.float32, device=x.device)
     sync = _build.zeroed_ints(x, 2 * b)
-    _build.check(_build.library().fcm_streamed_solve(
-        x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k, d,
-        c, *_exponents(m), int(max_iters), plan.ranks, plan.lanes_per_round,
-        part.data_ptr(), sync.data_ptr(), v.data_ptr(), delta.data_ptr(),
-        iters.data_ptr(), _build.stream_of(x)), "fcm_streamed_solve")
+    with _build.on_device(x):
+        _build.check(_build.library().fcm_streamed_solve(
+            x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k,
+            d, c, *_exponents(m), int(max_iters), plan.ranks,
+            plan.lanes_per_round, part.data_ptr(), sync.data_ptr(),
+            v.data_ptr(), delta.data_ptr(), iters.data_ptr(),
+            _build.stream_of(x)), "fcm_streamed_solve")
     resident_streamed_solve.launches += 1
     return v, delta, iters
 
@@ -258,11 +261,12 @@ def _launch_resident(x, w, v0, tol, m, max_iters, plan: ResidentPlan):
     c = v0.shape[1]
     v, delta, iters = _outputs(x, b, c, d)
     if b:
-        _build.check(_build.library().fcm_resident_solve(
-            x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b, k,
-            d, c, *_exponents(m), int(max_iters), int(plan.tier),
-            v.data_ptr(), delta.data_ptr(), iters.data_ptr(),
-            _build.stream_of(x)), "fcm_resident_solve")
+        with _build.on_device(x):
+            _build.check(_build.library().fcm_resident_solve(
+                x.data_ptr(), w.data_ptr(), v0.data_ptr(), tol.data_ptr(), b,
+                k, d, c, *_exponents(m), int(max_iters), int(plan.tier),
+                v.data_ptr(), delta.data_ptr(), iters.data_ptr(),
+                _build.stream_of(x)), "fcm_resident_solve")
         resident_solve.launches += 1
     return v, delta, iters
 

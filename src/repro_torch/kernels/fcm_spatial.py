@@ -181,11 +181,12 @@ def spatial_partials_2d(x: torch.Tensor, v: torch.Tensor, m: float,
     c = v.shape[1]
     plan = spatial2d_plan(h, w)
     part, out = _buffers(x, c, plan.rows)
-    _build.check(_build.library().fcm_spatial_partials_2d(
-        x.data_ptr(), v.data_ptr(), b, h, w, c, neighbors,
-        float(np.float32(alpha)), float(np.float32(m)), exponent(m),
-        plan.run, part.data_ptr(), _build.zeroed_ints(x, b).data_ptr(),
-        out.data_ptr(), _build.stream_of(x)), "fcm_spatial_partials_2d")
+    with _build.on_device(x):
+        _build.check(_build.library().fcm_spatial_partials_2d(
+            x.data_ptr(), v.data_ptr(), b, h, w, c, neighbors,
+            float(np.float32(alpha)), float(np.float32(m)), exponent(m),
+            plan.run, part.data_ptr(), _build.zeroed_ints(x, b).data_ptr(),
+            out.data_ptr(), _build.stream_of(x)), "fcm_spatial_partials_2d")
     spatial_partials_2d.launches += 1
     return out[:, :c], out[:, c:]
 
@@ -209,11 +210,12 @@ def spatial_partials_3d(x: torch.Tensor, v: torch.Tensor, m: float,
         out = torch.empty((b, 2 * c), dtype=torch.float32, device=x.device)
     lib = _build.library()
     for i0, i1 in _build.lane_chunks(b, MAX_LANES_3D):
-        _build.check(lib.fcm_spatial_partials_3d(
-            x[i0:i1].data_ptr(), v[i0:i1].data_ptr(), i1 - i0, depth, h, w,
-            c, float(np.float32(alpha)), float(np.float32(m)), exponent(m),
-            plan.z, part.data_ptr(), out[i0:i1].data_ptr(),
-            _build.stream_of(x)), "fcm_spatial_partials_3d")
+        with _build.on_device(x):
+            _build.check(lib.fcm_spatial_partials_3d(
+                x[i0:i1].data_ptr(), v[i0:i1].data_ptr(), i1 - i0, depth, h,
+                w, c, float(np.float32(alpha)), float(np.float32(m)),
+                exponent(m), plan.z, part.data_ptr(), out[i0:i1].data_ptr(),
+                _build.stream_of(x)), "fcm_spatial_partials_3d")
         spatial_partials_3d.launches += 1
     return out[:, :c], out[:, c:]
 

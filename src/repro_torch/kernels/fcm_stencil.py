@@ -185,14 +185,16 @@ def stencil_solve(x: torch.Tensor, v0: torch.Tensor, tol: torch.Tensor,
         plan = stencil_plan(depth, h, w, neighbors)
         lib = _build.library()
         for i0, i1 in _build.lane_chunks(b, MAX_LANES):
-            _build.check(lib.fcm_stencil_solve(
-                x[i0:i1].data_ptr(), v0[i0:i1].data_ptr(),
-                tol[i0:i1].data_ptr(), i1 - i0, depth, h, w, c, neighbors,
-                float(np.float32(alpha)), float(np.float32(1.0 + alpha)),
-                float(np.float32(m)), exponent(m), int(max_iters),
-                plan.ranks, plan.form, v[i0:i1].data_ptr(),
-                delta[i0:i1].data_ptr(), iters[i0:i1].data_ptr(),
-                _build.stream_of(x)), "fcm_stencil_solve")
+            with _build.on_device(x):
+                _build.check(lib.fcm_stencil_solve(
+                    x[i0:i1].data_ptr(), v0[i0:i1].data_ptr(),
+                    tol[i0:i1].data_ptr(), i1 - i0, depth, h, w, c,
+                    neighbors, float(np.float32(alpha)),
+                    float(np.float32(1.0 + alpha)), float(np.float32(m)),
+                    exponent(m), int(max_iters), plan.ranks, plan.form,
+                    v[i0:i1].data_ptr(), delta[i0:i1].data_ptr(),
+                    iters[i0:i1].data_ptr(), _build.stream_of(x)),
+                    "fcm_stencil_solve")
             stencil_solve.launches += 1
     return v, delta, iters
 

@@ -89,9 +89,11 @@ def histogram_bin(px: torch.Tensor, n_bins: int = 256) -> torch.Tensor:
                        device=px.device)
     fn = (_build.library().histogram_bin_u8 if px.dtype == torch.uint8
           else _build.library().histogram_bin_i32)
-    _build.check(fn(px.data_ptr(), b, n, n_bins, blocks, part.data_ptr(),
-                    _build.zeroed_ints(px, b).data_ptr(), out.data_ptr(),
-                    _build.stream_of(px)), "histogram_bin")
+    with _build.on_device(px):
+        _build.check(fn(px.data_ptr(), b, n, n_bins, blocks,
+                        part.data_ptr(), _build.zeroed_ints(px, b).data_ptr(),
+                        out.data_ptr(), _build.stream_of(px)),
+                     "histogram_bin")
     histogram_bin.launches += 1
     return out
 

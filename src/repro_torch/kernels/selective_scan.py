@@ -113,12 +113,13 @@ def selective_scan(u, dt, bmat, cmat, a):
     hws, dws = (None, None) if shapes is None else (
         torch.empty(sh, dtype=torch.float32, device=u.device)
         for sh in shapes)
-    _build.check(_build.library().selective_scan_f32(
-        u.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-        a.data_ptr(), b, s, di, ds, chunk,
-        None if hws is None else hws.data_ptr(),
-        None if dws is None else dws.data_ptr(), y.data_ptr(),
-        _build.stream_of(u)), "selective_scan_f32")
+    with _build.on_device(u):
+        _build.check(_build.library().selective_scan_f32(
+            u.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            a.data_ptr(), b, s, di, ds, chunk,
+            None if hws is None else hws.data_ptr(),
+            None if dws is None else dws.data_ptr(), y.data_ptr(),
+            _build.stream_of(u)), "selective_scan_f32")
     selective_scan.launches += 1
     return y
 

@@ -126,10 +126,11 @@ def slic_assign(img: torch.Tensor, centers: torch.Tensor, gy: int, gx: int,
                              f"B <= {MAX_CENTER_BYTES} and H <= "
                              f"{65535 * TILE_H}, got H={h}, W={w}, D={d}, "
                              f"K={gy * gx}")
-        _build.check(_build.library().slic_assign(
-            img.data_ptr(), h, w, d, centers.data_ptr(), gy, gx, inv_sy,
-            inv_sx, float(np.float32(sw)), out.data_ptr(),
-            _build.stream_of(img)), "slic_assign")
+        with _build.on_device(img):
+            _build.check(_build.library().slic_assign(
+                img.data_ptr(), h, w, d, centers.data_ptr(), gy, gx, inv_sy,
+                inv_sx, float(np.float32(sw)), out.data_ptr(),
+                _build.stream_of(img)), "slic_assign")
         slic_assign.launches += 1
     return out
 

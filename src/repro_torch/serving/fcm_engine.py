@@ -76,11 +76,23 @@ CUDA errors, running out of card memory and a fault in a wrapper all
 fail the route's requests, so the plain path never answers for a kernel
 that is broken. Seeded faults
 (:mod:`repro_torch.faults`) hook the ``ingest``, ``launch``, ``solve``
-and ``flusher`` sites here. Mesh dispatch is not ported.
+and ``flusher`` sites here.
+
+**Mesh dispatch**: with a :class:`~repro_torch.core.distributed.Mesh`
+(``mesh=`` or :meth:`FCMServeEngine.set_mesh`), a program whose bucket
+divides by the mesh size stages each shard's slice of the bucket on that
+shard's device and runs the route's launch for ``bucket / size`` lanes
+there, one process driving every shard; lanes are independent, and a
+lane's arithmetic does not depend on the lanes beside it, so results are
+bit-equal to the single-device engine's. No mesh, a one-device mesh or a
+bucket the mesh does not divide runs the single-device path; so do the
+superpixel route (no program), degraded chunks and salvage, on the
+engine's device. Programs are cached per mesh generation.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -93,6 +105,7 @@ import torch
 from .. import _device as DV
 from .. import faults as FI
 from .. import obs
+from ..core import distributed as DD
 from ..core import fcm as F
 from ..core import solver as SV
 from ..core import spatial as SP
@@ -180,7 +193,8 @@ class RouteSpec:
     plain path);
     ``program_key(engine, chunk)`` names the program shape a chunk
     shares and ``make_program(engine, key, bucket)`` builds that
-    :class:`RouteProgram`, cached per (route generation, bucket, key). Every
+    :class:`RouteProgram`, cached per (route generation, mesh generation,
+    bucket, key). Every
     route gives ``build_problem(engine, chunk, bucket)``, which stacks a
     chunk (plus padding lanes up to ``bucket``) into one batched
     :class:`~repro_torch.core.solver.FCMProblem` and names the config
@@ -244,8 +258,8 @@ class RouteProgram:
     max_iters: int
 
 
-#: engine-held programs per (route, generation, bucket, key), bounded so
-#: size-keyed program flavors recycle rather than accrete
+#: engine-held programs per (route, generation, mesh generation, bucket,
+#: key), bounded so size-keyed program flavors recycle rather than accrete
 _PROGRAM_CACHE_SIZE = 64
 
 ROUTES: "collections.OrderedDict[str, RouteSpec]" = collections.OrderedDict()
@@ -263,6 +277,53 @@ def register_route(spec: RouteSpec) -> RouteSpec:
     global METHODS
     METHODS = tuple(ROUTES)
     return spec
+
+
+# -- mesh dispatch ------------------------------------------------------------
+
+def _program(eng: "FCMServeEngine", bucket: int,
+             body: Callable[[torch.device, int], Callable[..., Tuple]],
+             stack: Callable[["FCMServeEngine", List[Any], int], np.ndarray],
+             scatter, max_iters: int) -> RouteProgram:
+    """A route's program for one bucket. ``body(device, lanes)`` builds
+    the route's launch for ``lanes`` lanes on ``device``; ``stack(engine,
+    chunk, bucket)`` stages the padded bucket as one host array.
+
+    With no mesh that shards this bucket (no mesh, a one-device mesh, a
+    bucket the mesh size does not divide) it is the single-device
+    program: the bucket staged onto the engine's device, one launch.
+    Otherwise ``gather`` stages each shard's contiguous slice of the
+    bucket straight onto that shard's device; ``launch`` runs the body
+    for ``bucket / size`` lanes on each shard under its device (lanes are
+    independent, so no shard waits on another); the outputs are merged
+    on the engine's device in the mesh's order, ``total`` the largest
+    shard's (the JAX engine's ``pmax``). ``scatter`` is the same either
+    way."""
+    mesh = eng._mesh_for_bucket(bucket)
+    if mesh is None:
+        dev = eng.device
+
+        def gather(eng_, chunk, bucket_):
+            return (torch.from_numpy(stack(eng_, chunk, bucket_)).to(dev),)
+        return RouteProgram(gather, body(dev, bucket), scatter, max_iters)
+
+    per = bucket // mesh.size
+    launches = {d: body(d, per) for d in set(mesh.devices)}
+
+    def gather_shards(eng_, chunk, bucket_):
+        arr = stack(eng_, chunk, bucket_)
+        return tuple(torch.from_numpy(arr[k * per:(k + 1) * per]).to(d)
+                     for k, d in enumerate(mesh.devices))
+
+    def launch_shards(*shards):
+        outs = DD.run_shards(mesh, lambda px: launches[px.device](px),
+                             shards)
+        dev = eng.device
+        v, delta, iters, tail = (torch.cat([o[i].to(dev) for o in outs])
+                                 for i in (0, 1, 2, 4))
+        return v, delta, iters, max(int(o[3]) for o in outs), tail
+
+    return RouteProgram(gather_shards, launch_shards, scatter, max_iters)
 
 
 # -- histogram route --------------------------------------------------------
@@ -329,15 +390,32 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
     c, m = cfg.n_clusters, float(cfg.m)
     eps, max_iters = float(cfg.eps), int(cfg.max_iters)
     nb = eng.n_bins
-    dev = eng.device
-    impl = kops.select_step("flat", platform=dev.type, n_feat=1,
-                            batched=True, n_rows=nb, c=c).name
-    vals = hist_rows(torch.empty((bucket, nb), device=dev)).contiguous()
 
-    def _solve(hists):
-        v, delta, iters, total = SV.flat_batched_solve(
-            vals[..., None], hists, c, m, eps, max_iters, impl=impl)
-        return v[..., 0].contiguous(), delta, iters, total
+    def body(dev, lanes):
+        impl = kops.select_step("flat", platform=dev.type, n_feat=1,
+                                batched=True, n_rows=nb, c=c).name
+        vals = hist_rows(torch.empty((lanes, nb), device=dev)).contiguous()
+
+        def _solve(hists):
+            v, delta, iters, total = SV.flat_batched_solve(
+                vals[..., None], hists, c, m, eps, max_iters, impl=impl)
+            return v[..., 0].contiguous(), delta, iters, total
+
+        if key[0] == "px":
+            def launch(px):
+                hists = kops.histogram_counts(px, nb)
+                v2, delta, iters, total = _solve(hists)
+                labels = kops.defuzzify_labels_batched(px, v2)
+                return v2, delta, iters, total, labels
+            return launch
+
+        # Mixed payload sizes: one solve on the stacked histograms, the
+        # per-bin label table on the device.
+        def launch(hists):
+            v2, delta, iters, total = _solve(hists)
+            lut = kops.defuzzify_labels_batched(vals, v2)
+            return v2, delta, iters, total, lut
+        return launch
 
     def _unpack(outs):
         v2, delta, iters, total, tail = outs
@@ -347,13 +425,7 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
     if key[0] == "px":
         n = key[1]
 
-        def launch(px):
-            hists = kops.histogram_counts(px, nb)
-            v2, delta, iters, total = _solve(hists)
-            labels = kops.defuzzify_labels_batched(px, v2)
-            return v2, delta, iters, total, labels
-
-        def gather(eng_, chunk, bucket_):
+        def stack(eng_, chunk, bucket_):
             # uint8 traffic stages uint8; mixed dtypes stage int32.
             # Padding lanes replay lane 0.
             dtype = (np.uint8 if all(p.flat.dtype == np.uint8
@@ -362,7 +434,7 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
             for i, p in enumerate(chunk):
                 px[i] = p.flat
             px[len(chunk):] = px[0]
-            return (torch.from_numpy(px).to(dev),)
+            return px
 
         def scatter(eng_, chunk, outs):
             centers, delta, iters, total, labels = _unpack(outs)
@@ -372,21 +444,15 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
                    for i, p in enumerate(chunk)]
             return res, centers, iters, total, delta
 
-        return RouteProgram(gather, launch, scatter, max_iters)
+        return _program(eng, bucket, body, stack, scatter, max_iters)
 
-    # Mixed payload sizes: one solve on the stacked histograms (padding
-    # lanes uniform), the per-bin label table on the device, per-request
-    # labels by a host gather.
-    def launch(hists):
-        v2, delta, iters, total = _solve(hists)
-        lut = kops.defuzzify_labels_batched(vals, v2)
-        return v2, delta, iters, total, lut
-
-    def gather(eng_, chunk, bucket_):
+    # Mixed payload sizes: padding lanes are uniform histograms, and
+    # per-request labels come from a host gather through the label table.
+    def stack(eng_, chunk, bucket_):
         hists = np.ones((bucket_, nb), np.float32)
         for i, p in enumerate(chunk):
             hists[i] = _ensure_hist(eng_, p).hist
-        return (torch.from_numpy(hists).to(dev),)
+        return hists
 
     def scatter(eng_, chunk, outs):
         centers, delta, iters, total, lut = _unpack(outs)
@@ -396,7 +462,7 @@ def _make_histogram_program(eng, key, bucket) -> RouteProgram:
                for i, p in enumerate(chunk)]
         return res, centers, iters, total, delta
 
-    return RouteProgram(gather, launch, scatter, max_iters)
+    return _program(eng, bucket, body, stack, scatter, max_iters)
 
 
 register_route(RouteSpec(
@@ -457,20 +523,20 @@ def _pixel_program_key(eng, chunk):
     return ("px",) + chunk[0].pixels.shape  # bucket_key groups by shape
 
 
-def _gather_lanes(lane_shape, dev):
-    """A program's gather: the chunk's payloads stacked into (bucket,
-    *lane_shape) on ``dev``, uint8 when every payload is uint8, else
+def _stack_lanes(lane_shape):
+    """A program's host staging: the chunk's payloads stacked into
+    (bucket, *lane_shape), uint8 when every payload is uint8, else
     float32; padding lanes replay the first payload and are dropped on
     output."""
-    def gather(eng_, chunk, bucket_):
+    def stack(eng_, chunk, bucket_):
         dtype = (np.uint8 if all(q.pixels.dtype == np.uint8 for q in chunk)
                  else np.float32)
         px = np.empty((bucket_,) + lane_shape, dtype)
         for i, q in enumerate(chunk):
             px[i] = q.pixels.reshape(lane_shape)
         px[len(chunk):] = px[0]
-        return (torch.from_numpy(px).to(dev),)
-    return gather
+        return px
+    return stack
 
 
 def _scatter_lanes(method, label_shape):
@@ -504,25 +570,27 @@ def _make_pixel_program(eng, key, bucket) -> RouteProgram:
     cfg = eng.cfg
     c, m = cfg.n_clusters, float(cfg.m)
     eps, max_iters = float(cfg.eps), int(cfg.max_iters)
-    dev = eng.device
-    impl = kops.select_step("flat", platform=dev.type, n_feat=d,
-                            batched=True, n_rows=n, c=c).name
-    w = torch.ones((bucket, n), dtype=torch.float32, device=dev)
     lane_shape = (n,) if scalar else (n, d)
 
-    def launch(px):
-        xs = px.to(torch.float32)
-        feats = xs[..., None] if scalar else xs
-        v, delta, iters, total = SV.flat_batched_solve(
-            feats, w, c, m, eps, max_iters, impl=impl)
-        if scalar:
-            v2 = v[..., 0].contiguous()
-            return (v2, delta, iters, total,
-                    kops.defuzzify_labels_batched(px, v2))
-        return v, delta, iters, total, F.labels_from_centers(feats, v)
+    def body(dev, lanes):
+        impl = kops.select_step("flat", platform=dev.type, n_feat=d,
+                                batched=True, n_rows=n, c=c).name
+        w = torch.ones((lanes, n), dtype=torch.float32, device=dev)
 
-    return RouteProgram(_gather_lanes(lane_shape, dev), launch,
-                        _scatter_lanes("pixel", shape[:2]), max_iters)
+        def launch(px):
+            xs = px.to(torch.float32)
+            feats = xs[..., None] if scalar else xs
+            v, delta, iters, total = SV.flat_batched_solve(
+                feats, w, c, m, eps, max_iters, impl=impl)
+            if scalar:
+                v2 = v[..., 0].contiguous()
+                return (v2, delta, iters, total,
+                        kops.defuzzify_labels_batched(px, v2))
+            return v, delta, iters, total, F.labels_from_centers(feats, v)
+        return launch
+
+    return _program(eng, bucket, body, _stack_lanes(lane_shape),
+                    _scatter_lanes("pixel", shape[:2]), max_iters)
 
 
 # -- spatial route ------------------------------------------------------------
@@ -596,21 +664,23 @@ def _make_spatial_program(eng, key, bucket) -> RouteProgram:
     alpha = float(scfg.alpha)
     neighbors = _spatial_neighbors(eng, len(shape))
     eps, max_iters = float(scfg.eps), int(scfg.max_iters)
-    dev = eng.device
-    impl = kops.select_step("stencil", platform=dev.type, batched=True,
-                            n_rows=int(np.prod(shape)), c=c).name
 
-    def launch(px):
-        imgs = px.to(torch.float32)
-        v, delta, iters, total = SV.stencil_batched_solve(
-            imgs, c, m, alpha, neighbors, eps, max_iters, impl=impl)
-        u = SP.spatial_membership(imgs, v, m, alpha, neighbors,
-                                  batched=True)
-        return v, delta, iters, total, torch.argmax(u, dim=1).to(
-            torch.int32)
+    def body(dev, lanes):
+        impl = kops.select_step("stencil", platform=dev.type, batched=True,
+                                n_rows=int(np.prod(shape)), c=c).name
 
-    return RouteProgram(_gather_lanes(shape, dev), launch,
-                        _scatter_lanes("spatial", shape), max_iters)
+        def launch(px):
+            imgs = px.to(torch.float32)
+            v, delta, iters, total = SV.stencil_batched_solve(
+                imgs, c, m, alpha, neighbors, eps, max_iters, impl=impl)
+            u = SP.spatial_membership(imgs, v, m, alpha, neighbors,
+                                      batched=True)
+            return v, delta, iters, total, torch.argmax(u, dim=1).to(
+                torch.int32)
+        return launch
+
+    return _program(eng, bucket, body, _stack_lanes(shape),
+                    _scatter_lanes("spatial", shape), max_iters)
 
 
 # -- superpixel route ---------------------------------------------------------
@@ -710,8 +780,10 @@ class FCMServeEngine:
     :class:`~repro_torch.serving.admission.SegmentationFuture` that a
     lazy background flusher thread resolves; ``drain`` flushes
     synchronously and ``shutdown`` stops the flusher. The engine runs on
-    ``device`` (``None`` = the card; with no card it raises); its
-    flusher thread runs each flush on that card.
+    ``device`` (``None`` = the card; with no card it raises), and every
+    flush, synchronous or the flusher thread's, runs with that card
+    current. With a ``mesh`` (see the module docstring) the programs'
+    launches shard their lanes over its devices.
     """
 
     def __init__(self, cfg: F.FCMConfig = F.FCMConfig(),
@@ -730,7 +802,8 @@ class FCMServeEngine:
                  retry_backoff_s: float = 0.05,
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 5.0,
-                 max_queue_depth: Optional[int] = None):
+                 max_queue_depth: Optional[int] = None,
+                 mesh: Optional[DD.Mesh] = None):
         if not batch_sizes or any(b <= 0 for b in batch_sizes):
             raise ValueError(f"bad batch_sizes {batch_sizes!r}")
         self.device = DV.resolve_device(device)
@@ -809,6 +882,13 @@ class FCMServeEngine:
         self._flusher: Optional[threading.Thread] = None
         #: per-route count of queued async requests (guarded by _lock)
         self._async_n: Dict[str, int] = {}
+        # -- mesh dispatch ------------------------------------------------
+        #: bumped by set_mesh; part of every program-cache key, so programs
+        #: built for another mesh are purged like stale route generations
+        self._mesh_gen = 0
+        self.mesh: Optional[DD.Mesh] = None
+        if mesh is not None:
+            self.set_mesh(mesh)
         self.metrics.counter("requests")
         self.metrics.counter("cache_hits")
         self.metrics.gauge("queue.depth")
@@ -826,6 +906,31 @@ class FCMServeEngine:
             self._iters_hist(route.name)
             self._occupancy_hist(route.name)
             self.metrics.gauge("queue.depth", route=route.name)
+
+    # -- mesh --------------------------------------------------------------
+
+    def set_mesh(self, mesh: Optional[DD.Mesh]) -> None:
+        """Attach, replace or (``None``) detach the
+        :class:`~repro_torch.core.distributed.Mesh` that program launches
+        shard their lanes over. Bumps the mesh generation, so every
+        program built for the previous mesh is evicted at its next use."""
+        if mesh is not None and any(d.type != self.device.type
+                                    for d in mesh.devices):
+            raise ValueError(f"an engine on {self.device} shards over "
+                             f"{self.device.type} devices only, got "
+                             f"{[str(d) for d in mesh.devices]}")
+        with self._lock:
+            self.mesh = mesh
+            self._mesh_gen += 1
+
+    def _mesh_for_bucket(self, bucket: int) -> Optional[DD.Mesh]:
+        """The mesh a ``bucket``-lane launch shards over, or None for the
+        single-device path: no mesh, a one-device mesh, or a bucket the
+        mesh size does not divide."""
+        mesh = self.mesh
+        if mesh is None or mesh.size <= 1 or bucket % mesh.size != 0:
+            return None
+        return mesh
 
     # -- metric accessors --------------------------------------------------
 
@@ -1040,7 +1145,7 @@ class FCMServeEngine:
         serving the others."""
         results: Dict[int, SegmentationResult] = {}
         first_err: Optional[BaseException] = None
-        with self._flush_lock:
+        with self._flush_lock, self._on_card():
             with self._lock:
                 drained = self._queues
                 self._queues = {name: [] for name in drained}
@@ -1180,13 +1285,13 @@ class FCMServeEngine:
             return None
         return max(0.0, oldest + self.max_wait_ms / 1000.0 - now)
 
-    def _flusher_flush(self) -> None:
-        """One flush from the flusher thread, on the engine's card."""
+    def _on_card(self):
+        """The engine's card as the calling thread's current device (a
+        null context on the CPU), around every flush: a new thread's
+        current device is device 0, and a caller's may be any card."""
         if self._cuda_index is None:
-            self.flush(raise_errors=False)
-            return
-        with torch.cuda.device(self._cuda_index):
-            self.flush(raise_errors=False)
+            return contextlib.nullcontext()
+        return torch.cuda.device(self._cuda_index)
 
     def _flusher_loop(self) -> None:
         # Supervised: a raise anywhere in an iteration restarts the loop
@@ -1207,7 +1312,7 @@ class FCMServeEngine:
                         self._cond.wait(timeout=wait)
                 # Outside the lock: per-route errors land in the affected
                 # futures (raise_errors=False).
-                self._flusher_flush()
+                self.flush(raise_errors=False)
             except FI.FlusherKilled:
                 with self._lock:
                     self._flusher_kills += 1
@@ -1295,16 +1400,18 @@ class FCMServeEngine:
     def _program_for(self, route: RouteSpec, chunk: List[Any],
                      bucket: int) -> Optional[RouteProgram]:
         """The program this chunk rides, built once per (route
-        generation, bucket, shape key), or None for a route without
-        programs; stale generations are purged."""
+        generation, mesh generation, bucket, shape key), or None for a
+        route without programs; stale generations, a re-registered route
+        or a swapped mesh, are purged."""
         if route.make_program is None:
             return None
         key = route.program_key(self, chunk)
         gen = _ROUTE_GEN[route.name]
         for k in [k for k in self._programs
-                  if k[0] == route.name and k[1] != gen]:
+                  if (k[0] == route.name and k[1] != gen)
+                  or k[2] != self._mesh_gen]:
             del self._programs[k]
-        full_key = (route.name, gen, bucket, key)
+        full_key = (route.name, gen, self._mesh_gen, bucket, key)
         prog = self._programs.get(full_key)
         if prog is None:
             prog = route.make_program(self, key, bucket)

@@ -1058,3 +1058,61 @@ def test_a_bucket_past_65535_lanes_gives_the_last_lane_its_own_bits(dev,
     alone = call(x[-1:].contiguous())
     for g, a in zip(got, alone):
         assert torch.equal(g[-1:], a)
+
+
+# -- the mesh: one card named twice, and the launch guard (fault (k)) -----------
+
+@pytest.mark.parametrize("route", ["histogram", "pixel", "spatial"])
+def test_meshed_engine_on_one_card_named_twice_bit_equal(dev, route):
+    """A mesh naming cuda:0 twice splits each bucket of 8 into two
+    shards on the one card: the split, the two launches and the merge
+    give exactly what a single-device engine gives."""
+    from repro_torch.core import distributed as TD
+    from repro_torch.core.fcm import FCMConfig
+    imgs = _slices(11, 32, 32)
+    mesh = TD.make_mesh((2,), ("data",), devices=["cuda:0", "cuda:0"])
+    single = FCMServeEngine(FCMConfig(), batch_sizes=(1, 8), cache_size=0,
+                            device=dev)
+    meshed = FCMServeEngine(FCMConfig(), batch_sizes=(1, 8), cache_size=0,
+                            device=dev, mesh=mesh)
+    try:
+        want = single.segment(imgs, method=route)
+        got = meshed.segment(imgs, method=route)
+    finally:
+        single.shutdown()
+        meshed.shutdown()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        np.testing.assert_array_equal(a.centers, b.centers)
+        assert a.n_iters == b.n_iters
+
+
+def test_wrapper_launches_on_its_tensors_card_from_another_current_card(dev):
+    """A thread whose current device is card 0 calls the kernels with
+    tensors on card 1: each wrapper enters its tensors' card around the
+    library call, so the launches land there (fault (k))."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch on another card than the "
+                    "current one cannot be made with one")
+    import threading
+    one = torch.device("cuda", 1)
+    px = torch.from_numpy(np.stack([s.ravel() for s in _slices(3)])).to(one)
+    out = {}
+
+    def work():
+        torch.cuda.set_device(0)
+        hists = KB.histogram_bin(px, 256)
+        v, _, _, _ = TS.flat_batched_solve(
+            torch.arange(256.0, device=one).repeat(3, 1)[..., None]
+            .contiguous(), hists, 4, 2.0, 5e-3, 300, impl="resident")
+        out["labels"] = KD.labels(px, v[..., 0].contiguous())
+        out["hists"] = hists
+        torch.cuda.synchronize(one)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and "labels" in out
+    assert torch.equal(out["hists"], KB.histogram_bin_plain(px.cpu(), 256)
+                       .to(one))
+    assert out["labels"].device == one

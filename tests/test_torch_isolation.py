@@ -42,7 +42,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"fcm_engine.py", "solver.py", "ops.py", "chip_smoke.py",
-            "ssm.py", "train_loop.py", "selective_scan.py"} <= names
+            "ssm.py", "train_loop.py", "selective_scan.py", "distributed.py",
+            "batched.py", "ref.py"} <= names
     assert not _forbidden("repro_torch.core")
     assert _forbidden("repro.core.solver") and _forbidden("jax.numpy")
 
