@@ -76,8 +76,10 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    2^16, 2^18 and 2^20 pixels, the sweep that sets the whole-solve's
    dispatch bound;
 8. lm: hold the selective-scan kernel against its plain version at
-   (1, 4096, 8192, 16), (2, 128, 128, 4) and the ragged (1, 100, 96, 8),
-   with its chunk length, workspace and device time at full width;
+   (1, 4096, 8192, 16), (2, 128, 128, 4), the ragged (1, 100, 96, 8) and
+   the one-chunk (1, 24, 256, 16), each also with the end state (y
+   bit-equal, h_S against the plain recurrence's), with its chunk length,
+   workspace and device time at full width, with and without the state;
    run one full-width group of jamba-v0.1-52b (8 layers, bf16 compute on
    float32 masters drawn on the card) through ``loss_fn`` on a seeded
    (1, 4096) batch with the launch counts set to 0 just before and read
@@ -121,7 +123,22 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    engine through ``segment`` and ``submit_async`` + ``drain``, each
    route kernel launched shards x buckets times, a bucket of 1 on the
    single-device path, ``set_mesh(None)`` and a one-device mesh bit-equal
-   again; the p50 flush and its stages, meshed and single.
+   again; the p50 flush and its stages, meshed and single;
+11. serve: 11a llama3.2-1b whole (16 layers at every published width,
+   1.24 B float32 parameters, bf16 compute) through ``ServeEngine`` at
+   batch 4, prompt 512 and 64 greedy tokens: each step's logits against
+   the teacher-forced ``forward`` on the card, tokens equal to its argmax
+   but at counted near-ties, the same seed at temperature 0.8 twice,
+   prefill and decode ms, tokens/s, peak memory and a profiled decode
+   step's share of weight casts; 11b one full-width jamba-v0.1-52b group
+   (8 layers) prefilled at (2, 2048) through the selective scan's
+   end-state form (7 launches) and through the plain loop (none), logits,
+   every Mamba layer's state and the KV cache held between the two, then
+   16 greedy decode steps from each cache (no scan launched); 11c the
+   reduced llama3.2-1b, granite-moe-3b-a800m and jamba-v0.1-52b through
+   ``ServeEngine`` on the card against ``device="cpu"`` (tokens equal,
+   prefill logits within 1e-4), and ``launch.serve.main --ckpt-dir`` on a
+   checkpoint the port's ``save_checkpoint`` wrote.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -2036,9 +2053,11 @@ def spatial_path(SV, KSP, KST, FCMServeEngine, job, counters, big, big_gt,
 
 ARCH = "jamba-v0.1-52b"
 #: the selective scan against its plain version: at full width, the
-#: small shape of the reduced config's train step, and a ragged shape the
-#: TPU kernel's tiling could not take
-SELSCAN_CASES = ((1, 4096, 8192, 16), (2, 128, 128, 4), (1, 100, 96, 8))
+#: small shape of the reduced config's train step, a ragged shape the
+#: TPU kernel's tiling could not take, and one chunk (S under MIN_CHUNK:
+#: the one launch stores the end state)
+SELSCAN_CASES = ((1, 4096, 8192, 16), (2, 128, 128, 4), (1, 100, 96, 8),
+                 (1, 24, 256, 16))
 #: max |y_kernel - y_plain| against max |y|: both walk the same float32
 #: recurrence; expf against PyTorch's exp and the order of the d_state sum
 #: differ by rounding, which the decay keeps from growing along S
@@ -2071,25 +2090,37 @@ def selscan_inputs(b, s, di, ds, seed, dev):
 
 def check_selective_scan(KSS, dev, card):
     """8(a): the kernel against its plain version at SELSCAN_CASES, twice
-    and bit-equal; the full-width case timed beside its bound."""
-    worst_abs = worst_rel = 0.0
+    and bit-equal; with the end state (prefill's form): y bit-equal to the
+    call without it, h_S against the plain recurrence's; the full-width
+    case timed beside its bound, with and without the state."""
+    worst_abs = worst_rel = worst_h = 0.0
     for i, shape in enumerate(SELSCAN_CASES):
         ins = selscan_inputs(*shape, seed=i, dev=dev)
         y = KSS.selective_scan(*ins)
         torch.cuda.synchronize()
         require(torch.equal(y, KSS.selective_scan(*ins)),
                 f"selective_scan does not repeat bit for bit at {shape}")
-        want = KSS.selective_scan_ref(*ins)
+        want, want_h = KSS.selective_scan_ref(*ins, return_state=True)
         err = float((y - want).abs().max())
         top = float(want.abs().max())
         rel = err / max(top, 1e-30)
         require(np.isfinite(err) and rel <= SELSCAN_TOL,
                 f"selective_scan at {shape}: max abs err {err:.3g} is "
                 f"{rel:.3g} of max|y| {top:.3g}, over {SELSCAN_TOL}")
+        y_s, h = KSS.selective_scan(*ins, return_state=True)
+        require(torch.equal(y_s, y), f"selective_scan at {shape}: y with "
+                f"the end state differs from y without it")
+        h_err = float((h - want_h).abs().max())
+        h_top = float(want_h.abs().max())
+        require(np.isfinite(h_err) and h_err <= SELSCAN_TOL * h_top,
+                f"selective_scan at {shape}: end state max abs err "
+                f"{h_err:.3g} over {SELSCAN_TOL} of max|h| {h_top:.3g}")
         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        worst_h = max(worst_h, h_err / max(h_top, 1e-30))
         print(f"  selective_scan (B, S, di, ds)={shape}: max abs err "
               f"{err:.3g}, {rel:.3g} of max|y| {top:.3g}, repeats bit for "
-              f"bit")
+              f"bit; with the end state y bit-equal, h_S max abs err "
+              f"{h_err:.3g} of max|h| {h_top:.3g}")
     b, s, di, ds = SELSCAN_CASES[0]
     ins = selscan_inputs(b, s, di, ds, seed=0, dev=dev)
     call = lambda: KSS.selective_scan(*ins)  # noqa: E731
@@ -2123,9 +2154,20 @@ def check_selective_scan(KSS, dev, card):
              f"{dev_ms:.4f} ms ({_kernel_names(per)})")
           + f", plain {plain_ms:.4f} ms, library -, bound {bnd:.5f} ms "
           f"({by}) [{card}]")
+    # the end state's store, in turns with the call without it: plain,
+    # state, state, plain (device time a call)
+    state = lambda: KSS.selective_scan(*ins, return_state=True)  # noqa
+    turns = [device_ms(f)[0] for f in (call, state, state, call)]
+    state_ms = time_ms(state, reps=10, rounds=5)
+    print(f"  selective_scan {SELSCAN_CASES[0]} with the end state: kernel "
+          f"{state_ms:.4f} ms; device in turns without / with / with / "
+          f"without: {' / '.join(_fmt_ms(t) for t in turns)}; the state "
+          f"adds {4 * b * di * ds} B of stores [{card}]")
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bnd,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, state_ms=state_ms,
+                state_device_ms=turns[1:3], stateless_device_ms=[
+                    turns[0], turns[3]], state_max_rel_err=worst_h)
 
 
 def jamba_forward(TC, TLM, TO, TT, L, S, counters, dev, card):
@@ -3030,6 +3072,440 @@ def mesh_path(TD, TB, SV, F, KB, _build, FCMServeEngine, job, counters,
     mesh_engine(TD, FCMServeEngine, job, counters, imgs, dev, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: LM serving on the card (prefill, decode, ServeEngine)
+# ---------------------------------------------------------------------------
+
+#: 11a: llama3.2-1b whole, served at this batch, prompt and new tokens
+SERVE_ARCH = "llama3.2-1b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 64
+#: a cache-path logit against the teacher-forced forward's at the same
+#: position, as a share of that position's max |logit|: both run bf16
+#: (8 significant bits, 3.9e-3 relative a rounding) through 16 layers of
+#: GEMMs whose shapes differ between the two paths (B rows against B x S),
+#: so their roundings differ at every layer. A token may differ from the
+#: forward's argmax only where the forward's top-2 gap is within twice
+#: this share (a near-tie: logits within the bound cannot swap otherwise)
+SERVE_LOGIT_TOL = 2e-2
+#: 11b: one full-width jamba group's prefill and decode
+JAMBA_PREFILL = (2, 2048)
+JAMBA_DECODE = 16
+#: 11b, the kernel prefill against the plain one in float32 compute (TF32
+#: off), relative RMS (||a - b|| / ||b||) of the last position's logits,
+#: every layer's state and the KV cache: the two differ by the scan's
+#: float32 roundings (about 1e-6 relative) carried through 8 float32
+#: layers
+JAMBA_F32_TOL = 1e-3
+#: 11b in bf16, the served dtype: each scan's float32 y is rounded to bf16
+#: before the next GEMM, so one rounding flip (3.9e-3 relative) in a layer
+#: feeds every later one and grows with depth: on an H100 (this phase,
+#: seed 11) the states were 0.5 % apart (relative RMS) after b1 and 9 %
+#: after b7, while each mixer held on one input (SELSCAN_TOL on its
+#: state, MIXER_TOL on y, the conv state equal) and the float32 pair
+#: (1.2e-5 at most) showed the kernel and the loop alike. So the bf16
+#: pair holds the last
+#: position's logits alone, at this relative RMS, and prints its states;
+#: its decode tokens are equal but at near-ties within 2 x this share of
+#: a position's max |logit|
+JAMBA_TOL = 5e-2
+#: 11c: the reduced archs on the card against the CPU, float32 (TF32 off)
+SERVE_CPU_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m", "jamba-v0.1-52b")
+SERVE_CPU_RTOL = 1e-4
+
+
+def _near_tie_tokens(got, logits_ref, tol, what):
+    """Tokens ``got`` (B, N) against the argmax of ``logits_ref`` (B, N,
+    V): a difference is excused only where the reference's top-2 gap is
+    within 2 x tol x the position's max |logit|. Returns the number
+    excused."""
+    top2 = logits_ref.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    bound = 2 * tol * logits_ref.abs().amax(-1)
+    differ = got != logits_ref.argmax(-1)
+    bad = differ & (gap > bound)
+    require(not bool(bad.any()), f"{what}: {int(bad.sum())} tokens differ "
+            f"from the reference's argmax outside a near-tie")
+    return int(differ.sum())
+
+
+def serve_llama(TC, TLM, TSV, TO, counters, dev, card):
+    """11a: llama3.2-1b at every published width through ServeEngine,
+    each step's logits held against the teacher-forced forward."""
+    cfg = TC.get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = TLM.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in TO.tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B float32 "
+          f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s"
+          f", {str(cfg.dtype).split('.')[-1]} compute")
+    b, plen, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prompts = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)
+    eng = TSV.ServeEngine(cfg, params, max_len=plen + n_new, batch_size=b)
+    eng.generate(prompts, 2)                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = _counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    require(out.shape == (b, plen + n_new)
+            and np.array_equal(out[:, :plen], prompts)
+            and ((out >= 0) & (out < cfg.vocab_size)).all(),
+            "ServeEngine.generate returned a malformed batch")
+    with torch.inference_mode():
+        toks = torch.as_tensor(out, device=dev)
+        cache = TLM.init_cache(cfg, b, plen + n_new, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TLM.prefill(params, toks[:, :plen], cache, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps, step_ms = [logits[:, 0]], []
+        for i in range(1, n_new):
+            pos = plen + i - 1
+            t0 = time.perf_counter()
+            logits, cache = TLM.decode_step(params, toks[:, pos:pos + 1],
+                                            cache, pos, cfg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits[:, 0])
+        dec = torch.stack(steps, dim=1)                   # (B, N, V)
+        require(torch.equal(dec.argmax(-1).cpu(),
+                            torch.as_tensor(out[:, plen:], dtype=torch.long)),
+                "the engine's tokens differ from the greedy argmax of the "
+                "same prefill and decode steps run again")
+        full, _ = TLM.forward(params, toks[:, :-1], cfg)
+        ref = full[:, plen - 1:].float()                  # (B, N, V)
+        scale = ref.abs().amax(-1)
+        err = (dec - ref).abs().amax(-1)
+        worst = float((err / scale).max())
+        require(bool(torch.isfinite(dec).all()) and worst <= SERVE_LOGIT_TOL,
+                f"decode logits against the forward: {worst:.3g} of the "
+                f"position's max |logit|, over {SERVE_LOGIT_TOL}")
+        excused = _near_tie_tokens(toks[:, plen:], ref, SERVE_LOGIT_TOL,
+                                   "11a tokens against the forward")
+        del full, ref, dec
+        hot = [eng.generate(prompts[:, :plen - 16], 16, temperature=0.8,
+                            seed=3)
+               for _ in range(2)]
+        require(np.array_equal(hot[0], hot[1])
+                and ((hot[0] >= 0) & (hot[0] < cfg.vocab_size)).all(),
+                "temperature 0.8 with one seed gave two token streams")
+        # where a decode step's device time goes: the float32 -> bf16
+        # casts of every weight (L.gathered) against the rest
+        pos = plen + n_new - 1
+        tok = toks[:, -1:]
+        rows = profile_call(lambda: TLM.decode_step(
+            params, tok, TLM.init_cache(cfg, b, plen + n_new, device=dev),
+            pos, cfg), card, "of one decode step")
+    dec_ms = float(np.median(step_ms))
+    print(f"  ServeEngine.generate (B, prompt, new)=({b}, {plen}, {n_new}) "
+          f"greedy: {t_gen * 1e3:.1f} ms, {b * n_new / t_gen:.1f} tokens/s; "
+          f"prefill {prefill_ms:.2f} ms, decode {dec_ms:.3f} ms a token "
+          f"(median of {len(step_ms)}; {min(step_ms):.3f}-"
+          f"{max(step_ms):.3f}), {b / dec_ms * 1e3:.1f} tokens/s decoding; "
+          f"peak {peak / 2**30:.2f} GiB allocated; launches "
+          f"{ {k: v for k, v in launches.items() if v} } "
+          f"[{card}]")
+    print(f"  decode logits against the teacher-forced forward: worst "
+          f"{worst:.3g} of the position's max |logit| (bound "
+          f"{SERVE_LOGIT_TOL}); tokens differing from its argmax: "
+          f"{excused} of {b * n_new}, each a near-tie within "
+          f"{2 * SERVE_LOGIT_TOL} of the max; temperature 0.8 repeats with "
+          f"its seed")
+    if rows:
+        total = sum(r[0] for r in rows)
+        cast = sum(r[0] for r in rows if "copy" in r[2])
+        cast_bytes = 6 * n_params
+        print(f"  one decode step: {total / 1e3:.3f} ms of device time, "
+              f"{cast / 1e3:.3f} ms ({100 * cast / total:.1f} %) in copy "
+              f"kernels (the weights' float32 -> bf16 casts: "
+              f"{cast_bytes / 1e9:.2f} GB moved, "
+              f"{bound_ms(cast_bytes, 0)[0]:.3f} ms at the card's peak) "
+              f"[{card}]")
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, decode_ms=dec_ms, excused=excused,
+                worst=worst)
+
+
+def _rms_rel(got, want):
+    """||got - want|| / ||want||: a routing flip at one of the 4096
+    positions moves it little, a wrong state or layout by O(1)."""
+    d = (got.float() - want.float()).norm()
+    return float(d / want.float().norm().clamp_min(1e-30))
+
+
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def jamba_layers_alike(B, L, S, params, cfg, plain, tokens, card):
+    """11b, layer by layer: walk the group's prefill and hold each Mamba
+    mixer's kernel form against its plain loop on the same input (the
+    kernel prefill's): y within MIXER_TOL, the ssm state within
+    SELSCAN_TOL, the conv state equal."""
+    x = L.embed(params["embed"], tokens, cfg.dtype)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)[None]
+    worst_y = worst_h = 0.0
+    for i, desc in enumerate(cfg.group_layout):
+        bp = params["groups"][0][f"b{i}"]
+        if desc.mixer == "mamba":
+            h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+            yk, sk = S.mamba_forward(bp["mixer"], h, cfg, return_state=True)
+            yp, sp = S.mamba_forward(bp["mixer"], h, plain,
+                                     return_state=True)
+            e_y, e_h = _max_rel(yk, yp), _max_rel(sk["ssm"], sp["ssm"])
+            require(torch.equal(sk["conv"], sp["conv"]) and e_y <= MIXER_TOL
+                    and e_h <= SELSCAN_TOL, f"b{i}'s mamba mixer on one "
+                    f"input, kernel against plain: y {e_y:.3g} of max "
+                    f"(bound {MIXER_TOL}), ssm state {e_h:.3g} (bound "
+                    f"{SELSCAN_TOL}), conv equal: "
+                    f"{torch.equal(sk['conv'], sp['conv'])}")
+            worst_y, worst_h = max(worst_y, e_y), max(worst_h, e_h)
+        cache = B.init_block_cache(cfg, desc, tokens.shape[0],
+                                   tokens.shape[1], device=tokens.device)
+        x, _ = B.block_prefill(bp, x, cfg, desc, cache, positions=positions)
+    print(f"  each Mamba mixer on the kernel prefill's own input, kernel "
+          f"against plain loop: y at most {worst_y:.3g} of max (bound "
+          f"{MIXER_TOL}), ssm state at most {worst_h:.3g} (bound "
+          f"{SELSCAN_TOL}), conv states equal [{card}]")
+
+
+def jamba_prefill_pair(TLM, params, cfg, plain, tokens, max_len, counters):
+    """The kernel prefill (twice: the second is timed) and the plain one
+    of ``tokens``; their caches, logits, times and the launch checks."""
+    runs = []
+    for _ in range(2):
+        _zero(counters)
+        cache_k = TLM.init_cache(cfg, tokens.shape[0], max_len,
+                                 device=tokens.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logit_k, cache_k = TLM.prefill(params, tokens, cache_k, cfg)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        launches = _counts(counters)
+        require(launches == {**{k: 0 for k in counters},
+                             "selective_scan": 7},
+                f"the kernel prefill launched {launches}, expected 7 "
+                f"selective scans")
+    _zero(counters)
+    cache_p = TLM.init_cache(plain, tokens.shape[0], max_len,
+                             device=tokens.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logit_p, cache_p = TLM.prefill(params, tokens, cache_p, plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    require(sum(_counts(counters).values()) == 0,
+            f"the plain prefill launched {_counts(counters)}")
+    return (logit_k, cache_k), (logit_p, cache_p), runs, plain_ms
+
+
+def _prefill_diffs(cfg, k, p, s):
+    """{leaf: (relative RMS, max-relative)} of the kernel prefill's
+    logits and group cache against the plain one's."""
+    (logit_k, cache_k), (logit_p, cache_p) = k, p
+    pairs = {"logits": (logit_k, logit_p)}
+    for i, d in enumerate(cfg.group_layout):
+        bk, bp = cache_k[0][f"b{i}"], cache_p[0][f"b{i}"]
+        if d.mixer == "mamba":
+            for leaf in ("ssm", "conv"):
+                pairs[f"b{i}.{leaf}"] = (bk["mamba"][leaf],
+                                         bp["mamba"][leaf])
+        else:
+            for leaf in ("k", "v"):
+                pairs[f"b{i}.{leaf}"] = (bk["attn"][leaf][:, :, :s],
+                                         bp["attn"][leaf][:, :, :s])
+    return {n: (_rms_rel(*v), _max_rel(*v)) for n, v in pairs.items()}
+
+
+def serve_jamba_group(TC, TLM, TO, counters, dev, card):
+    """11b: one full-width jamba-v0.1-52b group's prefill with the scan
+    kernel's end state against the plain loop, in bf16 (served) and in
+    float32 compute (held tight), each Mamba mixer on one input, then
+    greedy decode from both bf16 caches."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    cfg = dataclasses.replace(TC.get_config(ARCH), n_layers=8,
+                              mamba_pallas=True)
+    plain = dataclasses.replace(cfg, mamba_pallas=False)
+    b, s = JAMBA_PREFILL
+    max_len = s + JAMBA_DECODE
+    t0 = time.perf_counter()
+    params = TLM.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}, one group: "
+          f"{sum(t.numel() for t in TO.tree_leaves(params)) / 1e9:.2f} B "
+          f"float32 parameters drawn in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev)
+    first = next(f"b{i}" for i, d in enumerate(cfg.group_layout)
+                 if d.mixer == "mamba")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        # float32 compute: the two prefills differ by the scan's float32
+        # roundings alone, held at JAMBA_F32_TOL
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        k32, p32, runs32, plain32 = jamba_prefill_pair(
+            TLM, params, f32, dataclasses.replace(f32, mamba_pallas=False),
+            tokens, max_len, counters)
+        d32 = _prefill_diffs(cfg, k32, p32, s)
+        del k32, p32
+        for n, (rms, top) in d32.items():
+            require(np.isfinite(rms) and rms <= JAMBA_F32_TOL,
+                    f"float32 compute, {n}, kernel against plain prefill: "
+                    f"{rms:.3g} relative (RMS), over {JAMBA_F32_TOL}")
+        torch.cuda.reset_peak_memory_stats()
+        kb, pb, runs, plain_ms = jamba_prefill_pair(
+            TLM, params, cfg, plain, tokens, max_len, counters)
+        d16 = _prefill_diffs(cfg, kb, pb, s)
+        (logit_k, cache_k), (_, cache_p) = kb, pb
+        require(torch.equal(cache_k[0][first]["mamba"]["conv"],
+                            cache_p[0][first]["mamba"]["conv"]),
+                f"{first}'s conv state differs between the kernel and the "
+                f"plain prefill")
+        require(all(np.isfinite(rms) for rms, _ in d16.values())
+                and d16["logits"][0] <= JAMBA_TOL, f"bf16 last-position "
+                f"logits, kernel against plain prefill: {d16['logits'][0]:.3g}"
+                f" relative (RMS), over {JAMBA_TOL}")
+        del kb, pb
+        tok = logit_k[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        _zero(counters)
+        step_ms, toks_k, logits_p, dec_rms = [], [], [], 0.0
+        for i in range(JAMBA_DECODE):
+            pos = s + i
+            t0 = time.perf_counter()
+            lk, cache_k = TLM.decode_step(params, tok, cache_k, pos, cfg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            lp, cache_p = TLM.decode_step(params, tok, cache_p, pos, plain)
+            dec_rms = max(dec_rms, _rms_rel(lk, lp))
+            tok = lk[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks_k.append(tok[:, 0])
+            logits_p.append(lp[:, -1])
+        require(sum(_counts(counters).values()) == 0,
+                f"decoding launched {_counts(counters)}; decode takes the "
+                f"plain recurrence")
+        excused = _near_tie_tokens(torch.stack(toks_k, 1),
+                                   torch.stack(logits_p, 1), JAMBA_TOL,
+                                   "11b decode tokens, kernel against plain "
+                                   "cache")
+        peak = torch.cuda.max_memory_allocated()
+        del cache_k, cache_p
+        jamba_layers_alike(B, L, S, params, cfg, plain, tokens, card)
+    dec = float(np.median(step_ms))
+    print(f"  prefill (B, S)=({b}, {s}), bf16: kernel {runs[1]:.1f} ms "
+          f"(first {runs[0]:.1f}), 7 selective scans; plain loop "
+          f"{plain_ms:.1f} ms, none; float32 compute: kernel {runs32[1]:.1f}"
+          f" ms, plain {plain32:.1f} ms; decode {dec:.2f} ms a token (median "
+          f"of {JAMBA_DECODE}), {b / dec * 1e3:.1f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB allocated (bf16 pair and decode) [{card}]")
+    for what, d in (("float32 compute", d32), ("bf16", d16)):
+        print(f"  {what}, kernel against plain prefill, relative RMS "
+              f"(max-relative): " + ", ".join(
+                  f"{n} {rms:.2g} ({top:.2g})" for n, (rms, top) in d.items()))
+    print(f"  {first}'s conv state equal in bf16; float32 pair within "
+          f"{JAMBA_F32_TOL} relative RMS, bf16 logits within {JAMBA_TOL}; "
+          f"bf16 decode from the two caches: logits at most {dec_rms:.2g} "
+          f"relative RMS apart, tokens differing: {excused} of "
+          f"{b * JAMBA_DECODE}, near-ties; no scan launched while decoding")
+    del params
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=runs[1], plain_prefill_ms=plain_ms,
+                decode_ms=dec, launches=7)
+
+
+def serve_card_vs_cpu(TC, TLM, TSV, TO, CK, counters, dev, card):
+    """11c: reduced archs through ServeEngine on the card and with
+    device="cpu", then the CLI on a checkpoint the port wrote."""
+    import contextlib
+    import io
+    import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    for arch in SERVE_CPU_ARCHS:
+        cfg = TC.get_config(arch).reduced()
+        if arch == ARCH:
+            cfg = dataclasses.replace(cfg, mamba_pallas=True)
+        params_cpu = TLM.init_params(0, cfg, device="cpu")
+        params = TO.tree_map(lambda t: t.to(dev), params_cpu)
+        prompts = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        _zero(counters)
+        got = TSV.ServeEngine(cfg, params, 72, 2).generate(prompts, 8)
+        launches = _counts(counters)
+        want_scans = 7 if arch == ARCH else 0
+        require(launches == {**{k: 0 for k in counters},
+                             "selective_scan": want_scans},
+                f"{arch}: ServeEngine launched {launches}")
+        want = TSV.ServeEngine(cfg, params_cpu, 72, 2).generate(prompts, 8)
+        require(np.array_equal(got, want), f"{arch}: the card's tokens "
+                f"differ from the CPU's")
+        with torch.inference_mode():
+            lg, _ = TLM.prefill(params, torch.as_tensor(prompts, device=dev),
+                                TLM.init_cache(cfg, 2, 72, device=dev), cfg)
+            lc, _ = TLM.prefill(params_cpu, torch.as_tensor(prompts),
+                                TLM.init_cache(cfg, 2, 72, device="cpu"),
+                                cfg)
+        err = float((lg.cpu() - lc).abs().max())
+        top = float(lc.abs().max())
+        require(err <= SERVE_CPU_RTOL * top, f"{arch}: prefill logits, card "
+                f"against CPU: {err:.3g} over {SERVE_CPU_RTOL} of {top:.3g}")
+        print(f"  {arch} reduced: tokens (2, 64 + 8) equal to the CPU's, "
+              f"prefill logits max abs diff {err:.3g} of max {top:.3g}; "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+    cfg = TC.get_config(SERVE_ARCH).reduced()
+    params = TO.tree_map(lambda t: t * 1.5,
+                         TLM.init_params(0, cfg, device=dev))
+    with tempfile.TemporaryDirectory() as d:
+        CK.save_checkpoint(d, {"params": params}, 1)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = TSV.main(["--arch", SERVE_ARCH, "--reduced", "--ckpt-dir",
+                           d, "--device", "cuda", "--batch", "2",
+                           "--prompt-len", "8", "--new-tokens", "12"])
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    want = TSV.ServeEngine(cfg, params, 20, 2).generate(prompts, 12)
+    text = buf.getvalue()
+    require(rc == 0 and all(f"-> {want[i, 8:20].tolist()}..." in text
+                            for i in range(2)),
+            f"launch.serve.main --ckpt-dir did not serve the checkpoint's "
+            f"parameters: rc {rc}, output {text!r}")
+    print(f"  launch.serve.main --ckpt-dir on the card: exit 0, tokens of "
+          f"the checkpoint's parameters ({text.strip().splitlines()[-1]})")
+
+
+def serve_path(counters, dev, card):
+    """Phase 11; returns 11a's and 11b's figures."""
+    from repro_torch import configs as TC
+    from repro_torch.launch import serve as TSV
+    from repro_torch.models import lm as TLM
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import optimizer as TO
+    print("[serve] llama3.2-1b whole through ServeEngine (11a)")
+    llama = serve_llama(TC, TLM, TSV, TO, counters, dev, card)
+    print("[serve] one full-width jamba-v0.1-52b group: prefill with the "
+          "scan's end state against the plain loop, decode (11b)")
+    jamba = serve_jamba_group(TC, TLM, TO, counters, dev, card)
+    print("[serve] reduced archs, card against CPU, and the CLI on a "
+          "checkpoint (11c)")
+    serve_card_vs_cpu(TC, TLM, TSV, TO, CK, counters, dev, card)
+    return dict(llama=llama, jamba=jamba)
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3312,6 +3788,11 @@ def main(dev=None):
               imgs, big_u8, dev, card)
     print(f"[mesh] {time.perf_counter() - t10:.1f} s")
 
+    # -- 11. LM serving: prefill, decode and ServeEngine --------------------
+    t11 = time.perf_counter()
+    served = serve_path(counters, dev, card)
+    print(f"[serve] {time.perf_counter() - t11:.1f} s")
+
     kernels = [
         dict(name="histogram_bin", route="cuda",
              source="src/repro_torch/csrc/histogram_bin.cu",
@@ -3363,7 +3844,8 @@ def main(dev=None):
              **routes["fcm_fused_partials_batched"]),
         dict(name="selective_scan", route="cuda",
              source="src/repro_torch/csrc/selective_scan.cu",
-             replaces="src/repro/kernels/selective_scan.py:57", **k_scan),
+             replaces="src/repro/kernels/selective_scan.py:57",
+             prefill_launches=served["jamba"]["launches"], **k_scan),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

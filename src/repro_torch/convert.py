@@ -4,7 +4,8 @@ FCM has no weights: its state is the configuration (plain, FCM_S or
 superpixel), the problem arrays (rows or pixel grids, weights, init
 centers), the staged path's initial membership,
 the serving engine's histogram LRU, and a solve's result. The language
-models have parameters (:func:`lm_params_from_numpy`). These helpers
+models have parameters (:func:`lm_params_from_numpy`) and decode caches
+(:func:`lm_cache_from_numpy`). These helpers
 take and give plain numpy and Python values, so neither side imports
 the other.
 """
@@ -104,6 +105,21 @@ def cache_to_numpy(engine) -> List[CacheEntry]:
             for k, (v, h) in engine._cache.items()]
 
 
+def _unstack_groups(tree, cfg, dev: torch.device, what: str):
+    """A JAX tree stacked on a leading ``cfg.n_groups`` axis as a list of
+    ``cfg.n_groups`` trees of tensors on ``dev``."""
+    def conv(a, g):
+        if isinstance(a, dict):
+            return {k: conv(v, g) for k, v in a.items()}
+        arr = np.asarray(a)
+        if arr.shape[:1] != (cfg.n_groups,):
+            raise ValueError(f"a {what} leaf of shape {arr.shape} does not "
+                             f"lead with cfg.n_groups = {cfg.n_groups}")
+        return torch.from_numpy(np.array(arr[g])).to(dev)
+
+    return [conv(tree, g) for g in range(cfg.n_groups)]
+
+
 def lm_params_from_numpy(tree, cfg, device=None):
     """The port's language-model parameters from the JAX package's
     parameter pytree as numpy arrays (e.g. ``jax.tree.map(np.asarray,
@@ -114,17 +130,21 @@ def lm_params_from_numpy(tree, cfg, device=None):
     the card)."""
     dev = DV.resolve_device(device)
 
-    def conv(a, index=()):
+    def conv(a):
         if isinstance(a, dict):
-            return {k: conv(v, index) for k, v in a.items()}
-        arr = np.asarray(a)
-        if index and arr.shape[:1] != (cfg.n_groups,):
-            raise ValueError(f"a params['groups'] leaf of shape {arr.shape} "
-                             f"does not lead with cfg.n_groups = "
-                             f"{cfg.n_groups}")
-        return torch.from_numpy(np.array(arr[index])).to(dev)
+            return {k: conv(v) for k, v in a.items()}
+        return torch.from_numpy(np.array(a)).to(dev)
 
     out = {k: conv(v) for k, v in tree.items() if k != "groups"}
-    out["groups"] = [conv(tree["groups"], (g,))
-                     for g in range(cfg.n_groups)]
+    out["groups"] = _unstack_groups(tree["groups"], cfg, dev,
+                                    "params['groups']")
     return out
+
+
+def lm_cache_from_numpy(tree, cfg, device=None):
+    """The port's decode cache (:func:`repro_torch.models.lm.init_cache`'s
+    list, one ``{"b0": block cache, ...}`` a group) from the JAX package's
+    cache pytree as numpy arrays, stacked on a leading ``n_groups`` axis.
+    Leaves keep their dtype and land on ``device`` (``None`` = the
+    card)."""
+    return _unstack_groups(tree, cfg, DV.resolve_device(device), "cache")

@@ -25,15 +25,17 @@
 //      end(k), overwriting each end state with the state carried into the
 //      next chunk;
 //   3. chunk_walk<DS, true>: every chunk walks its positions again from its
-//      carried-in state (zero for the first) and writes y.
-// A single chunk (S <= L) takes launch 3 alone. Separate launches, and not
-// one launch with a decoupled look-back, because a look-back spins on
-// flags that earlier blocks publish and so needs those blocks resident or
-// already done, which the grid cannot promise at every width. B_t and C_t
-// reach shared memory kTile positions at a time, padded to the DS tier;
-// u and dt are read straight from device memory, coalesced along the
-// channels. The workspace, (B, n_c - 1, ds, di) end states and (B, n_c -
-// 1, di) dt sums, is allocated by the wrapper.
+//      carried-in state (zero for the first) and writes y; where the caller
+//      asks for the end state h_S (prefill), the threads of the last chunk
+//      store their state vector there, (B, di, ds), after their walk.
+// A single chunk (S <= L) takes launch 3 alone, and stores h_S alike.
+// Separate launches, and not one launch with a decoupled look-back, because
+// a look-back spins on flags that earlier blocks publish and so needs those
+// blocks resident or already done, which the grid cannot promise at every
+// width. B_t and C_t reach shared memory kTile positions at a time, padded
+// to the DS tier; u and dt are read straight from device memory, coalesced
+// along the channels. The workspace, (B, n_c - 1, ds, di) end states and
+// (B, n_c - 1, di) dt sums, is allocated by the wrapper.
 //
 // Arithmetic: da = 2^(dt * A log2 e) with the hardware's ex2.approx (one
 // special-function instruction), h = da * h + (dt * u) * b, compiled with
@@ -89,7 +91,7 @@ chunk_walk(const float* __restrict__ u, const float* __restrict__ dt,
            const float* __restrict__ bm, const float* __restrict__ cm,
            const float* __restrict__ a, int s, int di, int ds, int chunk,
            int n_c, float* __restrict__ hws, float* __restrict__ dws,
-           float* __restrict__ y) {
+           float* __restrict__ y, float* __restrict__ hout) {
   __shared__ __align__(16) float b_s[kTile][DS];
   __shared__ __align__(16) float c_s[OUT ? kTile : 1][DS];
   const int ch = blockIdx.x * kThreads + threadIdx.x;
@@ -186,6 +188,13 @@ chunk_walk(const float* __restrict__ u, const float* __restrict__ dt,
       if (j < ds) hws[(slot * ds + j) * di + ch] = h[j];
     dws[slot * di + ch] = dsum;
   }
+  // the end state, read by nothing else: one (B, di, ds) row a thread
+  if (OUT && live && hout != nullptr && k == n_c - 1) {
+    float* ho = hout + ((long long)bb * di + ch) * ds;
+#pragma unroll
+    for (int j = 0; j < DS; ++j)
+      if (j < ds) ho[j] = h[j];
+  }
 }
 
 // Launch 2: one thread a (batch, state, channel) carries the state across
@@ -223,12 +232,12 @@ chunk_carry(const float* __restrict__ a, int di, int ds, int n_c,
 template <int DS>
 int launch(const float* u, const float* dt, const float* bm, const float* cm,
            const float* a, int b, int s, int di, int ds, int chunk, float* hws,
-           float* dws, float* y, cudaStream_t st) {
+           float* dws, float* y, float* hout, cudaStream_t st) {
   const int n_c = (s + chunk - 1) / chunk;
   const unsigned gx = (unsigned)((di + kThreads - 1) / kThreads);
   if (n_c > 1) {
     chunk_walk<DS, false><<<dim3(gx, n_c - 1, b), kThreads, 0, st>>>(
-        u, dt, bm, cm, a, s, di, ds, chunk, n_c, hws, dws, y);
+        u, dt, bm, cm, a, s, di, ds, chunk, n_c, hws, dws, y, nullptr);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     chunk_carry<<<dim3(gx, ds, b), kThreads, 0, st>>>(a, di, ds, n_c, hws,
@@ -237,7 +246,7 @@ int launch(const float* u, const float* dt, const float* bm, const float* cm,
     if (err != cudaSuccess) return (int)err;
   }
   chunk_walk<DS, true><<<dim3(gx, n_c, b), kThreads, 0, st>>>(
-      u, dt, bm, cm, a, s, di, ds, chunk, n_c, hws, dws, y);
+      u, dt, bm, cm, a, s, di, ds, chunk, n_c, hws, dws, y, hout);
   return (int)cudaGetLastError();
 }
 
@@ -246,12 +255,14 @@ int launch(const float* u, const float* dt, const float* bm, const float* cm,
 // u, dt (B, S, di), bmat, cmat (B, S, ds), a (di, ds), float32 contiguous ->
 // y (B, S, di). 1 <= B <= 65535, S >= 1, di >= 1, 1 <= ds <= 32, chunk >= 1
 // with ceil(S / chunk) <= 65535; hws (B, n_c - 1, ds, di) and dws (B, n_c -
-// 1, di) float32 workspace, n_c = ceil(S / chunk) (unused when n_c == 1).
+// 1, di) float32 workspace, n_c = ceil(S / chunk) (unused when n_c == 1);
+// h_out (B, di, ds) float32 receives the end state h_S, or is null when the
+// caller does not want it (y's bits are the same either way).
 extern "C" int selective_scan_f32(const void* u, const void* dt,
                                   const void* bmat, const void* cmat,
                                   const void* a, int b, int s, int di, int ds,
                                   int chunk, void* hws, void* dws, void* y,
-                                  void* stream) {
+                                  void* h_out, void* stream) {
   if (b < 1 || b > 65535 || s < 1 || di < 1 || ds < 1 || ds > 32 ||
       chunk < 1 || (s + chunk - 1) / chunk > 65535)
     return (int)cudaErrorInvalidValue;
@@ -265,13 +276,17 @@ extern "C" int selective_scan_f32(const void* u, const void* dt,
   float* fh = (float*)hws;
   float* fd = (float*)dws;
   float* fy = (float*)y;
+  float* fo = (float*)h_out;
   cudaStream_t st = (cudaStream_t)stream;
   if (ds <= 4)
-    return launch<4>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, st);
+    return launch<4>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, fo,
+                     st);
   if (ds <= 8)
-    return launch<8>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, st);
+    return launch<8>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, fo,
+                     st);
   if (ds <= 16)
-    return launch<16>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy,
+    return launch<16>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, fo,
                       st);
-  return launch<32>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, st);
+  return launch<32>(fu, fdt, fb, fc, fa, b, s, di, ds, chunk, fh, fd, fy, fo,
+                    st);
 }

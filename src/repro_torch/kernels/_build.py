@@ -98,7 +98,7 @@ SIGNATURES = {
     "fcm_stencil_smem_bytes": (_I, _I, _I, _I, _I, _I),
     "fcm_stencil_active_clusters": (_I, _I, _I, _I, _I, _I, _I),
     "selective_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                           _P, _P),
+                           _P, _P, _P),
 }
 
 #: return types other than int

@@ -16,6 +16,12 @@ the chunks' end states carried across in order (a second), and each
 chunk walked again from its carried-in state to write y (a third); one
 chunk takes the last launch alone. A call is one count of
 ``selective_scan.launches`` whatever its number of CUDA launches.
+
+With ``return_state=True`` the call also returns the end state h_S,
+(B, di, ds) float32 (the layout of the Mamba state's ``"ssm"`` and of
+``repro_torch.models.ssm._ssm_scan``'s ``h_final``): the last launch's
+threads of the last chunk store it after their walk, so prefill takes the
+kernel with no launch added and ``y`` keeps its bits.
 """
 from __future__ import annotations
 
@@ -59,25 +65,28 @@ def workspace_shapes(b: int, s: int, di: int, ds: int, chunk: int):
     return (b, n_c - 1, ds, di), (b, n_c - 1, di)
 
 
-def selective_scan_ref(u, dt, bmat, cmat, a):
+def selective_scan_ref(u, dt, bmat, cmat, a, return_state: bool = False):
     """The plain PyTorch version: the recurrence of
     :func:`repro_torch.models.ssm._ssm_scan`, one position at a time,
     with zero initial state and no skip term (differentiable: the
-    Mamba layer's backward runs through it)."""
+    Mamba layer's backward runs through it). With ``return_state``:
+    ``(y, h_final)``."""
     from repro_torch.models.ssm import _ssm_scan
     b, _, di = u.shape
     h0 = torch.zeros((b, di, bmat.shape[-1]), dtype=torch.float32,
                      device=u.device)
-    y, _ = _ssm_scan(u, dt, bmat, cmat, a,
+    y, h = _ssm_scan(u, dt, bmat, cmat, a,
                      torch.zeros((di,), dtype=torch.float32,
                                  device=u.device), h0)
-    return y
+    return (y, h) if return_state else y
 
 
-def selective_scan(u, dt, bmat, cmat, a):
+def selective_scan(u, dt, bmat, cmat, a, return_state: bool = False):
     """``u``, ``dt`` (B, S, di), ``bmat``, ``cmat`` (B, S, ds), ``a``
-    (di, ds), float32 -> ``y`` (B, S, di) float32. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernels or raises."""
+    (di, ds), float32 -> ``y`` (B, S, di) float32, or ``(y, h_final)``
+    with ``return_state`` (``h_final`` (B, di, ds) float32, zero when S
+    is 0). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernels or raises."""
     if u.dim() != 3 or bmat.dim() != 3 or a.dim() != 2:
         raise ValueError("selective_scan takes u, dt (B, S, di), bmat, "
                          "cmat (B, S, ds), a (di, ds)")
@@ -92,7 +101,7 @@ def selective_scan(u, dt, bmat, cmat, a):
     if len({t.device for t in ins}) != 1:
         raise ValueError("selective_scan inputs must share one device")
     if u.device.type == "cpu":
-        return selective_scan_ref(u, dt, bmat, cmat, a)
+        return selective_scan_ref(u, dt, bmat, cmat, a, return_state)
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cpu or cuda, not "
                          f"{u.device}")
@@ -105,8 +114,12 @@ def selective_scan(u, dt, bmat, cmat, a):
                          f"{MAX_STATE} and 1 <= B <= 65535, got d_state="
                          f"{ds}, B={b}")
     y = torch.empty((b, s, di), dtype=torch.float32, device=u.device)
+    h = (torch.empty((b, di, ds), dtype=torch.float32, device=u.device)
+         if return_state else None)
     if s == 0 or di == 0:
-        return y
+        if h is not None:
+            h.zero_()
+        return (y, h) if return_state else y
     chunk = chunk_len(b, s, di, torch.cuda.get_device_properties(
         u.device).multi_processor_count)
     shapes = workspace_shapes(b, s, di, ds, chunk)
@@ -119,9 +132,10 @@ def selective_scan(u, dt, bmat, cmat, a):
             a.data_ptr(), b, s, di, ds, chunk,
             None if hws is None else hws.data_ptr(),
             None if dws is None else dws.data_ptr(), y.data_ptr(),
+            None if h is None else h.data_ptr(),
             _build.stream_of(u)), "selective_scan_f32")
     selective_scan.launches += 1
-    return y
+    return (y, h) if return_state else y
 
 
 #: wrapper calls that launched the kernels since the count was last set

@@ -5,7 +5,8 @@ Plain PyTorch ops that follow the JAX package's algorithm step for step
 (``repro/models/attention.py``), not a fused library kernel: the scores
 in float32, the max-subtracted exponentials in the compute dtype, the
 denominator summed in float32. Shapes: activations (B, S, D); q/k/v
-(B, H, S, hd). MLA and cross-attention are not ported yet.
+(B, H, S, hd); the GQA decode cache {"k", "v"} (B, Hkv, max_len, hd).
+MLA and cross-attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -136,10 +137,40 @@ def gqa_qkv(p, x, positions, cfg):
     return q, k, v
 
 
-def gqa_forward(p, x, positions, cfg, causal: bool = True):
-    """Train path (the JAX package's prefill also returns k and v)."""
+def gqa_forward(p, x, positions, cfg, causal: bool = True,
+                return_kv: bool = False):
+    """Train / prefill path; with ``return_kv``, ``(y, (k, v))``."""
     q, k, v = gqa_qkv(p, x, positions, cfg)
     out = grouped_attention(q, k, v, causal,
                             flash_threshold=cfg.flash_threshold,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], cfg.dtype))
+    y = torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], cfg.dtype))
+    return (y, (k, v)) if return_kv else y
+
+
+def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(p, x, cache, pos: int, cfg):
+    """One-token decode: x (B,1,D); cache k/v (B,Hkv,Smax,hd); pos the
+    new token's position. Returns ``(y, cache)``. The new K/V slot is
+    written in place, one (B, Hkv, 1, hd) write a step where the JAX
+    package copies the cache: the returned cache aliases the one passed
+    in."""
+    b, smax = x.shape[0], cache["k"].shape[2]
+    if not 0 <= pos < smax:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{smax} slots")
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = gqa_qkv(p, x, positions, cfg)
+    k, v = cache["k"], cache["v"]
+    k[:, :, pos:pos + 1] = k_new
+    v[:, :, pos:pos + 1] = v_new
+    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    out = grouped_attention(q, k, v, causal=False, kv_len=kv_len,
+                            flash_threshold=1 << 30)
+    y = torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], cfg.dtype))
+    return y, {"k": k, "v": v}

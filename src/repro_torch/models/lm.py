@@ -1,13 +1,19 @@
 """Model assembly: embedding, the loop over layer groups, final norm and
-head; the training forward.
+head. Three entry points a model:
+
+* :func:`forward`     -- the training path (full sequence, no cache);
+* :func:`prefill`     -- fills the decode cache, returns the last
+                         position's logits;
+* :func:`decode_step` -- one token with the cache.
 
 Parameters: ``{"embed": {"table"}, "groups": [group, ...],
 "final_norm": {"scale"}}``, a group being ``{"b0": block, ...}`` in the
-architecture's group layout. The JAX package stacks the groups on a
-leading axis for its ``lax.scan``; here they are a list and the scan is
-a Python loop (:func:`repro_torch.convert.lm_params_from_numpy` unstacks
-a JAX tree). ``prefill``, ``decode_step`` and the encoder are not ported
-yet.
+architecture's group layout; the decode cache is a list alike, one
+``{"b0": block cache, ...}`` a group. The JAX package stacks the groups
+on a leading axis for its ``lax.scan``; here they are lists and the
+scan is a Python loop (:func:`repro_torch.convert.lm_params_from_numpy`
+and :func:`~repro_torch.convert.lm_cache_from_numpy` unstack a JAX
+tree). The encoder and image memory are not ported yet.
 """
 from __future__ import annotations
 
@@ -82,14 +88,19 @@ def _scan_groups_remat(body, carry, groups, n_groups: int, remat: bool):
     return carry
 
 
+def _check_memoryless(cfg: ModelConfig, *inputs) -> None:
+    if cfg.is_encdec or cfg.n_img_tokens or any(
+            t is not None for t in inputs):
+        raise NotImplementedError("encoder-decoder and image-memory models "
+                                  "wait for a later slice of the port")
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             return_features: bool = False):
     """tokens (B, S) -> (logits (B, S, V) float32, aux_loss scalar). With
     ``return_features``: (features (B, S, D) after the final norm, aux),
     what the chunked cross-entropy consumes."""
-    if cfg.is_encdec or cfg.n_img_tokens:
-        raise NotImplementedError("encoder-decoder and image-memory models "
-                                  "wait for a later slice of the port")
+    _check_memoryless(cfg)
     x = L.embed(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)[None]
@@ -109,3 +120,56 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     if return_features:
         return x, aux
     return L.unembed(params["embed"], x, cfg.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The decode state, zeros on ``device`` (``None`` = the card): a
+    list of ``cfg.n_groups`` group caches."""
+    dev = DV.resolve_device(device)
+    return [{f"b{i}": B.init_block_cache(cfg, d, batch, max_len, dev)
+             for i, d in enumerate(cfg.group_layout)}
+            for _ in range(cfg.n_groups)]
+
+
+@torch.no_grad()
+def prefill(params, tokens: torch.Tensor, cache, cfg: ModelConfig,
+            memory=None, frames=None):
+    """Fills ``cache`` from a full prompt (B, S); returns (last-position
+    logits (B, 1, V) float32, cache). No gradient: the Mamba layers take
+    the selective-scan kernel's end-state form. The attention caches are
+    written in place, so the returned cache aliases ``cache``."""
+    _check_memoryless(cfg, memory, frames)
+    x = L.embed(params["embed"], tokens, cfg.dtype)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)[None]
+    new_cache = []
+    for gp, gc in zip(params["groups"], cache, strict=True):
+        new_gc = {}
+        for i, desc in enumerate(cfg.group_layout):
+            x, new_gc[f"b{i}"] = B.block_prefill(
+                gp[f"b{i}"], x, cfg, desc, gc[f"b{i}"], positions=positions)
+        new_cache.append(new_gc)
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg.dtype), new_cache
+
+
+@torch.no_grad()
+def decode_step(params, token: torch.Tensor, cache, pos: int,
+                cfg: ModelConfig):
+    """One new token (B, 1) given the cache at position ``pos``. Returns
+    (logits (B, 1, V) float32, cache); the attention caches are written
+    in place."""
+    x = L.embed(params["embed"], token, cfg.dtype)
+    new_cache = []
+    for gp, gc in zip(params["groups"], cache, strict=True):
+        new_gc = {}
+        for i, desc in enumerate(cfg.group_layout):
+            x, new_gc[f"b{i}"] = B.block_decode(gp[f"b{i}"], x, cfg, desc,
+                                                gc[f"b{i}"], pos=pos)
+        new_cache.append(new_gc)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg.dtype), new_cache

@@ -2,12 +2,23 @@
 
 An exact linear recurrence over time: the plain version is a Python
 loop over the sequence (:func:`_ssm_scan`, the JAX package's
-``lax.scan``); the training forward, with ``cfg.mamba_pallas`` set and
-no state carried in or out, runs the selective-scan kernel instead,
-under the same dispatch condition as the JAX package (``S % 64 == 0``
-and ``d_inner % 64 == 0``; the kernel itself takes any shape). The
-kernel has no backward: :class:`SelectiveScan` recomputes through the
-plain recurrence, as the JAX package's ``custom_vjp`` does. RWKV6 is not
+``lax.scan``). With ``cfg.mamba_pallas`` set and no state carried in,
+the selective-scan kernel runs instead, where ``S % 64 == 0`` and
+``d_inner % 64 == 0`` (the JAX package's shape condition; the kernel
+itself takes any shape):
+
+- the training forward through :class:`SelectiveScan`. The kernel has
+  no backward: the autograd function recomputes through the plain
+  recurrence, as the JAX package's ``custom_vjp`` does;
+- prefill (``return_state``, no gradient) through the kernel's end-state
+  form, ``selective_scan(..., return_state=True)``. Here the dispatch
+  differs from the JAX package's, which leaves its kernel for the
+  recurrence whenever the state is returned: the function is the same
+  (y and h_S of the same recurrence), but the port's plain form is a
+  Python loop of S steps, which a server cannot afford on every Mamba
+  layer of a prompt, where the JAX package's is one compiled loop.
+
+Decode (a state given, S = 1) keeps the plain recurrence. RWKV6 is not
 ported yet.
 
 State: {"ssm": (B, d_inner, d_state), "conv": (B, k - 1, d_inner)}.
@@ -104,6 +115,20 @@ class SelectiveScan(torch.autograd.Function):
             return torch.autograd.grad(y, ins, g)
 
 
+def _scan_with_state(u, dt, bmat, cmat, a):
+    """(y, h_final) of the zero-state recurrence from the selected
+    ``selscan`` impl: the kernel's end-state form on the card, the plain
+    recurrence on the CPU. For prefill: the kernel has no backward, so a
+    call that needs a gradient raises rather than drop it."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, dt, bmat, cmat, a)):
+        raise RuntimeError("the selective scan's end state has no backward; "
+                           "run prefill under torch.no_grad()")
+    impl = kops.select_step("selscan", platform=u.device.type)
+    return impl.build()(u.contiguous(), dt.contiguous(), bmat.contiguous(),
+                        cmat.contiguous(), a.contiguous(), return_state=True)
+
+
 def _softplus(x):
     """log(1 + e^x) as jax.nn.softplus forms it (no linear threshold)."""
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -130,13 +155,16 @@ def mamba_forward(p, x, cfg, state=None, return_state: bool = False):
     h0 = (state["ssm"] if state is not None
           else torch.zeros((b, di, ds), dtype=torch.float32,
                            device=x.device))
-    if (cfg.mamba_pallas and state is None and not return_state
-            and s % 64 == 0 and di % 64 == 0):
+    if (cfg.mamba_pallas and state is None and s % 64 == 0
+            and di % 64 == 0):
         xc32 = xc.to(torch.float32)
-        y = (SelectiveScan.apply(xc32, dt, bmat.to(torch.float32),
-                                 cmat.to(torch.float32), a)
-             + p["d_skip"] * xc32)
-        h_f = h0
+        scan_in = (xc32, dt, bmat.to(torch.float32), cmat.to(torch.float32),
+                   a)
+        if return_state:
+            y, h_f = _scan_with_state(*scan_in)
+        else:
+            y, h_f = SelectiveScan.apply(*scan_in), h0
+        y = y + p["d_skip"] * xc32
     else:
         y, h_f = _ssm_scan(xc, dt, bmat.to(torch.float32),
                            cmat.to(torch.float32), a, p["d_skip"], h0)

@@ -929,6 +929,56 @@ def test_chunked_scan_where_the_decay_underflows_within_a_chunk(dev):
     assert torch.equal(y, KSS.selective_scan(*ins))
 
 
+@pytest.mark.parametrize("b,s,di,ds", [
+    (2, 128, 128, 4),                # 4 chunks: the store after the carry
+    (1, 100, 96, 8),                 # ragged: the last chunk holds 4
+    (1, 24, 256, 16)])               # one chunk: the one launch stores it
+def test_scan_end_state_matches_plain_and_keeps_y(dev, b, s, di, ds,
+                                                   monkeypatch):
+    """(y, h_S) against the plain recurrence; y bit-equal to a call
+    without the state; one library call a wrapper call."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    real, calls = lib.selective_scan_f32, []
+    monkeypatch.setattr(lib, "selective_scan_f32",
+                        lambda *a: calls.append(a) or real(*a))
+    ins = _scan_inputs(b, s, di, ds, seed=s + di + ds)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (KSS.chunk_len(b, s, di, sm) == s) == (s == 24)
+    before = KSS.selective_scan.launches
+    y, h = KSS.selective_scan(*ins, return_state=True)
+    assert KSS.selective_scan.launches == before + 1 and len(calls) == 1
+    assert h.shape == (b, di, ds) and h.dtype == torch.float32
+    assert torch.equal(y, KSS.selective_scan(*ins))
+    assert len(calls) == 2 and calls[1][13] is None
+    want_y, want_h = KSS.selective_scan_ref(*ins, return_state=True)
+    err = float((y - want_y).abs().max())
+    assert err <= 1e-4 * float(want_y.abs().max()), err
+    err = float((h - want_h).abs().max())
+    assert err <= 1e-4 * float(want_h.abs().max()), err
+
+
+def test_reduced_jamba_serves_on_the_card_like_the_cpu(dev):
+    """Prefill through the kernel's end state (7 scans a group), decode
+    through the plain recurrence; tokens equal to the CPU engine's."""
+    import dataclasses
+    from repro_torch import configs as TC
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import lm as TLM
+    from repro_torch.training import optimizer as TO
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(TC.get_config("jamba-v0.1-52b").reduced(),
+                              mamba_pallas=True)
+    params = TLM.init_params(0, cfg, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+    before = KSS.selective_scan.launches
+    got = ServeEngine(cfg, TO.tree_map(lambda t: t.to(dev), params), 72,
+                      2).generate(prompts, 8)
+    assert KSS.selective_scan.launches - before == 7
+    want = ServeEngine(cfg, params, 72, 2).generate(prompts, 8)
+    np.testing.assert_array_equal(got, want)
+
+
 def _fit_edge(w, neighbors=8):
     """Rows h of a (h, w) lane: the last on the chip, the first off it."""
     h = 1

@@ -9,8 +9,10 @@ import torch
 
 from repro_torch import configs as TC
 from repro_torch.core import solver as TS
+from repro_torch.launch import serve as TSV
 from repro_torch.models import lm as TLM
 from repro_torch.serving import FCMServeEngine
+from repro_torch.training import checkpoint as TCK  # noqa: F401
 from repro_torch.training import train_loop as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -43,7 +45,8 @@ def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"fcm_engine.py", "solver.py", "ops.py", "chip_smoke.py",
             "ssm.py", "train_loop.py", "selective_scan.py", "distributed.py",
-            "batched.py", "ref.py"} <= names
+            "batched.py", "ref.py", "serve.py", "checkpoint.py",
+            "engine.py"} <= names
     assert not _forbidden("repro_torch.core")
     assert _forbidden("repro.core.solver") and _forbidden("jax.numpy")
 
@@ -54,8 +57,10 @@ def test_scan_covers_the_port():
     lambda: TS.FCMProblem(features=torch.zeros(8)),
     lambda: TLM.init_params(0, TC.get_config("jamba-v0.1-52b").reduced()),
     lambda: TT.init_state(0, TC.get_config("jamba-v0.1-52b").reduced()),
+    lambda: TLM.init_cache(TC.get_config("llama3.2-1b").reduced(), 1, 8),
+    lambda: TSV.main(["--arch", "llama3.2-1b", "--reduced"]),
 ], ids=["engine", "histogram_problem", "FCMProblem", "lm.init_params",
-        "train_loop.init_state"])
+        "train_loop.init_state", "lm.init_cache", "launch.serve.main"])
 def test_entry_points_raise_without_a_card(monkeypatch, make):
     """Asked for no device on a machine without CUDA, an entry point
     raises instead of running on the CPU."""
