@@ -138,7 +138,31 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    reduced llama3.2-1b, granite-moe-3b-a800m and jamba-v0.1-52b through
    ``ServeEngine`` on the card against ``device="cpu"`` (tokens equal,
    prefill logits within 1e-4), and ``launch.serve.main --ckpt-dir`` on a
-   checkpoint the port's ``save_checkpoint`` wrote.
+   checkpoint the port's ``save_checkpoint`` wrote;
+12. archs: the four architectures past GQA and Mamba in bf16 compute on
+   float32 masters drawn on the card, each freed before the next, every
+   run with the launch counts set to 0 just before and read just after
+   (no kernel of the table lies on these paths): 12a rwkv6-1.6b whole
+   (24 layers) through ``ServeEngine`` at batch 4, prompt 512 and 32
+   greedy tokens, each step's logits against the teacher-forced
+   ``forward`` (within SERVE_LOGIT_TOL of the position's max |logit|,
+   tokens equal but at counted near-ties), with prefill and decode ms,
+   tokens/s, peak memory and the wkv loop's share of a prefill; 12b one
+   full-width deepseek-v2-236b group (MLA, 160 experts top-6 + 2 shared,
+   capacity raised to drop-free) prefilled at (2, 1024) and 16 greedy
+   tokens through the absorbed ``mla_decode``, held against the
+   forward's decompressed attention, with the cache's bytes a token and
+   layer beside the decompressed K/V's; 12c whisper-tiny whole on frames
+   (4, 1500, 384) through ``ServeEngine`` at prompt 64 and 64 tokens, its
+   prefill's cross K/V 1500 long; 12d one full-width
+   llama-3.2-vision-90b group (the gated cross block and four self
+   blocks), its gate opened to 0.5, on memory (2, 1601, 8192), prefilled
+   at (2, 512) and 16 greedy tokens, and the gate at 0 giving other
+   logits; 12e the four at their reduced configs on the card against
+   ``device="cpu"`` (tokens equal, prefill and decode logits within
+   SERVE_CPU_RTOL, two ``make_train_step`` steps' losses and every
+   parameter and moment leaf within TRAIN_RTOL) and ``launch.serve.main
+   --reduced`` on the card.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -3506,6 +3530,639 @@ def serve_path(counters, dev, card):
     return dict(llama=llama, jamba=jamba)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: RWKV6, MLA, the whisper encoder and gated cross-attention
+# ---------------------------------------------------------------------------
+
+#: 12a: rwkv6-1.6b whole through ServeEngine: batch, prompt, new tokens
+RWKV_SERVE = (4, 512, 32)
+#: 12a, 12b, float32 compute (TF32 off): a decode step's logits against the
+#: teacher-forced forward's, as a share of the position's max |logit|. In
+#: bf16 the recurrent state carries each step's roundings on: on an H100
+#: the bf16 decode's logits drifted from the forward's by 0.03 of the max
+#: at step 1 to 0.42 at step 31 (24 layers; 0.004 at one layer, 0.02-0.03
+#: at four), while the float32 pair agreed within 3e-4 at every step. So
+#: bf16 holds the prefill's logits at SERVE_LOGIT_TOL and prints its
+#: decode drift; float32 holds every step and the tokens at this share
+F32_TOL = 1e-3
+#: 12b, bf16: a position whose top-6 expert set differs between the cache
+#: path and the forward (a near-tie in the router's float32 probabilities,
+#: flipped by one bf16 rounding upstream) takes another sixth of its FFN:
+#: on an H100, every 12b position over SERVE_LOGIT_TOL (5 of 32, up to
+#: 0.17 of the max |logit|) was such a position, the others within 0.015,
+#: and the float32 pair routed every position alike within 5e-5. So bf16
+#: holds the positions routed alike at SERVE_LOGIT_TOL and counts the
+#: others; float32 holds every position at F32_TOL, all routed alike
+#: 12b: one full-width deepseek-v2-236b group: prefill (B, S), decode steps
+MLA_PREFILL, MLA_DECODE = (2, 1024), 16
+#: 12c: whisper-tiny whole (4 + 4 layers): batch, frames (its encoder's
+#: 30-second window at 50 frames a second), prompt, new tokens
+WHISPER_SERVE = (4, 1500, 64, 64)
+#: 12d: one full-width llama-3.2-vision-90b group (the gated cross block
+#: and four self blocks): prefill (B, S), decode steps
+VISION_PREFILL, VISION_DECODE = (2, 512), 16
+#: 12d, 12e: every tanh gate is opened to this before a run (a gate at
+#: its initial 0 makes a cross block add nothing)
+GATE_OPEN = 0.5
+#: 12e: the four archs at their reduced configs, card against CPU
+ARCHS12 = ("rwkv6-1.6b", "deepseek-v2-236b", "whisper-tiny",
+           "llama-3.2-vision-90b")
+
+
+def _draw(TLM, TO, cfg, dev, what):
+    t0 = time.perf_counter()
+    params = TLM.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in TO.tree_leaves(params))
+    enc = f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else ""
+    print(f"  {what}: {cfg.n_layers} layers{enc}, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n / 1e9:.3f} B float32 parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{str(cfg.dtype).split('.')[-1]} compute")
+    return params
+
+
+def _set_gates(params, value):
+    """Every tanh gate of ``params`` set to ``value``; returns how many."""
+    n = 0
+    for group in params["groups"]:
+        for blk in group.values():
+            for sub in ("mixer", "cross"):
+                if sub in blk and "gate" in blk[sub]:
+                    blk[sub]["gate"].fill_(value)
+                    n += 1
+    return n
+
+
+def _greedy(TLM, params, cfg, prompt, n_new, extra):
+    """Prefill ``prompt`` (B, P) and decode ``n_new - 1`` greedy steps, each
+    timed to a synchronize. Returns (tokens (B, P + n_new), the logits
+    each new token was drawn from (B, n_new, V), prefill ms, step ms, the
+    cache)."""
+    b, plen = prompt.shape
+    with torch.inference_mode():
+        cache = TLM.init_cache(cfg, b, plen + n_new, device=prompt.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TLM.prefill(params, prompt, cache, cfg, **extra)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps, step_ms = [logits[:, 0]], []
+        toks = [prompt, logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+        for i in range(1, n_new):
+            t0 = time.perf_counter()
+            logits, cache = TLM.decode_step(params, toks[-1], cache,
+                                            plen + i - 1, cfg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits[:, 0])
+            toks.append(logits[:, -1].argmax(-1, keepdim=True).to(
+                torch.int32))
+    return (torch.cat(toks, dim=1), torch.stack(steps, dim=1), prefill_ms,
+            step_ms, cache)
+
+
+def _hold_to_forward(TLM, params, cfg, toks, dec, extra, what):
+    """The cache path's logits ``dec`` (B, N, V), drawn at the last N
+    positions of ``toks``, against the teacher-forced forward of the same
+    stream: within SERVE_LOGIT_TOL of each position's max |logit|, tokens
+    equal to its argmax but at counted near-ties. Returns (worst share,
+    tokens excused)."""
+    plen = toks.shape[1] - dec.shape[1]
+    with torch.inference_mode():
+        full, _ = TLM.forward(params, toks[:, :-1], cfg, **extra)
+        ref = full[:, plen - 1:].float()
+        del full
+        worst = float(((dec - ref).abs().amax(-1)
+                       / ref.abs().amax(-1)).max())
+        require(bool(torch.isfinite(dec).all()) and worst <= SERVE_LOGIT_TOL,
+                f"{what}: decode logits against the forward: {worst:.3g} of "
+                f"the position's max |logit|, over {SERVE_LOGIT_TOL}")
+        excused = _near_tie_tokens(toks[:, plen:], ref, SERVE_LOGIT_TOL,
+                                   f"{what} tokens against the forward")
+    return worst, excused
+
+
+def _no_launches(counters, what):
+    launches = _counts(counters)
+    require(sum(launches.values()) == 0, f"{what} launched {launches}: no "
+            f"kernel of the table lies on this path")
+
+
+def _decode_line(what, b, n_new, prefill_ms, step_ms, worst, excused, peak,
+                 card):
+    dec = float(np.median(step_ms))
+    print(f"  {what}: prefill {prefill_ms:.1f} ms, decode {dec:.2f} ms a "
+          f"token (median of {len(step_ms)}; {min(step_ms):.2f}-"
+          f"{max(step_ms):.2f}), {b / dec * 1e3:.1f} tokens/s decoding; "
+          f"logits against the teacher-forced forward: worst {worst:.3g} of "
+          f"the position's max |logit| (bound {SERVE_LOGIT_TOL}), tokens "
+          f"differing from its argmax {excused} of {b * n_new}, each a "
+          f"near-tie; peak {peak / 2**30:.2f} GiB allocated; launches none "
+          f"[{card}]")
+    return dec
+
+
+def _engine_run(TSV, params, cfg, prompts, n_new, extra, counters, what):
+    """A warm-up, then one timed greedy ServeEngine.generate with the
+    launch counts set to 0 just before and read just after. Returns
+    (tokens, seconds, peak bytes allocated)."""
+    b, plen = prompts.shape
+    eng = TSV.ServeEngine(cfg, params, max_len=plen + n_new, batch_size=b)
+    eng.generate(prompts, 2, extra_inputs=extra)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, n_new, extra_inputs=extra)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    _no_launches(counters, f"{what} ServeEngine.generate")
+    require(out.shape == (b, plen + n_new)
+            and np.array_equal(out[:, :plen], prompts)
+            and ((out >= 0) & (out < cfg.vocab_size)).all(),
+            f"{what}: ServeEngine.generate returned a malformed batch")
+    return out, t_gen, torch.cuda.max_memory_allocated()
+
+
+def _wkv_share(TLM, S, params, cfg, prompt):
+    """One prefill of ``prompt`` with CUDA events around each _wkv_scan:
+    (the loops' summed spans in ms, the prefill's ms, loops seen)."""
+    spans, real = [], S._wkv_scan
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    S._wkv_scan = timed
+    try:
+        with torch.inference_mode():
+            cache = TLM.init_cache(cfg, prompt.shape[0], prompt.shape[1],
+                                   device=prompt.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            TLM.prefill(params, prompt, cache, cfg)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+    finally:
+        S._wkv_scan = real
+    return sum(a.elapsed_time(z) for a, z in spans), total, len(spans)
+
+
+def serve_rwkv6(TC, TLM, TSV, TO, S, counters, dev, card):
+    """12a: rwkv6-1.6b whole through ServeEngine in bf16 (timed), its
+    cache path held against the teacher-forced forward: every step in
+    float32 compute, the prefill's logits in bf16 (see F32_TOL); the
+    wkv loop's share of a prefill."""
+    cfg = TC.get_config("rwkv6-1.6b")
+    params = _draw(TLM, TO, cfg, dev, cfg.name)
+    b, plen, n_new = RWKV_SERVE
+    prompts = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (b, plen)).astype(np.int32)
+    out, t_gen, peak = _engine_run(TSV, params, cfg, prompts, n_new, {},
+                                   counters, "12a")
+    prompt = torch.as_tensor(prompts, device=dev)
+    toks, dec, prefill_ms, step_ms, _ = _greedy(TLM, params, cfg, prompt,
+                                                n_new, {})
+    require(np.array_equal(toks.cpu().numpy(), out), "12a: the engine's "
+            "tokens differ from the same prefill and greedy steps run again")
+    with torch.inference_mode():
+        full, _ = TLM.forward(params, toks[:, :-1], cfg)
+        ref = full[:, plen - 1:].float()
+        del full
+        share = ((dec - ref).abs().amax(-1) / ref.abs().amax(-1)).amax(0)
+        differ = int((toks[:, plen:] != ref.argmax(-1)).sum())
+        del ref
+    require(bool(torch.isfinite(dec).all())
+            and float(share[0]) <= SERVE_LOGIT_TOL, f"12a bf16: the "
+            f"prefill's logits against the forward: {float(share[0]):.3g} of "
+            f"the max |logit|, over {SERVE_LOGIT_TOL}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    toks32, dec32, prefill32, step32, _ = _greedy(TLM, params, f32, prompt,
+                                                  n_new, {})
+    worst32 = 0.0
+    with torch.inference_mode():
+        full, _ = TLM.forward(params, toks32[:, :-1], f32)
+        ref = full[:, plen - 1:]
+        del full
+        worst32 = float(((dec32 - ref).abs().amax(-1)
+                         / ref.abs().amax(-1)).max())
+        require(worst32 <= F32_TOL, f"12a float32 compute: decode logits "
+                f"against the forward: {worst32:.3g} of the position's max "
+                f"|logit|, over {F32_TOL}")
+        excused = _near_tie_tokens(toks32[:, plen:], ref, F32_TOL,
+                                   "12a float32 tokens against the forward")
+        del ref
+    wkv_ms, share_ms, loops = _wkv_share(TLM, S, params, cfg, prompt)
+    require(loops == cfg.n_layers, f"12a: {loops} wkv loops in a prefill of "
+            f"{cfg.n_layers} layers")
+    dec_ms = float(np.median(step_ms))
+    print(f"  {cfg.name} ServeEngine (B, prompt, new)=({b}, {plen}, {n_new}) "
+          f"greedy, bf16: {t_gen * 1e3:.1f} ms, {b * n_new / t_gen:.1f} "
+          f"tokens/s; prefill {prefill_ms:.1f} ms, decode {dec_ms:.2f} ms a "
+          f"token (median of {len(step_ms)}; {min(step_ms):.2f}-"
+          f"{max(step_ms):.2f}), {b / dec_ms * 1e3:.1f} tokens/s decoding; "
+          f"peak {peak / 2**30:.2f} GiB allocated; launches none [{card}]")
+    print(f"  bf16 against the teacher-forced forward, share of the "
+          f"position's max |logit|: prefill {float(share[0]):.3g} (bound "
+          f"{SERVE_LOGIT_TOL}), decode steps "
+          + " / ".join(f"{i}: {float(share[i]):.3g}"
+                       for i in (1, n_new // 4, n_new // 2, n_new - 1))
+          + f"; tokens differing from its argmax {differ} of {b * n_new}")
+    print(f"  float32 compute (TF32 off): prefill {prefill32:.1f} ms, decode "
+          f"{float(np.median(step32)):.2f} ms a token; every step within "
+          f"{worst32:.3g} of the position's max |logit| of the forward (bound "
+          f"{F32_TOL}), tokens differing from its argmax {excused} of "
+          f"{b * n_new}, each a near-tie [{card}]")
+    print(f"  the wkv loop in a bf16 prefill of ({b}, {plen}): {wkv_ms:.1f} ms "
+          f"of {share_ms:.1f} ms ({100 * wkv_ms / share_ms:.1f} %), {loops} "
+          f"loops of {plen} steps (CUDA events around each _wkv_scan) "
+          f"[{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, decode_ms=dec_ms, wkv_ms=wkv_ms,
+                wkv_share=wkv_ms / share_ms, tokens_per_s=b * n_new / t_gen,
+                bf16_last_share=float(share[-1]), f32_worst=worst32)
+
+
+class _RouteLog:
+    """Records the top-k expert ids of every MoE routing call (the MoE
+    module's ``_route``) while open."""
+
+    def __init__(self, M):
+        self.M, self.real, self.ids = M, M._route, []
+
+    def __enter__(self):
+        def rec(xf, w, cfg):
+            idx, gates, aux = self.real(xf, w, cfg)
+            self.ids.append(torch.sort(idx, dim=-1).values)
+            return idx, gates, aux
+        self.M._route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.M._route = self.real
+
+
+def _mla_pair(TLM, M, params, cfg, prompt, n_new):
+    """12b's cache path and teacher-forced forward in ``cfg.dtype``:
+    (tokens, each step's logits share of the forward's max |logit| (B,
+    N), positions routed to another expert set (B, N), the forward's
+    logits, prefill ms, step ms, the cache, peak bytes)."""
+    b, plen = prompt.shape
+    torch.cuda.reset_peak_memory_stats()
+    with _RouteLog(M) as log:
+        toks, dec, prefill_ms, step_ms, cache = _greedy(
+            TLM, params, cfg, prompt, n_new, {})
+    peak = torch.cuda.max_memory_allocated()
+    cached = torch.cat([log.ids[0].reshape(b, plen, -1)[:, -1:]]
+                       + [i.reshape(b, 1, -1) for i in log.ids[1:]], dim=1)
+    with _RouteLog(M) as log, torch.inference_mode():
+        full, _ = TLM.forward(params, toks[:, :-1], cfg)
+        ref = full[:, plen - 1:].float()
+        del full
+    fwd = log.ids[0].reshape(b, toks.shape[1] - 1, -1)[:, plen - 1:]
+    flips = (cached != fwd).any(-1)
+    share = (dec - ref).abs().amax(-1) / ref.abs().amax(-1)
+    require(bool(torch.isfinite(dec).all()), f"12b {cfg.dtype}: non-finite "
+            f"logits")
+    return toks, share, flips, ref, prefill_ms, step_ms, cache, peak
+
+
+def serve_mla_group(TC, TLM, TO, counters, dev, card):
+    """12b: one full-width deepseek-v2-236b group (MLA and a 160-expert
+    MoE): prefill, then greedy decode through the absorbed mla_decode, held
+    against the forward's decompressed attention: in bf16 at the positions
+    routed alike, in float32 compute at every position (see the comment
+    on MLA_PREFILL)."""
+    from repro_torch.models import moe as M
+    full = TC.get_config("deepseek-v2-236b")
+    e = full.moe
+    # drop-free: the first-come capacity policy drops (token, slot) pairs
+    # by token order, so a forward over S + n positions and a prefill over
+    # S drop different pairs; with capacity >= the tokens, neither drops
+    cf = e.n_experts / e.top_k * 1.001
+    cfg = dataclasses.replace(full, n_layers=1, moe=dataclasses.replace(
+        e, capacity_factor=cf))
+    print(f"  cut: 1 of {full.n_layers} layers (one group); MoE "
+          f"capacity_factor {e.capacity_factor} -> {cf:.4g} (drop-free)")
+    params = _draw(TLM, TO, cfg, dev, cfg.name + ", one group")
+    b, s = MLA_PREFILL
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev, dtype=torch.int32)
+    _greedy(TLM, params, cfg, prompt[:, :64], 2, {})      # warm-up
+    _zero(counters)
+    toks, share, flips, ref, prefill_ms, step_ms, cache, peak = _mla_pair(
+        TLM, M, params, cfg, prompt, MLA_DECODE)
+    _no_launches(counters, "12b prefill and decode")
+    kept = share[~flips]
+    worst = float(kept.max()) if kept.numel() else 0.0
+    require(worst <= SERVE_LOGIT_TOL, f"12b bf16: decode logits against the "
+            f"forward at positions routed alike: {worst:.3g} of the "
+            f"position's max |logit|, over {SERVE_LOGIT_TOL}")
+    top2 = ref.topk(2, dim=-1).values
+    differ = toks[:, s:] != ref.argmax(-1)
+    bad = differ & ~flips & (top2[..., 0] - top2[..., 1]
+                             > 2 * SERVE_LOGIT_TOL * ref.abs().amax(-1))
+    require(not bool(bad.any()), f"12b bf16: {int(bad.sum())} tokens differ "
+            f"from the forward's argmax outside a near-tie or a rerouted "
+            f"position")
+    routed_off = float(share[flips].max()) if bool(flips.any()) else 0.0
+    attn = cache[0]["b0"]["attn"]
+    require(set(attn) == {"c_kv", "k_rope"}, f"12b: the MLA cache holds "
+            f"{sorted(attn)}")
+    per_tok = sum(t.shape[-1] * t.element_size() for t in attn.values())
+    m = cfg.mla
+    values = m.kv_lora_rank + m.qk_rope_head_dim
+    decomp = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                            + m.v_head_dim) * attn["c_kv"].element_size()
+    require(per_tok == values * attn["c_kv"].element_size(),
+            f"12b: {per_tok} cache bytes a token and layer, expected "
+            f"{values} values")
+    del cache, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    toks32, share32, flips32, ref32, prefill32, step32, _, _ = _mla_pair(
+        TLM, M, params, f32, prompt, MLA_DECODE)
+    worst32 = float(share32.max())
+    require(worst32 <= F32_TOL and not bool(flips32.any()), f"12b float32 "
+            f"compute: decode logits against the forward: {worst32:.3g} of "
+            f"the position's max |logit| (bound {F32_TOL}), "
+            f"{int(flips32.sum())} positions routed otherwise")
+    excused32 = _near_tie_tokens(toks32[:, s:], ref32, F32_TOL,
+                                 "12b float32 tokens against the forward")
+    del ref32
+    dec_ms = float(np.median(step_ms))
+    print(f"  prefill (B, S)=({b}, {s}) + {MLA_DECODE} greedy tokens, bf16: "
+          f"prefill {prefill_ms:.1f} ms, absorbed decode {dec_ms:.2f} ms a "
+          f"token (median of {len(step_ms)}; {min(step_ms):.2f}-"
+          f"{max(step_ms):.2f}), {b / dec_ms * 1e3:.1f} tokens/s decoding; "
+          f"peak {peak / 2**30:.2f} GiB allocated; launches none [{card}]")
+    print(f"  bf16 against the teacher-forced forward (decompressed): worst "
+          f"{worst:.3g} of the position's max |logit| at the {int(kept.numel())}"
+          f" positions routed alike (bound {SERVE_LOGIT_TOL}); "
+          f"{int(flips.sum())} of {flips.numel()} positions routed to another "
+          f"expert set (worst {routed_off:.3g} there); tokens differing from "
+          f"its argmax {int(differ.sum())}, each a near-tie or rerouted")
+    print(f"  float32 compute (TF32 off): prefill {prefill32:.1f} ms, decode "
+          f"{float(np.median(step32)):.2f} ms a token; every step within "
+          f"{worst32:.3g} of the forward (bound {F32_TOL}), every position "
+          f"routed alike, tokens differing {excused32}, each a near-tie "
+          f"[{card}]")
+    print(f"  MLA cache: {per_tok} bytes a token and layer (c_kv "
+          f"{m.kv_lora_rank} + k_rope {m.qk_rope_head_dim} = {values} "
+          f"{str(cfg.dtype).split('.')[-1]} values, read off the cache); "
+          f"decompressed K and V of {cfg.n_heads} heads would take {decomp} "
+          f"bytes ({decomp / per_tok:.1f}x)")
+    del params
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, decode_ms=dec_ms,
+                cache_bytes=per_tok, decompressed_bytes=decomp,
+                rerouted=int(flips.sum()))
+
+
+def serve_whisper(TC, TLM, TSV, TO, counters, dev, card):
+    """12c: whisper-tiny whole on 30-second frames through ServeEngine:
+    the prefill's cross K/V hold the frames' length, and each step's
+    logits are held against the teacher-forced forward."""
+    cfg = TC.get_config("whisper-tiny")
+    params = _draw(TLM, TO, cfg, dev, cfg.name)
+    b, n_frames, plen, n_new = WHISPER_SERVE
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, cfg.vocab_size, (b, plen)).astype(np.int32)
+    extra = {"frames": torch.as_tensor(rng.standard_normal(
+        (b, n_frames, cfg.d_model)), dtype=torch.float32, device=dev)}
+    out, t_gen, peak = _engine_run(TSV, params, cfg, prompts, n_new, extra,
+                                   counters, "12c")
+    toks, dec, prefill_ms, step_ms, cache = _greedy(
+        TLM, params, cfg, torch.as_tensor(prompts, device=dev), n_new, extra)
+    require(np.array_equal(toks.cpu().numpy(), out), "12c: the engine's "
+            "tokens differ from the same prefill and greedy steps run again")
+    shapes = {tuple(gc["b0"]["cross_kv"][k].shape) for gc in cache
+              for k in ("k", "v")}
+    want = (b, cfg.n_kv_heads, n_frames, cfg.head_dim)
+    require(shapes == {want}, f"12c: the prefill's cross K/V are {shapes}, "
+            f"expected {want} (the frames' length, not max_len "
+            f"{plen + n_new})")
+    worst, excused = _hold_to_forward(TLM, params, cfg, toks, dec, extra,
+                                      "12c")
+    dec_ms = _decode_line(f"{cfg.name} ServeEngine (B, frames, prompt, new)="
+                          f"({b}, {n_frames}, {plen}, {n_new}) greedy in "
+                          f"{t_gen * 1e3:.1f} ms, "
+                          f"{b * n_new / t_gen:.1f} tokens/s", b, n_new,
+                          prefill_ms, step_ms, worst, excused, peak, card)
+    print(f"  cross K/V after prefill: {want} in each of {cfg.n_groups} "
+          f"decoder layers (the {n_frames} frames, not max_len "
+          f"{plen + n_new})")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, decode_ms=dec_ms,
+                tokens_per_s=b * n_new / t_gen)
+
+
+def serve_vision_group(TC, TLM, TO, counters, dev, card):
+    """12d: one full-width llama-3.2-vision-90b group, its gate opened, on
+    seeded image memory: prefill and greedy decode held against the
+    forward; the gate at 0 gives other logits."""
+    full = TC.get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=len(full.group_layout))
+    print(f"  cut: {cfg.n_layers} of {full.n_layers} layers (one group)")
+    params = _draw(TLM, TO, cfg, dev, cfg.name + ", one group")
+    opened = _set_gates(params, GATE_OPEN)
+    require(opened == 1, f"12d: {opened} gates in one group")
+    b, s = VISION_PREFILL
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=dev, dtype=torch.int32)
+    extra = {"memory": torch.randn((b, cfg.n_img_tokens, cfg.d_model),
+                                   generator=g, device=dev).to(cfg.dtype)}
+    _greedy(TLM, params, cfg, prompt[:, :64], 2, extra)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    toks, dec, prefill_ms, step_ms, _ = _greedy(
+        TLM, params, cfg, prompt, VISION_DECODE, extra)
+    _no_launches(counters, "12d prefill and decode")
+    peak = torch.cuda.max_memory_allocated()
+    worst, excused = _hold_to_forward(TLM, params, cfg, toks, dec, extra,
+                                      "12d")
+    _set_gates(params, 0.0)
+    with torch.inference_mode():
+        closed, _ = TLM.prefill(params, prompt, TLM.init_cache(
+            cfg, b, s, device=dev), cfg, **extra)
+    moved = _rms_rel(closed[:, 0], dec[:, 0])
+    require(moved > 1e-3, f"12d: the gate at 0 and at {GATE_OPEN} give "
+            f"logits {moved:.3g} apart (relative RMS): the cross block "
+            f"reads nothing")
+    dec_ms = _decode_line(f"prefill (B, S)=({b}, {s}) on memory ({b}, "
+                          f"{cfg.n_img_tokens}, {cfg.d_model}) + "
+                          f"{VISION_DECODE} greedy tokens", b, VISION_DECODE,
+                          prefill_ms, step_ms, worst, excused, peak, card)
+    print(f"  the gate matters: prefill logits with the gate at 0 lie "
+          f"{moved:.3g} (relative RMS) from those at {GATE_OPEN}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(prefill_ms=prefill_ms, decode_ms=dec_ms, gate_moved=moved)
+
+
+def _reduced_extras(cfg, rng):
+    """12e's memory inputs as numpy: prefill's keyword arguments and the
+    training batch's keys."""
+    kw, batch = {}, {}
+    if cfg.n_img_tokens:
+        kw["memory"] = batch["image_embeds"] = rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        kw["frames"] = batch["frames"] = rng.standard_normal(
+            (2, 40, cfg.d_model)).astype(np.float32)
+    return kw, batch
+
+
+def _card_vs_cpu_logits(TLM, params, cfg, prompts, got, on, dev, arch):
+    """Prefill and 3 decode steps on the card and on the CPU; returns the
+    worst logits difference, as a share of the CPU's max."""
+    worst = 0.0
+    plen = prompts.shape[1]
+    with torch.inference_mode():
+        caches = {d: TLM.init_cache(cfg, 2, plen + 8, device=d)
+                  for d in (dev, "cpu")}
+        for i in range(4):
+            lg = {}
+            for d in (dev, "cpu"):
+                if i == 0:
+                    lg[d], caches[d] = TLM.prefill(
+                        params[d], torch.as_tensor(prompts, device=d),
+                        caches[d], cfg, **on[d])
+                else:
+                    pos = plen + i - 1
+                    lg[d], caches[d] = TLM.decode_step(
+                        params[d], torch.as_tensor(got[:, pos:pos + 1],
+                                                   device=d),
+                        caches[d], pos, cfg)
+            err = _max_rel(lg[dev].cpu(), lg["cpu"])
+            require(err <= SERVE_CPU_RTOL, f"12e {arch}: "
+                    f"{'prefill' if i == 0 else f'decode step {i}'} logits, "
+                    f"card against CPU: {err:.3g} of the max, over "
+                    f"{SERVE_CPU_RTOL}")
+            worst = max(worst, err)
+    return worst
+
+
+def archs_card_vs_cpu(TC, TLM, TSV, TO, TT, counters, dev, card):
+    """12e: the four archs at their reduced configs on the card against
+    device="cpu" in float32 (TF32 off), gates opened: greedy tokens,
+    prefill and decode logits, two train steps (losses, grad norms, every
+    parameter and moment leaf); then launch.serve.main on the card."""
+    import contextlib
+    import io
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    for arch in ARCHS12:
+        cfg = TC.get_config(arch).reduced()
+        params = {"cpu": TLM.init_params(0, cfg, device="cpu")}
+        _set_gates(params["cpu"], GATE_OPEN)
+        params[dev] = TO.tree_map(lambda t: t.to(dev), params["cpu"])
+        prompts = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        kw, extra_batch = _reduced_extras(cfg, rng)
+        on = {d: {k: torch.as_tensor(v, device=d) for k, v in kw.items()}
+              for d in (dev, "cpu")}
+        _zero(counters)
+        got = TSV.ServeEngine(cfg, params[dev], 72, 2).generate(
+            prompts, 8, extra_inputs=on[dev])
+        _no_launches(counters, f"12e {arch}")
+        want = TSV.ServeEngine(cfg, params["cpu"], 72, 2).generate(
+            prompts, 8, extra_inputs=on["cpu"])
+        require(np.array_equal(got, want), f"12e {arch}: the card's tokens "
+                f"differ from the CPU's")
+        worst = _card_vs_cpu_logits(TLM, params, cfg, prompts, got, on, dev,
+                                    arch)
+        batch = dict(extra_batch, tokens=prompts,
+                     labels=np.roll(prompts, -1, axis=1))
+        # two steps: the warmup's learning rate is 0 at step 0, so the
+        # first moves no parameter (its first moments hold the gradients)
+        step = TT.make_train_step(cfg, TT.TrainConfig())
+        states = {d: {"params": params[d], "opt": TO.init_opt_state(params[d]),
+                      "step": torch.zeros((), dtype=torch.int32, device=d)}
+                  for d in (dev, "cpu")}
+        metrics = {}
+        for i in range(2):
+            for d in (dev, "cpu"):
+                states[d], metrics[d] = step(states[d], {
+                    k: torch.as_tensor(v, device=d) for k, v in batch.items()})
+            for k in ("loss", "grad_norm"):
+                a, c = float(metrics[dev][k]), float(metrics["cpu"][k])
+                require(np.isfinite(a) and abs(a - c) <= TRAIN_RTOL * abs(c),
+                        f"12e {arch} train step {i} {k}: {a!r} on the card, "
+                        f"{c!r} on the CPU")
+        leaves = list(zip(TO.tree_leaves([states[dev]["params"],
+                                          states[dev]["opt"]]),
+                          TO.tree_leaves([states["cpu"]["params"],
+                                          states["cpu"]["opt"]])))
+        leaf_err = max(_max_rel(a.cpu(), c) for a, c in leaves)
+        require(leaf_err <= TRAIN_RTOL, f"12e {arch}: a parameter or moment "
+                f"leaf after two train steps lies {leaf_err:.3g} of its max "
+                f"from the CPU's, over {TRAIN_RTOL}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = TSV.main(["--arch", arch, "--reduced"])
+        text = buf.getvalue()
+        require(rc == 0 and "generated 4x32 tokens on cuda" in text,
+                f"12e {arch}: launch.serve.main on the card: rc {rc}, "
+                f"output {text!r}")
+        print(f"  {arch} reduced: tokens (2, 64 + 8) equal to the CPU's; "
+              f"prefill and 3 decode steps' logits within {worst:.3g} of the "
+              f"max; two train steps: loss {float(metrics[dev]['loss']):.6f} "
+              f"(CPU {float(metrics['cpu']['loss']):.6f}), {len(leaves)} "
+              f"parameter and moment leaves within {leaf_err:.3g} of their "
+              f"max; "
+              f"launch.serve.main --reduced: "
+              f"{text.strip().splitlines()[-1]}")
+
+
+def archs_path(counters, dev, card):
+    """Phase 12; returns 12a-12d's figures."""
+    from repro_torch import configs as TC
+    from repro_torch.launch import serve as TSV
+    from repro_torch.models import lm as TLM
+    from repro_torch.models import ssm as S
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_loop as TT
+    out = {}
+    steps = (
+        ("12a", "rwkv6-1.6b whole through ServeEngine", "rwkv6",
+         lambda: serve_rwkv6(TC, TLM, TSV, TO, S, counters, dev, card)),
+        ("12b", "one full-width deepseek-v2-236b group: MLA prefill and "
+         "absorbed decode", "mla",
+         lambda: serve_mla_group(TC, TLM, TO, counters, dev, card)),
+        ("12c", "whisper-tiny whole on 30-second frames through ServeEngine",
+         "whisper",
+         lambda: serve_whisper(TC, TLM, TSV, TO, counters, dev, card)),
+        ("12d", "one full-width llama-3.2-vision-90b group, gate opened",
+         "vision",
+         lambda: serve_vision_group(TC, TLM, TO, counters, dev, card)),
+        ("12e", "the four reduced archs, card against CPU, and the CLI",
+         None,
+         lambda: archs_card_vs_cpu(TC, TLM, TSV, TO, TT, counters, dev,
+                                   card)),
+    )
+    for tag, what, key, run in steps:
+        print(f"[archs] {what} ({tag})")
+        t0 = time.perf_counter()
+        res = run()
+        if key:
+            out[key] = res
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3792,6 +4449,11 @@ def main(dev=None):
     t11 = time.perf_counter()
     served = serve_path(counters, dev, card)
     print(f"[serve] {time.perf_counter() - t11:.1f} s")
+
+    # -- 12. RWKV6, MLA, the whisper encoder, gated cross-attention ---------
+    t12 = time.perf_counter()
+    archs_path(counters, dev, card)
+    print(f"[archs] {time.perf_counter() - t12:.1f} s")
 
     kernels = [
         dict(name="histogram_bin", route="cuda",

@@ -1,11 +1,10 @@
 """Configurations the port serves: the paper's FCM job
-(:mod:`fcm_brainweb`) and the language-model architectures the port
-runs, by name through :func:`get_config`. The JAX package's other four
-(deepseek-v2-236b, rwkv6-1.6b, whisper-tiny, llama-3.2-vision-90b) need
-MLA, RWKV6, the encoder or cross-attention, which the port has not
-yet."""
-from . import (base, fcm_brainweb, granite_moe_3b, jamba_52b,  # noqa: F401
-               llama32_1b, llama32_3b, mistral_large_123b, mistral_nemo_12b)
+(:mod:`fcm_brainweb`) and the JAX package's ten language-model
+architectures, by name through :func:`get_config`."""
+from . import (base, deepseek_v2_236b, fcm_brainweb,  # noqa: F401
+               granite_moe_3b, jamba_52b, llama32_1b, llama32_3b,
+               llama32_vision_90b, mistral_large_123b, mistral_nemo_12b,
+               rwkv6_1b6, whisper_tiny)
 from .base import (SHAPES, BlockDesc, MLAConfig, ModelConfig,  # noqa: F401
                    MoEConfig, ShapeConfig, applicable_shapes)
 
@@ -14,7 +13,11 @@ _REGISTRY = {
     "mistral-large-123b": mistral_large_123b.make_config,
     "llama3.2-3b": llama32_3b.make_config,
     "llama3.2-1b": llama32_1b.make_config,
+    "rwkv6-1.6b": rwkv6_1b6.make_config,
+    "deepseek-v2-236b": deepseek_v2_236b.make_config,
     "granite-moe-3b-a800m": granite_moe_3b.make_config,
+    "whisper-tiny": whisper_tiny.make_config,
+    "llama-3.2-vision-90b": llama32_vision_90b.make_config,
     "jamba-v0.1-52b": jamba_52b.make_config,
 }
 
@@ -25,7 +28,5 @@ def list_archs():
 
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port runs "
-                       f"{list_archs()} (MLA, RWKV6, the encoder and "
-                       f"cross-attention wait for a later slice)")
+        raise KeyError(f"unknown arch {name!r}; available: {list_archs()}")
     return _REGISTRY[name]()

@@ -105,19 +105,19 @@ def cache_to_numpy(engine) -> List[CacheEntry]:
             for k, (v, h) in engine._cache.items()]
 
 
-def _unstack_groups(tree, cfg, dev: torch.device, what: str):
-    """A JAX tree stacked on a leading ``cfg.n_groups`` axis as a list of
-    ``cfg.n_groups`` trees of tensors on ``dev``."""
+def _unstack(tree, n: int, dev: torch.device, what: str):
+    """A JAX tree stacked on a leading axis of ``n`` as a list of ``n``
+    trees of tensors on ``dev``."""
     def conv(a, g):
         if isinstance(a, dict):
             return {k: conv(v, g) for k, v in a.items()}
         arr = np.asarray(a)
-        if arr.shape[:1] != (cfg.n_groups,):
+        if arr.shape[:1] != (n,):
             raise ValueError(f"a {what} leaf of shape {arr.shape} does not "
-                             f"lead with cfg.n_groups = {cfg.n_groups}")
+                             f"lead with {n}")
         return torch.from_numpy(np.array(arr[g])).to(dev)
 
-    return [conv(tree, g) for g in range(cfg.n_groups)]
+    return [conv(tree, g) for g in range(n)]
 
 
 def lm_params_from_numpy(tree, cfg, device=None):
@@ -126,25 +126,35 @@ def lm_params_from_numpy(tree, cfg, device=None):
     params)``): the same nested dicts with every leaf's dtype and layout
     kept, except that ``tree["groups"]``, stacked on a leading
     ``n_groups`` axis for the JAX package's scan, becomes a list of
-    ``cfg.n_groups`` group dicts. Leaves land on ``device`` (``None`` =
-    the card)."""
+    ``cfg.n_groups`` group dicts, and an encoder-decoder model's
+    ``tree["enc_groups"]`` a list of ``cfg.enc_layers``. Leaves land on
+    ``device`` (``None`` = the card)."""
     dev = DV.resolve_device(device)
+    stacked = {"groups": (cfg.n_groups, "cfg.n_groups"),
+               "enc_groups": (cfg.enc_layers, "cfg.enc_layers")}
 
     def conv(a):
         if isinstance(a, dict):
             return {k: conv(v) for k, v in a.items()}
         return torch.from_numpy(np.array(a)).to(dev)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "groups"}
-    out["groups"] = _unstack_groups(tree["groups"], cfg, dev,
-                                    "params['groups']")
+    out = {}
+    for k, v in tree.items():
+        if k in stacked:
+            n, name = stacked[k]
+            out[k] = _unstack(v, n, dev, f"params[{k!r}] ({name})")
+        else:
+            out[k] = conv(v)
     return out
 
 
 def lm_cache_from_numpy(tree, cfg, device=None):
     """The port's decode cache (:func:`repro_torch.models.lm.init_cache`'s
     list, one ``{"b0": block cache, ...}`` a group) from the JAX package's
-    cache pytree as numpy arrays, stacked on a leading ``n_groups`` axis.
+    cache pytree as numpy arrays, stacked on a leading ``n_groups`` axis:
+    every leaf a block holds (GQA's k / v, MLA's c_kv / k_rope, Mamba's
+    conv / ssm, RWKV6's x_prev / wkv and cm_prev, cross_kv's k / v).
     Leaves keep their dtype and land on ``device`` (``None`` = the
     card)."""
-    return _unstack_groups(tree, cfg, DV.resolve_device(device), "cache")
+    return _unstack(tree, cfg.n_groups, DV.resolve_device(device),
+                    "cache (cfg.n_groups)")

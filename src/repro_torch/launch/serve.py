@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import argparse
 import sys
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 
@@ -35,11 +37,15 @@ class ServeEngine:
         self.device = params["embed"]["table"].device
 
     def generate(self, prompts, n_new: int, temperature: float = 0.0,
-                 seed: int = 0) -> np.ndarray:
+                 seed: int = 0,
+                 extra_inputs: Optional[Dict] = None) -> np.ndarray:
         """prompts (B, P) int -> (B, P + n_new) int32. Greedy argmax at
         ``temperature`` 0; else draws from softmax(logits / temperature)
         with a :class:`torch.Generator` on the parameters' device seeded
-        with ``seed`` (reproducible, but not ``jax.random``'s draws)."""
+        with ``seed`` (reproducible, but not ``jax.random``'s draws).
+        ``extra_inputs``: prefill's ``memory`` (a vision model's image
+        embeddings) and ``frames`` (an encoder-decoder model's), numpy
+        arrays or tensors, moved to the engine's device."""
         prompts = np.asarray(prompts)
         if prompts.ndim != 2:
             raise ValueError(f"prompts must be (B, P), got {prompts.shape}")
@@ -59,7 +65,10 @@ class ServeEngine:
                                      device=self.device)
             cache = lm.init_cache(self.cfg, b, self.max_len,
                                   device=self.device)
-            logits, cache = lm.prefill(self.params, tokens, cache, self.cfg)
+            extra = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in (extra_inputs or {}).items()}
+            logits, cache = lm.prefill(self.params, tokens, cache, self.cfg,
+                                       **extra)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
             out = [tokens]
@@ -106,10 +115,18 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    extra = {}
+    if cfg.n_img_tokens:
+        extra["memory"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.n_img_tokens, cfg.d_model))).to(cfg.dtype)
+    if cfg.is_encdec:
+        extra["frames"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)), dtype=torch.float32)
     engine = ServeEngine(cfg, params,
                          max_len=args.prompt_len + args.new_tokens,
                          batch_size=args.batch)
-    out = engine.generate(prompts, args.new_tokens, args.temperature)
+    out = engine.generate(prompts, args.new_tokens, args.temperature,
+                          extra_inputs=extra)
     for b in range(args.batch):
         print(f"[{b}] prompt={prompts[b, :6].tolist()}... "
               f"-> {out[b, args.prompt_len:args.prompt_len + 12].tolist()}...")

@@ -1,2 +1,3 @@
-"""The language-model stack of the port: layers, GQA attention, MoE,
-the Mamba mixer, blocks and the model (train forward)."""
+"""The language-model stack of the port: layers, attention (GQA,
+cross-attention, MLA), MoE, the RWKV6 and Mamba mixers, blocks and the
+model (train forward, the whisper encoder, prefill and decode)."""

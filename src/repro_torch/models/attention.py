@@ -1,12 +1,17 @@
-"""GQA attention: the plain and the chunked (flash-style) softmax cores,
-their dispatch, and the GQA mixer's train / prefill forward.
+"""Attention mixers: the plain and the chunked (flash-style) softmax
+cores and their dispatch; GQA; cross-attention over encoder or image
+memory (whisper's decoder, llama-vision's tanh-gated blocks); and MLA
+(DeepSeek-V2's multi-head latent attention with its compressed cache
+and absorbed decode).
 
 Plain PyTorch ops that follow the JAX package's algorithm step for step
 (``repro/models/attention.py``), not a fused library kernel: the scores
 in float32, the max-subtracted exponentials in the compute dtype, the
 denominator summed in float32. Shapes: activations (B, S, D); q/k/v
-(B, H, S, hd); the GQA decode cache {"k", "v"} (B, Hkv, max_len, hd).
-MLA and cross-attention are not ported yet.
+(B, H, S, hd), v's head dim may differ from q's and k's (MLA); the GQA
+decode cache {"k", "v"} (B, Hkv, max_len, hd); the MLA cache {"c_kv"
+(B, max_len, kv_lora), "k_rope" (B, max_len, rope_dim)}. Decode writes
+the new slot in place, so a returned cache aliases the one passed in.
 """
 from __future__ import annotations
 
@@ -174,3 +179,136 @@ def gqa_decode(p, x, cache, pos: int, cfg):
                             flash_threshold=1 << 30)
     y = torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], cfg.dtype))
     return y, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder / llama-vision gated cross blocks)
+# ---------------------------------------------------------------------------
+
+def init_cross(gen: torch.Generator, cfg, gated: bool):
+    p = init_gqa(gen, cfg)
+    if gated:
+        # tanh-gated, starts closed: a fresh gated block adds nothing
+        p["gate"] = torch.zeros((1,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def cross_kv(p, memory, cfg):
+    """K/V of encoder or image memory (B, M, D): (B, Hkv, M, hd) each."""
+    if memory is None:
+        raise ValueError("a cross-attention block needs memory: frames for "
+                         "an encoder-decoder model, image embeddings for a "
+                         "vision model")
+    dtype = cfg.dtype
+    k = torch.einsum("bmd,dhk->bhmk", memory, L.gathered(p["wk"], dtype))
+    v = torch.einsum("bmd,dhk->bhmk", memory, L.gathered(p["wv"], dtype))
+    return k, v
+
+
+def cross_forward(p, x, kv, cfg):
+    k, v = kv
+    q = torch.einsum("bsd,dhk->bhsk", x, L.gathered(p["wq"], cfg.dtype))
+    out = grouped_attention(q, k, v, causal=False,
+                            flash_threshold=cfg.flash_threshold,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    y = torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], cfg.dtype))
+    if "gate" in p:
+        y = torch.tanh(p["gate"]).to(cfg.dtype) * y
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": L.init_dense(gen, (d, m.q_lora_rank), d),
+        "w_uq": L.init_dense(gen, (m.q_lora_rank, h, qk), m.q_lora_rank),
+        "w_dkv": L.init_dense(gen, (d, m.kv_lora_rank), d),
+        "w_uk": L.init_dense(gen, (m.kv_lora_rank, h, m.qk_nope_head_dim),
+                             m.kv_lora_rank),
+        "w_uv": L.init_dense(gen, (m.kv_lora_rank, h, m.v_head_dim),
+                             m.kv_lora_rank),
+        "w_kr": L.init_dense(gen, (d, m.qk_rope_head_dim), d),
+        "wo": L.init_dense(gen, (h, m.v_head_dim, d), h * m.v_head_dim),
+    }
+
+
+def _mla_q(p, x, positions, cfg):
+    m, dtype = cfg.mla, cfg.dtype
+    cq = torch.einsum("bsd,dr->bsr", x, L.gathered(p["w_dq"], dtype))
+    q = torch.einsum("bsr,rhk->bhsk", cq, L.gathered(p["w_uq"], dtype))
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = L.apply_rope(q[..., m.qk_nope_head_dim:].transpose(1, 2),
+                          positions, cfg.rope_theta).transpose(1, 2)
+    return q_nope, q_rope
+
+
+def _mla_ckv(p, x, positions, cfg):
+    dtype = cfg.dtype
+    c_kv = torch.einsum("bsd,dr->bsr", x, L.gathered(p["w_dkv"], dtype))
+    k_rope = torch.einsum("bsd,dk->bsk", x, L.gathered(p["w_kr"], dtype))
+    return c_kv, L.apply_rope(k_rope, positions, cfg.rope_theta)
+
+
+def mla_forward(p, x, positions, cfg, causal: bool = True,
+                return_kv: bool = False):
+    """Train / prefill: K and V decompressed from the latent, then the
+    softmax core with q/k head dim qk_nope + qk_rope and v's v_head_dim.
+    With ``return_kv``, ``(y, (c_kv, k_rope))``, what the cache holds."""
+    dtype = cfg.dtype
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv, k_rope = _mla_ckv(p, x, positions, cfg)
+    k_nope = torch.einsum("bsr,rhk->bhsk", c_kv, L.gathered(p["w_uk"], dtype))
+    v = torch.einsum("bsr,rhk->bhsk", c_kv, L.gathered(p["w_uv"], dtype))
+    kr = k_rope[:, None].expand(-1, cfg.n_heads, -1, -1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr], dim=-1)
+    out = grouped_attention(q, k, v, causal,
+                            flash_threshold=cfg.flash_threshold,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    y = torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], dtype))
+    return (y, (c_kv, k_rope)) if return_kv else y
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device=None):
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(p, x, cache, pos: int, cfg):
+    """Absorbed decode: W_uk folded into q and the context formed against
+    the compressed cache, kv_lora + rope_dim values a token and layer
+    instead of the decompressed K and V of every head. The new slot is
+    written in place. Returns ``(y, cache)``."""
+    m, dtype = cfg.mla, cfg.dtype
+    b, smax = x.shape[0], cache["c_kv"].shape[1]
+    if not 0 <= pos < smax:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{smax} slots")
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)          # (B, H, 1, *)
+    c_new, kr_new = _mla_ckv(p, x, positions, cfg)         # (B, 1, *)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    c_kv[:, pos:pos + 1] = c_new
+    k_rope[:, pos:pos + 1] = kr_new
+    q_abs = torch.einsum("bhsk,rhk->bhsr", q_nope,
+                         L.gathered(p["w_uk"], dtype))
+    scores = (torch.einsum("bhsr,btr->bhst", q_abs, c_kv)
+              + torch.einsum("bhsk,btk->bhst", q_rope, k_rope))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = scores.to(torch.float32) * scale
+    mask = torch.arange(smax, device=x.device) <= pos
+    scores = torch.where(mask, scores, _NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    ctx = torch.einsum("bhst,btr->bhsr", w, c_kv)
+    out = torch.einsum("bhsr,rhk->bhsk", ctx, L.gathered(p["w_uv"], dtype))
+    y = torch.einsum("bhsk,hkd->bsd", out, L.gathered(p["wo"], dtype))
+    return y, {"c_kv": c_kv, "k_rope": k_rope}

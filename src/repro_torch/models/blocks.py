@@ -1,85 +1,155 @@
-"""Composable blocks: a pre-norm mixer sub-layer and a pre-norm FFN
-sub-layer, both residual. The mixer and FFN kinds come from the
-architecture's group layout, so Jamba's 1:7 attention:mamba interleave
-with its alternating SwiGLU / MoE FFNs composes from one code path.
+"""Composable blocks: a pre-norm mixer sub-layer, an optional pre-norm
+cross-attention sub-layer and a pre-norm FFN sub-layer, all residual.
+The mixer and FFN kinds come from the architecture's group layout, so
+Jamba's 1:7 attention:mamba interleave, llama-vision's gated cross block
+every fifth layer and whisper's decoder compose from one code path.
+
+Mixers: ``gqa``, ``mla``, ``cross``, ``rwkv6`` and ``mamba``; FFNs:
+``swiglu``, ``gelu``, ``moe`` and ``rwkv_cm``; ``desc.cross`` adds the
+cross sub-layer (``norm_x``, ``cross``) after the mixer.
 
 Three paths a block: the train forward (no cache), prefill (the whole
 prompt, filling the block's decode cache) and one-token decode. A
-block's cache is ``{"attn": {"k", "v"}}`` for GQA and ``{"mamba":
-{"conv", "ssm"}}`` for Mamba; the K/V are written in place, so a cache
-returned by prefill or decode aliases the one passed in.
-
-Ported kinds: mixers ``gqa`` and ``mamba``, FFNs ``swiglu`` and ``moe``.
-The JAX package's others (``mla``, ``cross``, ``rwkv6``; ``gelu``,
-``rwkv_cm``) raise :class:`NotImplementedError`.
+block's cache holds ``"attn"`` ({"k", "v"} for GQA, {"c_kv", "k_rope"}
+for MLA), ``"mamba"`` ({"conv", "ssm"}), ``"rwkv"`` ({"x_prev", "wkv"})
+with ``"cm_prev"`` for the channel-mix, and ``"cross_kv"`` ({"k", "v"}
+of the memory) for cross-attention. The attention caches are written in
+place, so a cache returned by prefill or decode aliases the one passed
+in; prefill replaces ``cross_kv`` by the memory's K/V, of the memory's
+length whatever the buffer it was given.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as Fn
 
 from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import ssm as S
 
-_MIXERS = ("gqa", "mamba")
-_FFNS = ("swiglu", "moe")
+
+# --- GELU MLP (whisper) ----------------------------------------------------
+
+def init_gelu_mlp(gen: torch.Generator, d: int, f: int):
+    return {"w_in": L.init_dense(gen, (d, f), d),
+            "w_out": L.init_dense(gen, (f, d), f)}
 
 
-def _check(desc):
-    if desc.mixer not in _MIXERS or desc.ffn not in _FFNS or desc.cross:
-        raise NotImplementedError(
-            f"block {desc}: the port runs mixers {_MIXERS} and FFNs "
-            f"{_FFNS} without cross-attention; MLA, cross-attention, RWKV6 "
-            f"and the GELU MLP wait for a later slice of the port")
+def gelu_mlp(p, x, dtype):
+    # the tanh form: jax.nn.gelu's default, not torch's (erf)
+    h = Fn.gelu(torch.einsum("bsd,df->bsf", x, L.gathered(p["w_in"], dtype)),
+                approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, L.gathered(p["w_out"], dtype))
 
+
+# --- block -------------------------------------------------------------------
 
 def init_block(gen: torch.Generator, cfg, desc):
-    _check(desc)
     d = cfg.d_model
     p = {"norm1": L.init_rmsnorm(d, gen.device),
          "norm2": L.init_rmsnorm(d, gen.device)}
-    p["mixer"] = (A.init_gqa(gen, cfg) if desc.mixer == "gqa"
-                  else S.init_mamba(gen, cfg))
-    p["ffn"] = (L.init_mlp(gen, d, cfg.d_ff) if desc.ffn == "swiglu"
-                else M.init_moe(gen, cfg))
+    if desc.mixer == "gqa":
+        p["mixer"] = A.init_gqa(gen, cfg)
+    elif desc.mixer == "mla":
+        p["mixer"] = A.init_mla(gen, cfg)
+    elif desc.mixer == "cross":
+        p["mixer"] = A.init_cross(gen, cfg, gated=desc.gated)
+    elif desc.mixer == "rwkv6":
+        p["mixer"] = S.init_rwkv6(gen, cfg)
+    elif desc.mixer == "mamba":
+        p["mixer"] = S.init_mamba(gen, cfg)
+    else:
+        raise ValueError(f"unknown mixer {desc.mixer!r}")
+    if desc.cross:                      # extra cross sub-layer (whisper)
+        p["norm_x"] = L.init_rmsnorm(d, gen.device)
+        p["cross"] = A.init_cross(gen, cfg, gated=desc.gated)
+    if desc.ffn == "swiglu":
+        p["ffn"] = L.init_mlp(gen, d, cfg.d_ff)
+    elif desc.ffn == "gelu":
+        p["ffn"] = init_gelu_mlp(gen, d, cfg.d_ff)
+    elif desc.ffn == "moe":
+        p["ffn"] = M.init_moe(gen, cfg)
+    elif desc.ffn == "rwkv_cm":
+        p["ffn"] = S.init_rwkv_cm(gen, cfg)
+    else:
+        raise ValueError(f"unknown FFN {desc.ffn!r}")
     return p
 
 
-def _apply_ffn(p, x, cfg, desc):
-    """Returns (out, aux)."""
+def init_block_cache(cfg, desc, batch: int, max_len: int, n_memory: int = 1,
+                     device=None):
+    """Decode-time state for one block, zeros on ``device``;
+    ``n_memory`` sizes the cross-attention K/V buffer."""
+    cache = {}
+    if desc.mixer == "gqa":
+        cache["attn"] = A.init_gqa_cache(cfg, batch, max_len, cfg.dtype,
+                                         device)
+    elif desc.mixer == "mla":
+        cache["attn"] = A.init_mla_cache(cfg, batch, max_len, cfg.dtype,
+                                         device)
+    elif desc.mixer == "rwkv6":
+        cache["rwkv"] = S.init_rwkv6_state(cfg, batch, device)
+    elif desc.mixer == "mamba":
+        cache["mamba"] = S.init_mamba_state(cfg, batch, device)
+    if desc.mixer == "cross" or desc.cross:
+        shape = (batch, cfg.n_kv_heads, n_memory, cfg.head_dim)
+        cache["cross_kv"] = {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    if desc.mixer == "rwkv6" or desc.ffn == "rwkv_cm":
+        cache["cm_prev"] = torch.zeros((batch, cfg.d_model), dtype=cfg.dtype,
+                                       device=device)
+    return cache
+
+
+def _apply_ffn(p, x, cfg, desc, cm_prev=None):
+    """Returns (out, aux, the channel-mix's new previous token or None)."""
     if desc.ffn == "swiglu":
-        return L.mlp(p["ffn"], x, cfg.dtype), 0.0
-    return M.moe_ffn(p["ffn"], x, cfg)
+        return L.mlp(p["ffn"], x, cfg.dtype), 0.0, None
+    if desc.ffn == "gelu":
+        return gelu_mlp(p["ffn"], x, cfg.dtype), 0.0, None
+    if desc.ffn == "moe":
+        out, aux = M.moe_ffn(p["ffn"], x, cfg)
+        return out, aux, None
+    out, new_prev = S.rwkv_cm_forward(p["ffn"], x, cfg, cm_prev,
+                                      return_state=True)
+    return out, 0.0, new_prev
 
 
-def block_forward(p, x, cfg, desc, *, positions=None, causal: bool = True):
-    """Train path: the full sequence, no cache. Returns (x, aux)."""
-    _check(desc)
+def _cross_sublayer(p, x, cfg, kv):
+    h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    return x + A.cross_forward(p["cross"], h, kv, cfg)
+
+
+def block_forward(p, x, cfg, desc, *, positions=None, memory=None,
+                  causal: bool = True):
+    """Train / encoder path: the full sequence, no cache. Returns
+    (x, aux)."""
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if desc.mixer == "gqa":
         y = A.gqa_forward(p["mixer"], h, positions, cfg, causal=causal)
+    elif desc.mixer == "mla":
+        y = A.mla_forward(p["mixer"], h, positions, cfg, causal=causal)
+    elif desc.mixer == "cross":
+        y = A.cross_forward(p["mixer"], h,
+                            A.cross_kv(p["mixer"], memory, cfg), cfg)
+    elif desc.mixer == "rwkv6":
+        y = S.rwkv6_forward(p["mixer"], h, cfg)
     else:
         y = S.mamba_forward(p["mixer"], h, cfg)
     x = x + y
+    if desc.cross:
+        x = _cross_sublayer(p, x, cfg, A.cross_kv(p["cross"], memory, cfg))
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    out, aux = _apply_ffn(p, h, cfg, desc)
+    out, aux, _ = _apply_ffn(p, h, cfg, desc)
     return x + out, aux
 
 
-def init_block_cache(cfg, desc, batch: int, max_len: int, device=None):
-    """Decode-time state for one block, zeros on ``device``."""
-    _check(desc)
-    if desc.mixer == "gqa":
-        return {"attn": A.init_gqa_cache(cfg, batch, max_len, cfg.dtype,
-                                         device)}
-    return {"mamba": S.init_mamba_state(cfg, batch, device)}
-
-
-def block_prefill(p, x, cfg, desc, cache, *, positions):
+def block_prefill(p, x, cfg, desc, cache, *, positions, memory=None):
     """Prefill: the full prompt, filling the decode cache (the prompt's
-    K/V written into slots [0, S) in place). Returns (x, cache)."""
-    _check(desc)
+    K/V or latents written into slots [0, S) in place). Returns
+    (x, cache)."""
     new_cache = dict(cache)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if desc.mixer == "gqa":
@@ -89,28 +159,62 @@ def block_prefill(p, x, cfg, desc, cache, *, positions):
         kc[:, :, :k.shape[2]] = k
         vc[:, :, :v.shape[2]] = v
         new_cache["attn"] = {"k": kc, "v": vc}
+    elif desc.mixer == "mla":
+        y, (c_kv, k_rope) = A.mla_forward(p["mixer"], h, positions, cfg,
+                                          causal=True, return_kv=True)
+        cc, rc = cache["attn"]["c_kv"], cache["attn"]["k_rope"]
+        cc[:, :c_kv.shape[1]] = c_kv
+        rc[:, :k_rope.shape[1]] = k_rope
+        new_cache["attn"] = {"c_kv": cc, "k_rope": rc}
+    elif desc.mixer == "cross":
+        kv = A.cross_kv(p["mixer"], memory, cfg)
+        y = A.cross_forward(p["mixer"], h, kv, cfg)
+        new_cache["cross_kv"] = {"k": kv[0], "v": kv[1]}
+    elif desc.mixer == "rwkv6":
+        y, new_cache["rwkv"] = S.rwkv6_forward(p["mixer"], h, cfg,
+                                               return_state=True)
     else:
         y, new_cache["mamba"] = S.mamba_forward(p["mixer"], h, cfg,
                                                 return_state=True)
     x = x + y
+    if desc.cross:
+        kv = A.cross_kv(p["cross"], memory, cfg)
+        x = _cross_sublayer(p, x, cfg, kv)
+        new_cache["cross_kv"] = {"k": kv[0], "v": kv[1]}
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    out, _ = _apply_ffn(p, h, cfg, desc)
+    out, _, cm_prev = _apply_ffn(p, h, cfg, desc, cache.get("cm_prev"))
+    if cm_prev is not None:
+        new_cache["cm_prev"] = cm_prev
     return x + out, new_cache
 
 
 def block_decode(p, x, cfg, desc, cache, *, pos: int):
     """One-token decode. x (B,1,D). Returns (x, cache)."""
-    _check(desc)
     new_cache = dict(cache)
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if desc.mixer == "gqa":
         y, new_cache["attn"] = A.gqa_decode(p["mixer"], h, cache["attn"],
                                             pos, cfg)
+    elif desc.mixer == "mla":
+        y, new_cache["attn"] = A.mla_decode(p["mixer"], h, cache["attn"],
+                                            pos, cfg)
+    elif desc.mixer == "cross":
+        y = A.cross_forward(p["mixer"], h, (cache["cross_kv"]["k"],
+                                            cache["cross_kv"]["v"]), cfg)
+    elif desc.mixer == "rwkv6":
+        y, new_cache["rwkv"] = S.rwkv6_forward(p["mixer"], h, cfg,
+                                               state=cache["rwkv"],
+                                               return_state=True)
     else:
         y, new_cache["mamba"] = S.mamba_forward(p["mixer"], h, cfg,
                                                 state=cache["mamba"],
                                                 return_state=True)
     x = x + y
+    if desc.cross:
+        x = _cross_sublayer(p, x, cfg, (cache["cross_kv"]["k"],
+                                        cache["cross_kv"]["v"]))
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    out, _ = _apply_ffn(p, h, cfg, desc)
+    out, _, cm_prev = _apply_ffn(p, h, cfg, desc, cache.get("cm_prev"))
+    if cm_prev is not None:
+        new_cache["cm_prev"] = cm_prev
     return x + out, new_cache

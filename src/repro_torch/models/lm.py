@@ -8,24 +8,34 @@ head. Three entry points a model:
 
 Parameters: ``{"embed": {"table"}, "groups": [group, ...],
 "final_norm": {"scale"}}``, a group being ``{"b0": block, ...}`` in the
-architecture's group layout; the decode cache is a list alike, one
+architecture's group layout, and for an encoder-decoder model (whisper)
+``"enc_groups"``, ``cfg.enc_layers`` groups of one :data:`ENC_DESC`
+block, and ``"enc_norm"``; the decode cache is a list alike, one
 ``{"b0": block cache, ...}`` a group. The JAX package stacks the groups
 on a leading axis for its ``lax.scan``; here they are lists and the
 scan is a Python loop (:func:`repro_torch.convert.lm_params_from_numpy`
 and :func:`~repro_torch.convert.lm_cache_from_numpy` unstack a JAX
-tree). The encoder and image memory are not ported yet.
+tree).
+
+Cross-attention reads ``memory`` (B, M, D): an encoder-decoder model
+makes it from ``frames`` (B, n_frames, D) with :func:`encode`; a vision
+model takes the image embeddings as ``memory``. A model without cross
+blocks ignores memory, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import _device as DV
-from ..configs.base import ModelConfig
+from ..configs.base import BlockDesc, ModelConfig
 from . import blocks as B
 from . import layers as L
+
+#: the encoder's block: bidirectional GQA and the GELU MLP
+ENC_DESC = BlockDesc(mixer="gqa", ffn="gelu")
 
 
 def _init_group(gen, cfg, layout):
@@ -40,12 +50,46 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     copy."""
     gen = torch.Generator(device=DV.resolve_device(device))
     gen.manual_seed(int(seed))
-    return {
+    params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model),
         "groups": [_init_group(gen, cfg, cfg.group_layout)
                    for _ in range(cfg.n_groups)],
         "final_norm": L.init_rmsnorm(cfg.d_model, gen.device),
     }
+    if cfg.is_encdec:
+        params["enc_groups"] = [_init_group(gen, cfg, (ENC_DESC,))
+                                for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = L.init_rmsnorm(cfg.d_model, gen.device)
+    return params
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig):
+    """The encoder (whisper): frame embeddings (B, n_frames, D) through
+    ``cfg.enc_layers`` bidirectional blocks and the encoder norm; each
+    block recomputed in the backward when ``cfg.remat``."""
+    x = frames.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None]
+
+    def body(x, gp):
+        return B.block_forward(gp["b0"], x, cfg, ENC_DESC,
+                               positions=positions, causal=False)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for gp in params["enc_groups"]:
+        x = _ckpt(body, x, gp) if remat else body(x, gp)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _memory(params, cfg: ModelConfig, memory, frames):
+    """The cross-attention memory in the compute dtype: the encoded
+    frames of an encoder-decoder model, else ``memory`` as given."""
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             f"give it frames")
+        memory = encode(params, frames, cfg)
+    return None if memory is None else memory.to(cfg.dtype)
 
 
 def _sqrt_factor(n: int) -> int:
@@ -88,19 +132,16 @@ def _scan_groups_remat(body, carry, groups, n_groups: int, remat: bool):
     return carry
 
 
-def _check_memoryless(cfg: ModelConfig, *inputs) -> None:
-    if cfg.is_encdec or cfg.n_img_tokens or any(
-            t is not None for t in inputs):
-        raise NotImplementedError("encoder-decoder and image-memory models "
-                                  "wait for a later slice of the port")
-
-
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            memory: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             return_features: bool = False):
     """tokens (B, S) -> (logits (B, S, V) float32, aux_loss scalar). With
     ``return_features``: (features (B, S, D) after the final norm, aux),
-    what the chunked cross-entropy consumes."""
-    _check_memoryless(cfg)
+    what the chunked cross-entropy consumes. ``frames`` (B, n_frames, D)
+    for an encoder-decoder model, ``memory`` (B, M, D) for a vision
+    model."""
+    memory = _memory(params, cfg, memory, frames)
     x = L.embed(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)[None]
@@ -109,7 +150,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         x, aux = carry
         for i, desc in enumerate(cfg.group_layout):
             x, a = B.block_forward(gp[f"b{i}"], x, cfg, desc,
-                                   positions=positions)
+                                   positions=positions, memory=memory)
             aux = aux + a
         return x, aux
 
@@ -126,11 +167,22 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _memory_len(cfg: ModelConfig, max_len: int) -> int:
+    """The cross K/V buffer's length in a fresh cache (the JAX package's
+    sizes; prefill replaces the buffer by the memory's own K/V)."""
+    if cfg.is_encdec:
+        return max_len
+    if cfg.n_img_tokens:
+        return cfg.n_img_tokens
+    return 1
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """The decode state, zeros on ``device`` (``None`` = the card): a
     list of ``cfg.n_groups`` group caches."""
     dev = DV.resolve_device(device)
-    return [{f"b{i}": B.init_block_cache(cfg, d, batch, max_len, dev)
+    n_mem = _memory_len(cfg, max_len)
+    return [{f"b{i}": B.init_block_cache(cfg, d, batch, max_len, n_mem, dev)
              for i, d in enumerate(cfg.group_layout)}
             for _ in range(cfg.n_groups)]
 
@@ -141,8 +193,10 @@ def prefill(params, tokens: torch.Tensor, cache, cfg: ModelConfig,
     """Fills ``cache`` from a full prompt (B, S); returns (last-position
     logits (B, 1, V) float32, cache). No gradient: the Mamba layers take
     the selective-scan kernel's end-state form. The attention caches are
-    written in place, so the returned cache aliases ``cache``."""
-    _check_memoryless(cfg, memory, frames)
+    written in place, so the returned cache aliases ``cache``; each
+    cross block's ``cross_kv`` becomes the memory's K/V, of the memory's
+    length. ``memory`` and ``frames`` as in :func:`forward`."""
+    memory = _memory(params, cfg, memory, frames)
     x = L.embed(params["embed"], tokens, cfg.dtype)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)[None]
@@ -151,7 +205,8 @@ def prefill(params, tokens: torch.Tensor, cache, cfg: ModelConfig,
         new_gc = {}
         for i, desc in enumerate(cfg.group_layout):
             x, new_gc[f"b{i}"] = B.block_prefill(
-                gp[f"b{i}"], x, cfg, desc, gc[f"b{i}"], positions=positions)
+                gp[f"b{i}"], x, cfg, desc, gc[f"b{i}"], positions=positions,
+                memory=memory)
         new_cache.append(new_gc)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg.dtype), new_cache

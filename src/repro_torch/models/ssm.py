@@ -1,11 +1,20 @@
-"""The Mamba mixer (selective SSM), Jamba's dominant mixer.
+"""Attention-free mixers: RWKV6 ("Finch", data-dependent decay linear
+attention, with its channel-mix FFN) and Mamba (the selective SSM,
+Jamba's dominant mixer).
 
-An exact linear recurrence over time: the plain version is a Python
-loop over the sequence (:func:`_ssm_scan`, the JAX package's
-``lax.scan``). With ``cfg.mamba_pallas`` set and no state carried in,
-the selective-scan kernel runs instead, where ``S % 64 == 0`` and
-``d_inner % 64 == 0`` (the JAX package's shape condition; the kernel
-itself takes any shape):
+Both are exact linear recurrences over time.
+
+RWKV6's wkv recurrence is a Python loop over positions in float32
+(:func:`_wkv_scan`, the JAX package's ``lax.scan``), differentiable
+through autograd; the JAX package has no kernel for it. Its state is
+``{"x_prev" (B, D), "wkv" (B, nh, hd, hd) float32}``; the channel-mix's
+previous token (B, D) sits beside it in the block cache, as ``cm_prev``.
+
+Mamba's plain version is a Python loop over the sequence
+(:func:`_ssm_scan`, the JAX package's ``lax.scan``). With
+``cfg.mamba_pallas`` set and no state carried in, the selective-scan
+kernel runs instead, where ``S % 64 == 0`` and ``d_inner % 64 == 0``
+(the JAX package's shape condition; the kernel itself takes any shape):
 
 - the training forward through :class:`SelectiveScan`. The kernel has
   no backward: the autograd function recomputes through the plain
@@ -18,10 +27,10 @@ itself takes any shape):
   Python loop of S steps, which a server cannot afford on every Mamba
   layer of a prompt, where the JAX package's is one compiled loop.
 
-Decode (a state given, S = 1) keeps the plain recurrence. RWKV6 is not
-ported yet.
+Decode (a state given, S = 1) keeps the plain recurrence.
 
-State: {"ssm": (B, d_inner, d_state), "conv": (B, k - 1, d_inner)}.
+Mamba's state: {"ssm": (B, d_inner, d_state), "conv": (B, k - 1,
+d_inner)}.
 """
 from __future__ import annotations
 
@@ -34,6 +43,170 @@ from ..kernels import ops as kops
 from ..kernels import selective_scan as KSS
 from . import layers as L
 
+
+_TSZ = 32      # rwkv6 ddlerp lora rank
+_DSZ = 64      # rwkv6 decay lora rank
+
+
+# ===========================================================================
+# RWKV6 time-mix
+# ===========================================================================
+
+def init_rwkv6(gen: torch.Generator, cfg):
+    d = cfg.d_model
+    nh, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    dev = gen.device
+    return {
+        "mu": torch.rand((5, d), generator=gen, dtype=torch.float32,
+                         device=dev),
+        "ddlerp_a": L.init_dense(gen, (d, 5 * _TSZ), d),
+        "ddlerp_b": L.init_dense(gen, (5, _TSZ, d), _TSZ),
+        "w0": torch.full((d,), -2.0, dtype=torch.float32, device=dev),
+        "w_a": L.init_dense(gen, (d, _DSZ), d),
+        "w_b": L.init_dense(gen, (_DSZ, d), _DSZ),
+        "u": torch.randn((nh, hd), generator=gen, dtype=torch.float32,
+                         device=dev) * 0.1,
+        "wr": L.init_dense(gen, (d, d), d),
+        "wk": L.init_dense(gen, (d, d), d),
+        "wv": L.init_dense(gen, (d, d), d),
+        "wg": L.init_dense(gen, (d, d), d),
+        "wo": L.init_dense(gen, (d, d), d),
+        "ln_x": torch.ones((d,), dtype=torch.float32, device=dev),
+    }
+
+
+def _token_shift(x, x_prev):
+    """x_{t-1} - x_t with x_prev (B, D) before x[:, 0]."""
+    return torch.cat([x_prev[:, None], x[:, :-1]], dim=1) - x
+
+
+def _rwkv_inputs(p, x, x_prev, cfg):
+    """Data-dependent token shift (ddlerp) and the projections.
+    x (B, S, D); x_prev (B, D) is the token before x[:, 0]. Returns r, k,
+    v, g in the compute dtype and the log-decay in float32."""
+    dtype = cfg.dtype
+    xx = _token_shift(x, x_prev)
+    mu = p["mu"].to(dtype)
+    base = x + xx * mu[0]
+    lora = torch.tanh(torch.einsum("bsd,dr->bsr", base,
+                                   L.gathered(p["ddlerp_a"], dtype)))
+    lora = lora.reshape(*lora.shape[:-1], 5, _TSZ)
+    offs = torch.einsum("bsir,ird->ibsd", lora,
+                        L.gathered(p["ddlerp_b"], dtype))
+    xw, xk, xv, xr, xg = (x + xx * (mu[i] + offs[i]) for i in range(5))
+    # data-dependent per-channel decay w_t in (0, 1), clipped in float32
+    dw = torch.einsum("bsr,rd->bsd", torch.tanh(torch.einsum(
+        "bsd,dr->bsr", xw, L.gathered(p["w_a"], dtype))),
+        L.gathered(p["w_b"], dtype))
+    logw = -torch.exp(torch.clamp(p["w0"] + dw.to(torch.float32),
+                                  -8.0, 4.0))
+    r = torch.einsum("bsd,de->bse", xr, L.gathered(p["wr"], dtype))
+    k = torch.einsum("bsd,de->bse", xk, L.gathered(p["wk"], dtype))
+    v = torch.einsum("bsd,de->bse", xv, L.gathered(p["wv"], dtype))
+    g = Fn.silu(torch.einsum("bsd,de->bse", xg, L.gathered(p["wg"], dtype)))
+    return r, k, v, g, logw
+
+
+def _heads(t, nh: int, hd: int):
+    return t.reshape(*t.shape[:-1], nh, hd)
+
+
+def _group_norm(y, scale, nh: int, eps: float):
+    """Per-head layer norm of (B, S, D) laid out as (B, S, nh, hd), in
+    float32 with the population variance."""
+    b, s, d = y.shape
+    yh = y.reshape(b, s, nh, d // nh).to(torch.float32)
+    mean = yh.mean(dim=-1, keepdim=True)
+    var = yh.var(dim=-1, keepdim=True, correction=0)
+    yh = (yh - mean) * torch.rsqrt(var + eps)
+    return (yh.reshape(b, s, d) * scale).to(y.dtype)
+
+
+def _wkv_scan(r, k, v, logw, u, s0):
+    """The exact WKV6 recurrence in float32, one step a position.
+    r/k/v (B, S, nh, hd); logw (B, S, nh, hd) the log-decay; u (nh, hd);
+    s0 (B, nh, hd, hd). y_t reads s + u * k_t v_t^T before the decay
+    update. Returns (y (B, S, nh, hd) float32, s_final)."""
+    r, k, v = (t.to(torch.float32) for t in (r, k, v))
+    decay = torch.exp(logw.to(torch.float32))[..., None]   # (B,S,nh,hd,1)
+    u = u.to(torch.float32)[None, :, :, None]
+    s = s0.to(torch.float32)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # rank-1 update
+        # addcmul: one kernel, and one rounding as XLA's fused multiply-add
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                               torch.addcmul(s, u, kv)))
+        s = torch.addcmul(kv, decay[:, t], s)
+    return torch.stack(ys, dim=1), s
+
+
+def rwkv6_forward(p, x, cfg, state=None, return_state: bool = False):
+    """x (B, S, D). ``state`` carries (x_prev, wkv) across segments and
+    decode steps; with ``return_state``, ``(out, state)``."""
+    b, s, d = x.shape
+    nh, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    if state is None:
+        state = init_rwkv6_state(cfg, b, x.device)
+    r, k, v, g, logw = _rwkv_inputs(p, x, state["x_prev"], cfg)
+    y, s_f = _wkv_scan(_heads(r, nh, hd), _heads(k, nh, hd),
+                       _heads(v, nh, hd), _heads(logw, nh, hd), p["u"],
+                       state["wkv"])
+    y = y.reshape(b, s, d).to(cfg.dtype)
+    y = _group_norm(y, p["ln_x"], nh, cfg.norm_eps) * g
+    out = torch.einsum("bse,ed->bsd", y, L.gathered(p["wo"], cfg.dtype))
+    if return_state:
+        return out, {"x_prev": x[:, -1].to(cfg.dtype), "wkv": s_f}
+    return out
+
+
+def init_rwkv6_state(cfg, batch: int, device=None):
+    d = cfg.d_model
+    nh, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    return {"x_prev": torch.zeros((batch, d), dtype=cfg.dtype,
+                                  device=device),
+            "wkv": torch.zeros((batch, nh, hd, hd), dtype=torch.float32,
+                               device=device)}
+
+
+# --- rwkv channel-mix (its FFN counterpart; token-shifted squared relu) ----
+
+def init_rwkv_cm(gen: torch.Generator, cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    dev = gen.device
+    return {"mu_k": torch.rand((d,), generator=gen, dtype=torch.float32,
+                               device=dev),
+            "mu_r": torch.rand((d,), generator=gen, dtype=torch.float32,
+                               device=dev),
+            "wk": L.init_dense(gen, (d, f), d),
+            "wv": L.init_dense(gen, (f, d), f),
+            "wr": L.init_dense(gen, (d, d), d)}
+
+
+def rwkv_cm_forward(p, x, cfg, x_prev=None, return_state: bool = False):
+    """x (B, S, D); ``x_prev`` (B, D) the token before x[:, 0] (zeros if
+    None). With ``return_state``, ``(out, x[:, -1])``."""
+    dtype = cfg.dtype
+    if x_prev is None:
+        x_prev = torch.zeros((x.shape[0], x.shape[-1]), dtype=dtype,
+                             device=x.device)
+    xx = _token_shift(x, x_prev)
+    xk = x + xx * p["mu_k"].to(dtype)
+    xr = x + xx * p["mu_r"].to(dtype)
+    kk = torch.einsum("bsd,df->bsf", xk, L.gathered(p["wk"], dtype))
+    kk = torch.square(torch.relu(kk))
+    out = torch.einsum("bsf,fd->bsd", kk, L.gathered(p["wv"], dtype))
+    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
+                                   L.gathered(p["wr"], dtype)))
+    out = r * out
+    if return_state:
+        return out, x[:, -1].to(dtype)
+    return out
+
+
+# ===========================================================================
+# Mamba (selective SSM)
+# ===========================================================================
 
 def init_mamba(gen: torch.Generator, cfg):
     d = cfg.d_model

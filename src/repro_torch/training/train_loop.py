@@ -59,7 +59,16 @@ def _chunked_xent(params, x, labels, cfg: ModelConfig) -> torch.Tensor:
 
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
             aux_weight: float):
-    x, aux = lm.forward(params, batch["tokens"], cfg, return_features=True)
+    """``batch``: ``tokens`` and ``labels`` (B, S), and ``frames`` (B,
+    n_frames, D) for an encoder-decoder model or ``image_embeds`` (B,
+    n_img_tokens, D) for a vision model."""
+    kwargs = {}
+    if cfg.is_encdec:
+        kwargs["frames"] = batch["frames"]
+    if cfg.n_img_tokens:
+        kwargs["memory"] = batch["image_embeds"]
+    x, aux = lm.forward(params, batch["tokens"], cfg, return_features=True,
+                        **kwargs)
     loss = _chunked_xent(params, x, batch["labels"].long(), cfg)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux,

@@ -46,7 +46,8 @@ def test_scan_covers_the_port():
     assert {"fcm_engine.py", "solver.py", "ops.py", "chip_smoke.py",
             "ssm.py", "train_loop.py", "selective_scan.py", "distributed.py",
             "batched.py", "ref.py", "serve.py", "checkpoint.py",
-            "engine.py"} <= names
+            "engine.py", "deepseek_v2_236b.py", "rwkv6_1b6.py",
+            "whisper_tiny.py", "llama32_vision_90b.py"} <= names
     assert not _forbidden("repro_torch.core")
     assert _forbidden("repro.core.solver") and _forbidden("jax.numpy")
 

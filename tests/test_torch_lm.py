@@ -204,13 +204,6 @@ def test_block_forward_matches_jax(mixer, ffn, router):
     _close(float(taux), float(jaux), 1e-4, 0.0, "block aux")
 
 
-def test_unported_kinds_raise():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="later"):
-        TBK.init_block(torch.Generator().manual_seed(0), tcfg,
-                       TC.BlockDesc(mixer="rwkv6", ffn="rwkv_cm"))
-
-
 @pytest.fixture(scope="module")
 def model():
     """The reduced Jamba model's JAX parameters, the port's copy, and a
