@@ -162,7 +162,26 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    ``device="cpu"`` (tokens equal, prefill and decode logits within
    SERVE_CPU_RTOL, two ``make_train_step`` steps' losses and every
    parameter and moment leaf within TRAIN_RTOL) and ``launch.serve.main
-   --reduced`` on the card.
+   --reduced`` on the card;
+13. train: LM training through ``repro_torch.launch.train``, every run
+   with the launch counts set to 0 just before and read just after:
+   13a ``launch.train.main`` on the whole llama3.2-1b at the launcher's
+   defaults (batch 8, seq 128, no checkpoints), 20 steps, the loss
+   falling, with step ms, tokens/s, peak memory and straggler flags; 13b
+   jamba-v0.1-52b at its published widths, depth cut to its block 0
+   (Mamba, SwiGLU) repeated 4 times, float32 compute, 4 steps at
+   (2, 512) through the launcher's loop with ``mamba_pallas`` (the scan
+   launched in every Mamba layer's forward and its recompute), step 0
+   held within 1e-3 of the plain loop's; 13c reduced llama3.2-1b with
+   the int8 cross-pod mean on (2, 1, 1) and (2, 2, 1) pod meshes and
+   uncompressed on (2, 2), granite-moe-3b-a800m's expert-parallel branch
+   on (2, 2) and (1, 4), and jamba on (2, 2) (the scan per dp shard), each
+   mesh naming the card 2 or 4 times, 2 steps held against the same mesh
+   of ``cpu`` entries (and the dense one against one device); 13d the
+   fault drill (a pipeline fault at step 12 restarts from step 10's
+   checkpoint and ends at the uninterrupted run's state), a 4-shard
+   checkpoint resumed on 2 shards through ``reshard_state``, and a
+   stalled step flagged by ``StepTimer``.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -4163,6 +4182,476 @@ def archs_path(counters, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM training through the launcher
+# ---------------------------------------------------------------------------
+
+#: 13a: the launcher's defaults (batch 8, seq 128) on the whole
+#: llama3.2-1b, for this many steps
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS = 20
+#: 13b: jamba-v0.1-52b at its published widths, depth cut to its block 0
+#: (Mamba mixer, SwiGLU FFN) repeated 4 times: (batch, seq, steps)
+JAMBA_TRAIN = (2, 512, 4)
+#: 13b: step 0's loss and gradient norm, kernel against the plain loop,
+#: both float32 compute: the scans' outputs differ by rounding
+#: (SELSCAN_TOL), and four layers and the backward act on them
+JAMBA_TRAIN_RTOL = 1e-3
+#: 13c: (tag, arch, mesh shape, axes, compress_cross_pod); each mesh
+#: names the one card 2 or 4 times
+TRAIN_MESHES = (
+    ("llama pod2 int8", "llama3.2-1b", (2, 1, 1), ("pod", "data", "model"),
+     True),
+    ("llama pod2 dp2 int8", "llama3.2-1b", (2, 2, 1),
+     ("pod", "data", "model"), True),
+    ("llama dp2 tp2", "llama3.2-1b", (2, 2), ("data", "model"), False),
+    ("granite dp2 tp2 EP", "granite-moe-3b-a800m", (2, 2), ("data", "model"),
+     False),
+    ("granite tp4 EP", "granite-moe-3b-a800m", (1, 4), ("data", "model"),
+     False),
+    ("jamba dp2 tp2", "jamba-v0.1-52b", (2, 2), ("data", "model"), False),
+)
+#: 13c / 13d: (batch, seq) of the reduced configs' steps
+TRAIN_SHAPE = (4, 64)
+#: 13d: the fault drill's steps, checkpoint interval and faulty step
+DRILL = (20, 5, 12)
+
+
+#: 13c: the absolute floor beside TRAIN_RTOL for parameter leaves (the
+#: bar of tests/test_torch_lm.py): AdamW moves a leaf whose gradient is
+#: rounding noise by about lr whatever its size, so a zero-initialised
+#: bias is about 3e-6 in size after two warm-up steps, and its error
+#: against its own max measures that noise
+PARAM_ATOL = 1e-6
+
+
+def _params_within(TO, got, want, what):
+    """Every leaf of ``got`` within TRAIN_RTOL of its max |want| plus
+    PARAM_ATOL; returns the largest error against a leaf's max."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(TO.tree_leaves(got),
+                                   TO.tree_leaves(want))):
+        d = float((a.cpu().float() - b.float()).abs().max())
+        top = float(b.float().abs().max())
+        require(d <= TRAIN_RTOL * top + PARAM_ATOL,
+                f"{what}: parameter leaf {i} lies {d:.3g} from the cpu "
+                f"mesh's, its max |value| {top:.3g}")
+        worst = max(worst, d / max(top, 1e-30))
+    return worst
+
+
+def _max_leaf_err(TO, got, want):
+    """The largest |got - want| of a leaf against that leaf's max |want|."""
+    return max(_max_rel(a.cpu(), b.cpu()) for a, b in
+               zip(TO.tree_leaves(got), TO.tree_leaves(want)))
+
+
+def train_llama_whole(TC, TLM, TO, TP, TT, TTR, counters, dev, card):
+    """13a: ``launch.train.main`` on the whole llama3.2-1b at the
+    launcher's defaults, 20 steps, no checkpoints (the card is the
+    default device, one card gives no mesh)."""
+    import contextlib
+    import io
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = TTR.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("summary ")]
+    require(rc == 0 and "training complete" in text and lines,
+            f"13a launch.train.main: rc {rc}, output {text!r}")
+    s = json.loads(lines[-1][len("summary "):])
+    for ln in text.splitlines():
+        if ln.startswith(("arch=", "step ")):
+            print("  " + ln)
+    require(s["steps"] == TRAIN_STEPS and s["restarts"] == 0,
+            f"13a ran {s}")
+    require(np.isfinite(s["loss_last"]) and s["loss_last"] < s["loss_first"],
+            f"13a: loss {s['loss_first']} at step 0, {s['loss_last']} at "
+            f"step {TRAIN_STEPS - 1}: it did not fall")
+    require(sum(launches.values()) == 0,
+            f"13a: the dense model launched {launches}")
+    n = sum(t.numel() for t in TO.tree_leaves(
+        TLM.abstract_params(TC.get_config(TRAIN_ARCH))))
+    # where a step's time goes: one more step of the same run, profiled
+    cfg = TC.get_config(TRAIN_ARCH)
+    state, step_fn, _, _ = TTR.build(cfg, TT.TrainConfig(), device=dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in TP.make_batch(
+        cfg, TC.ShapeConfig("train", "train", 128, 8), 0).items()}
+    state, _ = step_fn(state, batch)
+    holder = [state]
+
+    def one():
+        holder[0], m = step_fn(holder[0], batch)
+        float(m["loss"])
+
+    rows = profile_call(one, card, f"of a {TRAIN_ARCH} train step (13a)")
+    gemm = sum(r[0] for r in rows if any(
+        w in r[2].lower() for w in ("gemm", "sm90_xmma", "cutlass", "nvjet")))
+    if rows:
+        print(f"    GEMM kernels {gemm / 1e3:.2f} ms of "
+              f"{sum(r[0] for r in rows) / 1e3:.2f} ms device time, "
+              f"{len(rows)} kernel names")
+    del holder, state
+    torch.cuda.empty_cache()
+    print(f"  13a {TRAIN_ARCH} whole ({n / 1e9:.4f} B float32 masters, bf16 "
+          f"compute), (8, 128), {TRAIN_STEPS} steps in {wall:.1f} s: loss "
+          f"{s['loss_first']:.4f} at step 0 -> {s['loss_last']:.4f} at step "
+          f"{TRAIN_STEPS - 1}; step {s['step_ms_median']:.1f} ms (median "
+          f"past step 0), {s['tokens_per_s']:.0f} tokens/s, peak "
+          f"{s['peak_allocated_bytes'] / 2**30:.2f} GiB allocated, "
+          f"straggler flags {s['straggler_flags']}; no kernel of the table "
+          f"on this path [{card}]")
+    return s
+
+
+def train_jamba_wide(TC, TO, TT, TTR, counters, dev, card):
+    """13b: jamba-v0.1-52b at every published width, depth cut to block 0
+    repeated 4 times, float32 compute: 4 steps through the launcher's loop
+    with ``mamba_pallas``, then step 0 with the plain loop from the same
+    draw. Returns the scan's launches in the 4 steps."""
+    b, s, steps = JAMBA_TRAIN
+    base = TC.get_config(ARCH)
+    cfg = dataclasses.replace(base, group_layout=base.group_layout[:1],
+                              n_layers=4, mamba_pallas=True,
+                              dtype=torch.float32)
+    shape = TC.ShapeConfig("train", "train", s, b)
+    quiet = lambda *_: None  # noqa: E731
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = TTR.train(cfg, shape, TT.TrainConfig(), steps, device=dev,
+                    log=quiet)
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(t.numel() for t in TO.tree_leaves(run.state["params"]))
+    summ = TTR.summary(run, shape)
+    # every Mamba layer's scan runs in each step's forward, and again in
+    # as much of the recompute under remat as the backward asks for
+    # (torch.utils.checkpoint stops a recompute once it has what it needs)
+    want = launches["selective_scan"]
+    require(want >= cfg.n_layers * steps and want % steps == 0
+            and sum(launches.values()) == want,
+            f"13b: {steps} steps launched {launches}: expected the "
+            f"selective scan alone, at least {cfg.n_layers} a step")
+    losses = [run.losses[i] for i in range(steps)]
+    gn0 = run.grad_norms[0]
+    del run
+    torch.cuda.empty_cache()
+    ref = TTR.train(dataclasses.replace(cfg, mamba_pallas=False), shape,
+                    TT.TrainConfig(), 1, device=dev, log=quiet)
+    require(_counts(counters)["selective_scan"] == want,
+            "13b: the plain loop launched the scan")
+    rels = []
+    for what, a, p in (("loss", losses[0], ref.losses[0]),
+                       ("gradient norm", gn0, ref.grad_norms[0])):
+        rel = abs(a - p) / abs(p)
+        rels.append(rel)
+        require(np.isfinite(a) and rel <= JAMBA_TRAIN_RTOL,
+                f"13b step 0 {what}: {a!r} with the kernel, {p!r} with the "
+                f"plain loop, {rel:.3g} relative, over {JAMBA_TRAIN_RTOL}")
+    plain_ms = ref.step_ms[0]
+    print(f"  13b {ARCH} at its widths, block 0 x 4 ({n / 1e9:.4f} B "
+          f"parameters, float32 compute), ({b}, {s}), {steps} steps through "
+          f"launch.train.train in {wall:.1f} s: losses "
+          f"{[round(v, 5) for v in losses]}; step {summ['step_ms_median']:.1f}"
+          f" ms (median past step 0), plain-loop step 0 {plain_ms:.1f} ms; "
+          f"peak {peak / 2**30:.2f} GiB allocated; selective_scan "
+          f"{want} launches ({want // steps} a step: {cfg.n_layers} in the "
+          f"forward, the rest in the recompute); "
+          f"step 0 loss {losses[0]:.6f} (plain {ref.losses[0]:.6f}), grad "
+          f"norm {gn0:.6f} (plain {ref.grad_norms[0]:.6f}), within "
+          f"{max(rels):.3g} relative [{card}]")
+    del ref
+    torch.cuda.empty_cache()
+    return want
+
+
+def _mesh_steps(TC, TT, TP, sh, cfg, tcfg, params, mesh, dev, steps=2):
+    """``steps`` train steps of ``cfg`` from ``params`` under ``mesh``
+    (None: one device) with the state on ``dev``; (state, metrics,
+    step-0 gradients of a compressed step or None)."""
+    TO = TT.opt
+    state = {"params": TO.tree_map(lambda t: t.to(dev), params),
+             "opt": None, "step": torch.zeros((), dtype=torch.int32,
+                                              device=dev)}
+    state["opt"] = TO.init_opt_state(state["params"])
+    b, s = TRAIN_SHAPE
+    shape = TC.ShapeConfig("t", "train", s, b)
+    step = TT.make_train_step(cfg, tcfg)
+    metrics, grads = [], None
+    with sh.parallelism(sh.make_parallelism(mesh)):
+        for i in range(steps):
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in
+                     TP.make_batch(cfg, shape, i).items()}
+            if i == 0 and tcfg.compress_cross_pod:
+                grads, _ = TT._pod_grads(state["params"], batch, cfg, tcfg,
+                                         sh.current())
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, grads
+
+
+def train_meshes(TC, TD, TLM, TO, TT, TP, sh, counters, dev, card):
+    """13c: 2 steps of each TRAIN_MESHES case at the reduced config on a
+    mesh naming the card 2 or 4 times, against the same mesh of ``cpu``
+    entries (losses and gradient norms within TRAIN_RTOL, every parameter
+    leaf within TRAIN_RTOL of its max plus PARAM_ATOL; uncompressed,
+    every moment leaf
+    too; compressed, the step-0 int8 mean gradients within one
+    quantization step of the CPU's and of the uncompressed per-pod
+    mean, the moments being those gradients); the uncompressed dense
+    case also against one device on the card. Returns the scan's
+    launches of the jamba case."""
+    scan = None
+    for tag, arch, shape, axes, compress in TRAIN_MESHES:
+        cfg = dataclasses.replace(TC.get_config(arch).reduced(),
+                                  mamba_pallas=arch == ARCH)
+        tcfg = TT.TrainConfig(compress_cross_pod=compress)
+        n = int(np.prod(shape))
+        params = TLM.init_params(0, cfg, device="cpu")
+        card_mesh = TD.make_mesh(shape, axes, devices=[dev] * n)
+        cpu_mesh = TD.make_mesh(shape, axes, devices=["cpu"] * n)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got, gm, gg = _mesh_steps(TC, TT, TP, sh, cfg, tcfg, params,
+                                  card_mesh, dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _counts(counters)
+        want, wm, wg = _mesh_steps(TC, TT, TP, sh, cfg, tcfg, params,
+                                   cpu_mesh, "cpu")
+        for i, (a, c) in enumerate(zip(gm, wm)):
+            for k in ("loss", "grad_norm", "aux_loss"):
+                require(np.isfinite(a[k]) and abs(a[k] - c[k])
+                        <= TRAIN_RTOL * abs(c[k]),
+                        f"13c {tag} step {i} {k}: {a[k]!r} on the card, "
+                        f"{c[k]!r} on the cpu mesh")
+        p_err = _params_within(TO, got["params"], want["params"],
+                               f"13c {tag}")
+        notes = [f"parameters within {p_err:.3g} of their max (+ "
+                 f"{PARAM_ATOL:g})"]
+        if compress:
+            pods = shape[0]
+            worst_q = worst_mean = 0.0
+            flips = 0
+            b = TRAIN_SHAPE[0]
+            batch = {k: torch.as_tensor(v) for k, v in TP.make_batch(
+                cfg, TC.ShapeConfig("t", "train", TRAIN_SHAPE[1], b),
+                0).items()}
+            per_pod = []
+            for k in range(pods):
+                sub = sh.sub_mesh(cpu_mesh, "pod", k)
+                with sh.parallelism(sh.make_parallelism(sub)):
+                    per_pod.append(TT._microbatch_grads(
+                        params, {n_: v[k * b // pods:(k + 1) * b // pods]
+                                 for n_, v in batch.items()}, cfg, tcfg)[0])
+            for g, w, *pp in zip(*(TO.tree_leaves(t) for t in
+                                   [gg, wg] + per_pod)):
+                q = max(float(x.abs().max()) for x in pp) / 127.0
+                d = (g.cpu() - w).abs()
+                worst_q = max(worst_q, float(d.max()) / max(q, 1e-30))
+                flips += int((d > 0.25 * q).sum())
+                mean = sum(pp) / pods
+                worst_mean = max(worst_mean, float(
+                    (g.cpu() - mean).abs().max()) / max(q, 1e-30))
+            require(worst_q <= 1.0 and worst_mean <= 1.0,
+                    f"13c {tag}: the int8 mean gradients lie {worst_q:.3g} "
+                    f"quantization steps from the cpu mesh's and "
+                    f"{worst_mean:.3g} from the uncompressed mean")
+            notes.append(f"int8 mean gradients within {worst_q:.3g} "
+                         f"quantization steps of the cpu mesh's ({flips} "
+                         f"elements a rounding apart) and {worst_mean:.3g} "
+                         f"of the uncompressed mean")
+        else:
+            m_err = _max_leaf_err(TO, got["opt"], want["opt"])
+            require(m_err <= TRAIN_RTOL, f"13c {tag}: a moment leaf lies "
+                    f"{m_err:.3g} of its max from the cpu mesh's")
+            notes.append(f"moments within {m_err:.3g}")
+        if not compress and cfg.moe is None and arch != ARCH:
+            one, om, _ = _mesh_steps(TC, TT, TP, sh, cfg, tcfg, params,
+                                     None, dev)
+            same = all(torch.equal(a, c) for a, c in zip(
+                TO.tree_leaves(got), TO.tree_leaves(one)))
+            o_err = _max_leaf_err(TO, got, one)
+            require(o_err <= TRAIN_RTOL and [m["loss"] for m in om]
+                    == [m["loss"] for m in gm],
+                    f"13c {tag}: the mesh step lies {o_err:.3g} from one "
+                    f"device's on the card")
+            notes.append("one device's state "
+                         + ("bit for bit" if same else f"within {o_err:.3g}"))
+        if arch == ARCH:
+            n_mamba = sum(d.mixer == "mamba" for d in cfg.group_layout)
+            dp = dict(zip(axes, shape))["data"]
+            scan = launches["selective_scan"]
+            require(scan >= 2 * n_mamba * dp and scan % dp == 0
+                    and sum(launches.values()) == scan,
+                    f"13c {tag}: launched {launches}: expected the scan "
+                    f"alone, once a dp shard, at least {n_mamba} Mamba "
+                    f"layers x {dp} shards x 2 steps")
+        else:
+            require(sum(launches.values()) == 0,
+                    f"13c {tag}: launched {launches}")
+        print(f"  13c {tag} {dict(zip(axes, shape))}: 2 steps in {ms:.0f} ms"
+              f" on the card, losses {[round(m['loss'], 6) for m in gm]} "
+              f"(cpu mesh {[round(m['loss'], 6) for m in wm]}); "
+              + "; ".join(notes) + f"; launches {launches} [{card}]")
+    return scan
+
+
+def fault_drill(TC, TD, TO, TT, TTR, TE, TP, dev, card):
+    """13d: the fault drill at reduced llama3.2-1b, in a temporary
+    directory the phase deletes: a pipeline that raises once at step 12
+    (--ckpt-every 5, --steps 20) restarts from step 10's checkpoint and
+    ends at an uninterrupted run's state; a 4-shard checkpoint resumed on
+    2 shards through reshard_state takes 2 steps alike the 4-shard run's;
+    a stalled step is flagged by StepTimer."""
+    import shutil
+    import tempfile
+    steps, every, at = DRILL
+    cfg = TC.get_config(TRAIN_ARCH).reduced()
+    b, s = TRAIN_SHAPE
+    shape = TC.ShapeConfig("train", "train", s, b)
+    tcfg = TT.TrainConfig()
+    quiet = lambda *_: None  # noqa: E731
+    fired = []
+
+    def faulty(cfg_, shape_, start):
+        for i, batch in enumerate(TP.batches(cfg_, shape_, start)):
+            if start + i == at and not fired:
+                fired.append(start + i)
+                raise RuntimeError(f"injected fault at step {at}")
+            yield batch
+
+    def arrays(d, step):
+        with np.load(os.path.join(d, f"step_{step:08d}",
+                                  "arrays.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    try:
+        t0 = time.perf_counter()
+        clean = TTR.train(cfg, shape, tcfg, steps, device=dev,
+                          ckpt_dir=os.path.join(tmp, "clean"),
+                          ckpt_every=every, log=quiet)
+        resumed_from = []
+        real = TTR.ckpt.load_checkpoint
+        TTR.ckpt.load_checkpoint = lambda d, like, **kw: (
+            resumed_from.append(TTR.ckpt.latest_step(d)) or real(d, like,
+                                                                 **kw))
+        try:
+            drill = TTR.train(cfg, shape, tcfg, steps, device=dev,
+                              ckpt_dir=os.path.join(tmp, "drill"),
+                              ckpt_every=every, batches=faulty, log=quiet)
+        finally:
+            TTR.ckpt.load_checkpoint = real
+        wall = time.perf_counter() - t0
+        require(fired == [at] and drill.restarts == 1
+                and resumed_from == [10],
+                f"13d: fault at {fired}, {drill.restarts} restarts, resumed "
+                f"from {resumed_from}")
+        want = arrays(os.path.join(tmp, "clean"), steps)
+        got = arrays(os.path.join(tmp, "drill"), steps)
+        require(sorted(got) == sorted(want) and int(got["step"]) == steps,
+                "13d: the final checkpoints differ in leaves or step")
+        differ = [k for k in want if not np.array_equal(got[k], want[k])]
+        worst = max((_max_rel(torch.from_numpy(got[k]).float(),
+                              torch.from_numpy(want[k]).float())
+                     for k in differ), default=0.0)
+        require(worst <= TRAIN_RTOL, f"13d: the resumed run's final "
+                f"checkpoint lies {worst:.3g} from the uninterrupted one's")
+        same_losses = drill.losses == clean.losses
+        print(f"  13d fault at step {at}: restarted from step 10's "
+              f"checkpoint, ran to step {steps} ({wall:.1f} s for both "
+              f"runs); final checkpoint "
+              + ("bit-equal to the uninterrupted run's" if not differ else
+                 f"{len(differ)} of {len(want)} leaves not bit-equal, within "
+                 f"{worst:.3g} of their max (the card's scatter-add in the "
+                 f"backward of the embedding gather and of the "
+                 f"cross-entropy's target gather adds in no fixed order)")
+              + f"; losses of steps 0-{steps - 1} "
+              + ("equal" if same_losses else "not all equal") + f" [{card}]")
+
+        # a 4-shard state resumed on 2 shards
+        m4 = TD.make_mesh((4, 1), ("data", "model"), devices=[dev] * 4)
+        m2 = TD.make_mesh((2, 1), ("data", "model"), devices=[dev] * 2)
+        base = os.path.join(tmp, "four")
+        TTR.train(cfg, shape, tcfg, 4, mesh=m4, ckpt_dir=base, log=quiet)
+        for d in ("on4", "on2"):
+            shutil.copytree(base, os.path.join(tmp, d))
+        through = TTR.train(cfg, shape, tcfg, 6, mesh=m4,
+                            ckpt_dir=os.path.join(tmp, "on4"), log=quiet)
+        moved = TTR.train(cfg, shape, tcfg, 6, mesh=m2,
+                          ckpt_dir=os.path.join(tmp, "on2"), log=quiet)
+        r_err = _max_leaf_err(TO, moved.state, through.state)
+        require(sorted(moved.losses) == [4, 5] and r_err <= TRAIN_RTOL,
+                f"13d: resumed on 2 shards the state lies {r_err:.3g} from "
+                f"the 4-shard run's (steps {sorted(moved.losses)})")
+        print(f"  13d a step-4 checkpoint of a (4, 1) mesh resumed on (2, 1) "
+              f"through reshard_state: steps 4-5 within "
+              f"{r_err:.3g} of the 4-shard run's; losses "
+              f"{[round(moved.losses[k], 6) for k in (4, 5)]} (4 shards "
+              f"{[round(through.losses[k], 6) for k in (4, 5)]})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    timer = TE.StepTimer()
+    for _ in range(8):
+        timer.start()
+        torch.cuda.synchronize()
+        timer.stop()
+    timer.start()
+    time.sleep(0.05)
+    timer.stop()
+    require(timer.total_flagged == 1 and timer.consecutive_slow == 1,
+            f"13d: a stalled step was not flagged ({timer.total_flagged} "
+            f"flagged)")
+    print(f"  13d StepTimer: a 50 ms stall after 8 steps of median "
+          f"{sorted(timer.durations)[4] * 1e6:.0f} us flagged "
+          f"({timer.total_flagged} of 9)")
+
+
+def train_path(counters, dev, card):
+    """Phase 13; returns the selective scan's launches on the train
+    path (13b, and 13c's jamba mesh)."""
+    from repro_torch import configs as TC
+    from repro_torch.core import distributed as TD
+    from repro_torch.data import pipeline as TP
+    from repro_torch.launch import train as TTR
+    from repro_torch.models import lm as TLM
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import elastic as TE
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_loop as TT
+    out = {}
+    steps = (
+        ("13a", f"{TRAIN_ARCH} whole through launch.train.main",
+         lambda: train_llama_whole(TC, TLM, TO, TP, TT, TTR, counters, dev,
+                                   card)),
+        ("13b", f"{ARCH} at its widths, block 0 x 4, through the loop",
+         lambda: out.__setitem__("wide", train_jamba_wide(
+             TC, TO, TT, TTR, counters, dev, card))),
+        ("13c", "meshes naming the card 2 and 4 times",
+         lambda: out.__setitem__("mesh", train_meshes(
+             TC, TD, TLM, TO, TT, TP, sh, counters, dev, card))),
+        ("13d", "the fault drill, a resume on fewer shards, a stall",
+         lambda: fault_drill(TC, TD, TO, TT, TTR, TE, TP, dev, card)),
+    )
+    for tag, what, run in steps:
+        print(f"[train] {what} ({tag})")
+        t0 = time.perf_counter()
+        run()
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4455,6 +4944,11 @@ def main(dev=None):
     archs_path(counters, dev, card)
     print(f"[archs] {time.perf_counter() - t12:.1f} s")
 
+    # -- 13. LM training through the launcher -------------------------------
+    t13 = time.perf_counter()
+    trained = train_path(counters, dev, card)
+    print(f"[train] {time.perf_counter() - t13:.1f} s")
+
     kernels = [
         dict(name="histogram_bin", route="cuda",
              source="src/repro_torch/csrc/histogram_bin.cu",
@@ -4507,7 +5001,9 @@ def main(dev=None):
         dict(name="selective_scan", route="cuda",
              source="src/repro_torch/csrc/selective_scan.cu",
              replaces="src/repro/kernels/selective_scan.py:57",
-             prefill_launches=served["jamba"]["launches"], **k_scan),
+             prefill_launches=served["jamba"]["launches"],
+             train_launches=trained["wide"],
+             mesh_train_launches=trained["mesh"], **k_scan),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

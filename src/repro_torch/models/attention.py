@@ -130,6 +130,11 @@ def init_gqa(gen: torch.Generator, cfg):
     }
 
 
+def spec_gqa():
+    return {"wq": ("fsdp", "tp", None), "wk": ("fsdp", "tp", None),
+            "wv": ("fsdp", "tp", None), "wo": ("tp", None, "fsdp")}
+
+
 def gqa_qkv(p, x, positions, cfg):
     dtype = cfg.dtype
     q = torch.einsum("bsd,dhk->bhsk", x, L.gathered(p["wq"], dtype))
@@ -157,6 +162,16 @@ def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device=None):
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_cache_spec(cfg):
+    """KV heads rarely divide tp = 16 (GQA kv = 8), so the long cache is
+    sequence-sharded over tp instead."""
+    if cfg.n_kv_heads % 16 == 0:
+        kv = ("dp", "tp", None, None)
+    else:
+        kv = ("dp", None, "tp", None)
+    return {"k": kv, "v": kv}
 
 
 def gqa_decode(p, x, cache, pos: int, cfg):
@@ -191,6 +206,14 @@ def init_cross(gen: torch.Generator, cfg, gated: bool):
         # tanh-gated, starts closed: a fresh gated block adds nothing
         p["gate"] = torch.zeros((1,), dtype=torch.float32, device=gen.device)
     return p
+
+
+def spec_cross(gated: bool):
+    s = {"wq": ("fsdp", "tp", None), "wk": ("fsdp", "tp", None),
+         "wv": ("fsdp", "tp", None), "wo": ("tp", None, "fsdp")}
+    if gated:
+        s["gate"] = (None,)
+    return s
 
 
 def cross_kv(p, memory, cfg):
@@ -238,6 +261,13 @@ def init_mla(gen: torch.Generator, cfg):
     }
 
 
+def spec_mla():
+    return {"w_dq": ("fsdp", None), "w_uq": (None, "tp", None),
+            "w_dkv": ("fsdp", None), "w_uk": (None, "tp", None),
+            "w_uv": (None, "tp", None), "w_kr": ("fsdp", None),
+            "wo": ("tp", None, "fsdp")}
+
+
 def _mla_q(p, x, positions, cfg):
     m, dtype = cfg.mla, cfg.dtype
     cq = torch.einsum("bsd,dr->bsr", x, L.gathered(p["w_dq"], dtype))
@@ -281,6 +311,11 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype, device=None):
                                 dtype=dtype, device=device),
             "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
                                   dtype=dtype, device=device)}
+
+
+def mla_cache_spec(cfg):
+    # the compressed cache has no head dim: shard the sequence over tp
+    return {"c_kv": ("dp", "tp", None), "k_rope": ("dp", "tp", None)}
 
 
 def mla_decode(p, x, cache, pos: int, cfg):

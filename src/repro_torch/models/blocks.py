@@ -36,6 +36,10 @@ def init_gelu_mlp(gen: torch.Generator, d: int, f: int):
             "w_out": L.init_dense(gen, (f, d), f)}
 
 
+def spec_gelu_mlp():
+    return {"w_in": ("fsdp", "tp"), "w_out": ("tp", "fsdp")}
+
+
 def gelu_mlp(p, x, dtype):
     # the tanh form: jax.nn.gelu's default, not torch's (erf)
     h = Fn.gelu(torch.einsum("bsd,df->bsf", x, L.gathered(p["w_in"], dtype)),
@@ -77,6 +81,21 @@ def init_block(gen: torch.Generator, cfg, desc):
     return p
 
 
+def spec_block(cfg, desc):
+    """The logical specs of :func:`init_block`'s tree."""
+    s = {"norm1": L.spec_rmsnorm(), "norm2": L.spec_rmsnorm()}
+    s["mixer"] = {"gqa": A.spec_gqa, "mla": A.spec_mla,
+                  "cross": lambda: A.spec_cross(desc.gated),
+                  "rwkv6": S.spec_rwkv6, "mamba": S.spec_mamba}[desc.mixer]()
+    if desc.cross:
+        s["norm_x"] = L.spec_rmsnorm()
+        s["cross"] = A.spec_cross(desc.gated)
+    s["ffn"] = {"swiglu": L.spec_mlp, "gelu": spec_gelu_mlp,
+                "moe": lambda: M.spec_moe(cfg),
+                "rwkv_cm": S.spec_rwkv_cm}[desc.ffn]()
+    return s
+
+
 def init_block_cache(cfg, desc, batch: int, max_len: int, n_memory: int = 1,
                      device=None):
     """Decode-time state for one block, zeros on ``device``;
@@ -101,6 +120,26 @@ def init_block_cache(cfg, desc, batch: int, max_len: int, n_memory: int = 1,
         cache["cm_prev"] = torch.zeros((batch, cfg.d_model), dtype=cfg.dtype,
                                        device=device)
     return cache
+
+
+def block_cache_spec(cfg, desc):
+    """The logical specs of :func:`init_block_cache`'s tree."""
+    spec = {}
+    if desc.mixer in ("gqa", "mla"):
+        spec["attn"] = (A.gqa_cache_spec(cfg) if desc.mixer == "gqa"
+                        else A.mla_cache_spec(cfg))
+    elif desc.mixer == "rwkv6":
+        spec["rwkv"] = S.rwkv6_state_spec(cfg)
+        spec["cm_prev"] = ("dp", None)
+    elif desc.mixer == "mamba":
+        spec["mamba"] = S.mamba_state_spec(cfg)
+    if desc.mixer == "cross" or desc.cross:
+        kv = (("dp", "tp", None, None) if cfg.n_kv_heads % 16 == 0
+              else ("dp", None, "tp", None))
+        spec["cross_kv"] = {"k": kv, "v": kv}
+    if desc.ffn == "rwkv_cm":
+        spec["cm_prev"] = ("dp", None)
+    return spec
 
 
 def _apply_ffn(p, x, cfg, desc, cm_prev=None):

@@ -32,6 +32,10 @@ def init_rmsnorm(d: int, device=None):
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+def spec_rmsnorm():
+    return {"scale": (None,)}
+
+
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -45,6 +49,10 @@ def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int):
     return {"table": _normal(gen, (vocab, d), d ** -0.5)}
+
+
+def spec_embedding():
+    return {"table": ("tp", "fsdp")}
 
 
 def embed(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -94,6 +102,11 @@ def init_mlp(gen: torch.Generator, d: int, f: int):
         "w_up": _normal(gen, (d, f), d ** -0.5),
         "w_down": _normal(gen, (f, d), f ** -0.5),
     }
+
+
+def spec_mlp():
+    return {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+            "w_down": ("tp", "fsdp")}
 
 
 def mlp(p, x: torch.Tensor, dtype) -> torch.Tensor:

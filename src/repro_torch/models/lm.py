@@ -33,6 +33,7 @@ from .. import _device as DV
 from ..configs.base import BlockDesc, ModelConfig
 from . import blocks as B
 from . import layers as L
+from . import sharding as sh
 
 #: the encoder's block: bidirectional GQA and the GELU MLP
 ENC_DESC = BlockDesc(mixer="gqa", ffn="gelu")
@@ -62,6 +63,45 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Dict[str, Any]:
         params["enc_norm"] = L.init_rmsnorm(cfg.d_model, gen.device)
     return params
 
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical specs of :func:`init_params`'s tree: the same dicts
+    and lists, a tuple of logical axis names a leaf. A group's specs are
+    the JAX package's stacked ones without the leading stack axis
+    (:func:`repro_torch.models.sharding.stack_spec` adds it back)."""
+    group_spec = {f"b{i}": B.spec_block(cfg, d)
+                  for i, d in enumerate(cfg.group_layout)}
+    specs: Dict[str, Any] = {
+        "embed": L.spec_embedding(),
+        "groups": [group_spec for _ in range(cfg.n_groups)],
+        "final_norm": L.spec_rmsnorm(),
+    }
+    if cfg.is_encdec:
+        enc = {"b0": B.spec_block(cfg, ENC_DESC)}
+        specs["enc_groups"] = [enc for _ in range(cfg.enc_layers)]
+        specs["enc_norm"] = L.spec_rmsnorm()
+    return specs
+
+
+class _OnMeta(torch.overrides.TorchFunctionMode):
+    """Every factory call that names a device makes its tensor on the
+    meta device instead, drawing nothing (the generator is dropped)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+            kwargs.pop("generator", None)
+        return func(*args, **kwargs)
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """:func:`init_params`'s tree on the meta device: every leaf's shape
+    and dtype, no memory allocated and no number drawn (the JAX
+    package's ``eval_shape``), so it sizes configs of 100 B+ parameters."""
+    with _OnMeta():
+        return init_params(0, cfg, device="cpu")
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig):
     """The encoder (whisper): frame embeddings (B, n_frames, D) through
@@ -103,7 +143,8 @@ def _sqrt_factor(n: int) -> int:
 
 
 def _ckpt(fn, *args):
-    return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=sh.checkpoint_context_fn())
 
 
 def _scan_groups_remat(body, carry, groups, n_groups: int, remat: bool):
@@ -186,6 +227,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
              for i, d in enumerate(cfg.group_layout)}
             for _ in range(cfg.n_groups)]
 
+
+
+def cache_specs(cfg: ModelConfig):
+    """The logical specs of :func:`init_cache`'s list (one group's
+    specs a group)."""
+    group = {f"b{i}": B.block_cache_spec(cfg, d)
+             for i, d in enumerate(cfg.group_layout)}
+    return [group for _ in range(cfg.n_groups)]
 
 @torch.no_grad()
 def prefill(params, tokens: torch.Tensor, cache, cfg: ModelConfig,

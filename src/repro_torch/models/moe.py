@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN, on one device.
+"""Mixture-of-Experts FFN with expert parallelism.
 
 Routers: ``"softmax"`` (learned top-k) and ``"fcm"``, the paper's fuzzy
 bridge: the router's columns are cluster centers over token embeddings
@@ -6,8 +6,18 @@ and the gate is the FCM membership (Eq. 4, m = 2) cut to the top k.
 Dispatch is the JAX package's capacity-bounded first-come policy: each
 expert takes at most ``capacity`` (token, slot) pairs in token order,
 gathers their rows into a buffer, runs its SwiGLU, and the gated rows
-are added back per token. Expert parallelism over a tensor-parallel
-axis is not ported yet (``tp == 1``).
+are added back per token.
+
+**Expert parallelism.** Under a mesh whose ``"model"`` (tp) axis is
+larger than 1 the expert stacks are padded to a multiple of tp (dead
+experts are never routed to) and each tp rank owns ``E_pad / tp`` of
+them. The tokens split over the dp axes as the pruned ``("dp",)`` spec
+says, capacity comes from a shard's *local* token count, each (dp shard,
+tp rank) runs :func:`_local_expert_ffn` on its experts on its device,
+and the ranks' outputs are summed on the lead device in rank order (the
+JAX package's ``psum`` over tp). Routing, and so the aux loss, stays
+global. Per-shard capacity makes the result differ from ``tp == 1`` by
+design wherever capacity binds.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ import torch
 import torch.nn.functional as Fn
 
 from . import layers as L
+from . import sharding as sh
 
 
 def init_moe(gen: torch.Generator, cfg):
@@ -29,6 +40,15 @@ def init_moe(gen: torch.Generator, cfg):
     if e.n_shared > 0:
         p["shared"] = L.init_mlp(gen, d, e.n_shared * f)
     return p
+
+
+def spec_moe(cfg):
+    s = {"router": ("fsdp", None),
+         "w_gate": ("tp", "fsdp", None), "w_up": ("tp", "fsdp", None),
+         "w_down": ("tp", None, "fsdp")}
+    if cfg.moe.n_shared > 0:
+        s["shared"] = L.spec_mlp()
+    return s
 
 
 def _route(xf, router_w, cfg):
@@ -98,6 +118,37 @@ def _capacity(e, t_local: int) -> int:
     return int(max(e.top_k * t_local / e.n_experts * e.capacity_factor, 4))
 
 
+def _expert_parallel_ffn(p, xf, idx, gates, cfg, ctx: sh.Parallelism):
+    """The expert-parallel dispatch: each (dp shard, tp rank) runs
+    :func:`_local_expert_ffn` over its tokens and its experts on its
+    device; per shard, the ranks' outputs summed on ``xf``'s device in
+    rank order; the shards concatenated in order. xf (T, D) -> (T, D)."""
+    e = cfg.moe
+    tp = ctx.tp_size
+    e_pad = -(-e.n_experts // tp) * tp
+    ws = [p["w_gate"], p["w_up"], p["w_down"]]
+    if e_pad != e.n_experts:
+        ws = [torch.cat([w, w.new_zeros((e_pad - e.n_experts,)
+                                        + tuple(w.shape[1:]))]) for w in ws]
+    e_loc = e_pad // tp
+    shards = sh.dp_shards(ctx, xf.shape[0])
+    capacity = _capacity(e, xf.shape[0] // len(shards))
+    lead = xf.device
+    outs = []
+    for rows, coords in shards:
+        total = None
+        for r in range(tp):
+            dev = sh.device_at(ctx.mesh, {**coords, ctx.tp_axis: r})
+            sl = slice(r * e_loc, (r + 1) * e_loc)
+            part = _local_expert_ffn(
+                xf[rows].to(dev), idx[rows].to(dev), gates[rows].to(dev),
+                *(w[sl].to(dev) for w in ws), r * e_loc, capacity,
+                cfg.dtype).to(lead)
+            total = part if total is None else total + part
+        outs.append(total)
+    return torch.cat(outs)
+
+
 def moe_ffn(p, x, cfg):
     """x (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
     e = cfg.moe
@@ -105,8 +156,12 @@ def moe_ffn(p, x, cfg):
     t = b * s
     xf = x.reshape(t, d)
     idx, gates, aux = _route(xf, p["router"], cfg)
-    out = _local_expert_ffn(xf, idx, gates, p["w_gate"], p["w_up"],
-                            p["w_down"], 0, _capacity(e, t), cfg.dtype)
+    ctx = sh.current()
+    if ctx.tp_size > 1:
+        out = _expert_parallel_ffn(p, xf, idx, gates, cfg, ctx)
+    else:
+        out = _local_expert_ffn(xf, idx, gates, p["w_gate"], p["w_up"],
+                                p["w_down"], 0, _capacity(e, t), cfg.dtype)
     if "shared" in p:
         out = out + L.mlp(p["shared"], x, cfg.dtype).reshape(t, d)
     return out.reshape(b, s, d), aux

@@ -29,6 +29,13 @@ kernel runs instead, where ``S % 64 == 0`` and ``d_inner % 64 == 0``
 
 Decode (a state given, S = 1) keeps the plain recurrence.
 
+Under a mesh (:mod:`repro_torch.models.sharding`) the training forward's
+scan runs per dp shard: the batch rows split as the pruned ``("dp",)``
+spec says, each shard's scan on its device (the kernel's launch guard,
+``kernels/_build.on_device``, follows the tensors there), and the rows
+gathered back on the lead device. The scan is independent per row, so
+this changes no value.
+
 Mamba's state: {"ssm": (B, d_inner, d_state), "conv": (B, k - 1,
 d_inner)}.
 """
@@ -42,6 +49,7 @@ import torch.nn.functional as Fn
 from ..kernels import ops as kops
 from ..kernels import selective_scan as KSS
 from . import layers as L
+from . import sharding as sh
 
 
 _TSZ = 32      # rwkv6 ddlerp lora rank
@@ -73,6 +81,15 @@ def init_rwkv6(gen: torch.Generator, cfg):
         "wo": L.init_dense(gen, (d, d), d),
         "ln_x": torch.ones((d,), dtype=torch.float32, device=dev),
     }
+
+
+def spec_rwkv6():
+    return {"mu": (None, None), "ddlerp_a": ("fsdp", None),
+            "ddlerp_b": (None, None, "fsdp"), "w0": (None,),
+            "w_a": ("fsdp", None), "w_b": (None, "fsdp"),
+            "u": ("tp", None), "wr": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+            "wv": ("fsdp", "tp"), "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp"),
+            "ln_x": (None,)}
 
 
 def _token_shift(x, x_prev):
@@ -169,6 +186,10 @@ def init_rwkv6_state(cfg, batch: int, device=None):
                                device=device)}
 
 
+def rwkv6_state_spec(cfg):
+    return {"x_prev": ("dp", None), "wkv": ("dp", "tp", None, None)}
+
+
 # --- rwkv channel-mix (its FFN counterpart; token-shifted squared relu) ----
 
 def init_rwkv_cm(gen: torch.Generator, cfg):
@@ -181,6 +202,11 @@ def init_rwkv_cm(gen: torch.Generator, cfg):
             "wk": L.init_dense(gen, (d, f), d),
             "wv": L.init_dense(gen, (f, d), f),
             "wr": L.init_dense(gen, (d, d), d)}
+
+
+def spec_rwkv_cm():
+    return {"mu_k": (None,), "mu_r": (None,), "wk": ("fsdp", "tp"),
+            "wv": ("tp", "fsdp"), "wr": ("fsdp", None)}
 
 
 def rwkv_cm_forward(p, x, cfg, x_prev=None, return_state: bool = False):
@@ -231,6 +257,14 @@ def init_mamba(gen: torch.Generator, cfg):
         "d_skip": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": L.init_dense(gen, (di, d), di),
     }
+
+
+def spec_mamba():
+    return {"in_proj": ("fsdp", "tp"), "conv_w": ("tp", None),
+            "conv_b": ("tp",), "x_proj": ("tp", None),
+            "dt_proj": (None, "tp"), "dt_bias": ("tp",),
+            "a_log": ("tp", None), "d_skip": ("tp",),
+            "out_proj": ("tp", "fsdp")}
 
 
 def _causal_depthwise_conv(x, w, b, conv_state=None):
@@ -288,6 +322,23 @@ class SelectiveScan(torch.autograd.Function):
             return torch.autograd.grad(y, ins, g)
 
 
+
+def _sharded_scan(u, dt, bmat, cmat, a):
+    """:class:`SelectiveScan` on each dp shard's batch rows on its
+    device (one call without a mesh), the rows gathered on ``u``'s
+    device."""
+    ctx = sh.current()
+    shards = sh.dp_shards(ctx, u.shape[0])
+    if len(shards) == 1:
+        return SelectiveScan.apply(u, dt, bmat, cmat, a)
+    outs = []
+    for rows, coords in shards:
+        dev = sh.device_at(ctx.mesh, coords)
+        outs.append(SelectiveScan.apply(
+            *(t[rows].to(dev) for t in (u, dt, bmat, cmat)),
+            a.to(dev)).to(u.device))
+    return torch.cat(outs)
+
 def _scan_with_state(u, dt, bmat, cmat, a):
     """(y, h_final) of the zero-state recurrence from the selected
     ``selscan`` impl: the kernel's end-state form on the card, the plain
@@ -336,7 +387,7 @@ def mamba_forward(p, x, cfg, state=None, return_state: bool = False):
         if return_state:
             y, h_f = _scan_with_state(*scan_in)
         else:
-            y, h_f = SelectiveScan.apply(*scan_in), h0
+            y, h_f = _sharded_scan(*scan_in), h0
         y = y + p["d_skip"] * xc32
     else:
         y, h_f = _ssm_scan(xc, dt, bmat.to(torch.float32),
@@ -354,3 +405,7 @@ def init_mamba_state(cfg, batch: int, device=None):
                                 dtype=cfg.dtype, device=device),
             "ssm": torch.zeros((batch, di, cfg.mamba_d_state),
                                dtype=torch.float32, device=device)}
+
+
+def mamba_state_spec(cfg):
+    return {"conv": ("dp", None, "tp"), "ssm": ("dp", "tp", None)}

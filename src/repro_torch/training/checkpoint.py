@@ -127,12 +127,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(name.split("_")[1])
 
 
-def load_checkpoint(ckpt_dir: str, like,
-                    step: Optional[int] = None) -> Tuple[Any, Dict[str, Any]]:
-    """Restore into the structure of ``like`` (a tree of tensors). Each
-    leaf takes the file's dtype and lands on the device of ``like``'s
-    leaf at that path (the CPU where that leaf is not a tensor). Returns
-    (tree, manifest)."""
+def load_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
+                    device=None) -> Tuple[Any, Dict[str, Any]]:
+    """Restore into the structure of ``like`` (a tree of tensors, meta
+    tensors included). Each leaf takes the file's dtype and lands on
+    ``device`` when given, else on the device of ``like``'s leaf at that
+    path (the CPU where that leaf is not a tensor). Returns (tree,
+    manifest)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -155,7 +156,8 @@ def load_checkpoint(ckpt_dir: str, like,
                 raise ValueError(f"checkpoint leaf {k} has shape "
                                  f"{tuple(t.shape)}, the template "
                                  f"{tuple(leaf.shape)}")
-            dev = (leaf.device if isinstance(leaf, torch.Tensor)
+            dev = (torch.device(device) if device is not None
+                   else leaf.device if isinstance(leaf, torch.Tensor)
                    else torch.device("cpu"))
             out.append(t.to(dev))
     return _unflatten(like, out), manifest

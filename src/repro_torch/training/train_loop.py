@@ -1,11 +1,34 @@
 """The train step: the chunked cross-entropy loss, microbatch gradient
-accumulation and the AdamW update.
+accumulation, the optional int8 cross-pod gradient mean and the AdamW
+update.
 
 :func:`make_train_step` returns ``train_step(state, batch) -> (state,
 metrics)`` over ``state = {"params", "opt", "step"}``, as the JAX
 package's does; gradients come from :func:`torch.autograd.grad` on the
-float32 master parameters. The JAX package's int8 cross-pod gradient
-sync is not ported (one device).
+float32 master parameters. Call it under
+``sharding.parallelism(ctx)`` to run it on a mesh:
+
+- without compression the step computes the *global* function, as the
+  JAX step does whatever its mesh: one loss over the whole batch, the
+  router's aux loss from global means, capacity from the global token
+  count where tp == 1. Only what the function itself splits runs per
+  shard (the expert-parallel MoE dispatch and the Mamba scan's dp
+  shards, :mod:`repro_torch.models.sharding`);
+- with ``compress_cross_pod`` and a ``"pod"`` axis, pods are pure data
+  replicas: each pod's gradients come from its slice of the batch on its
+  own devices (under the pod's own ``("data", "model")`` mesh, so aux
+  loss and capacity are per pod), then
+  :func:`~repro_torch.training.grad_compress.compressed_psum_mean` over
+  ``"pod"`` and the metrics' mean over pods.
+
+Either way one AdamW update runs on the lead device, where the state
+lives.
+
+:func:`abstract_state`, :func:`state_specs` and :func:`batch_specs` give
+the state's shapes on the meta device and the logical specs of state and
+batch; :func:`to_stacked` and :func:`from_stacked` convert a state to
+and from the JAX package's layout (groups stacked on a leading axis),
+the layout the launcher's checkpoints use.
 """
 from __future__ import annotations
 
@@ -18,6 +41,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..models import layers as L
 from ..models import lm
+from ..models import sharding as sh
+from . import grad_compress as gc
 from . import optimizer as opt
 
 
@@ -25,6 +50,9 @@ from . import optimizer as opt
 class TrainConfig:
     optimizer: opt.OptimizerConfig = opt.OptimizerConfig()
     aux_loss_weight: float = 0.01
+    # int8-compress the cross-pod gradient mean (pods become pure data
+    # replicas); see grad_compress.py
+    compress_cross_pod: bool = False
 
 
 XENT_CHUNK = 512      # sequence positions per streamed cross-entropy chunk
@@ -50,7 +78,8 @@ def _chunked_xent(params, x, labels, cfg: ModelConfig) -> torch.Tensor:
         sl = slice(i * chunk, (i + 1) * chunk)
         if torch.is_grad_enabled():
             part = checkpoint(body, x[:, sl], labels[:, sl],
-                              use_reentrant=False)
+                              use_reentrant=False,
+                              context_fn=sh.checkpoint_context_fn())
         else:
             part = body(x[:, sl], labels[:, sl])
         total = total + part
@@ -118,12 +147,102 @@ def init_state(seed: int, cfg: ModelConfig,
                                 device=params["final_norm"]["scale"].device)}
 
 
+def abstract_state(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
+    """:func:`init_state`'s tree on the meta device: shapes and dtypes,
+    nothing allocated."""
+    params = lm.abstract_params(cfg)
+    return {"params": params,
+            "opt": opt.init_opt_state(params, tcfg.optimizer.moment_dtype),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def state_specs(cfg: ModelConfig):
+    pspec = lm.param_specs(cfg)
+    return {"params": pspec,
+            "opt": {"m": pspec, "v": pspec},
+            "step": ()}
+
+
+def batch_specs(cfg: ModelConfig):
+    spec = {"tokens": ("dp", None), "labels": ("dp", None)}
+    if cfg.is_encdec:
+        spec["frames"] = ("dp", None, None)
+    if cfg.n_img_tokens:
+        spec["image_embeds"] = ("dp", None, None)
+    return spec
+
+
+_STACKED = ("groups", "enc_groups")
+
+
+def _restack(state, params_fn, device):
+    """``state`` with ``params_fn`` over each parameter-shaped tree (the
+    parameters and both moments) and ``step`` moved to ``device``."""
+    return {"params": params_fn(state["params"]),
+            "opt": {k: params_fn(v) for k, v in state["opt"].items()},
+            "step": state["step"].to(device)}
+
+
+def to_stacked(state, device="cpu"):
+    """The state in the JAX package's layout on ``device``: each list of
+    groups stacked on a leading axis, leaf by leaf."""
+    def stack(tree):
+        return {k: (opt.tree_map(lambda *xs: torch.stack(
+                    [x.to(device) for x in xs]), *v) if k in _STACKED
+                    else opt.tree_map(lambda x: x.to(device), v))
+                for k, v in tree.items()}
+    return _restack(state, stack, device)
+
+
+def from_stacked(tree, device):
+    """:func:`to_stacked`'s inverse: the stacked groups as lists, every
+    leaf on ``device``."""
+    def unstack(t):
+        return {k: ([opt.tree_map(lambda x: x[g].to(device), v)
+                     for g in range(opt.tree_leaves(v)[0].shape[0])]
+                    if k in _STACKED
+                    else opt.tree_map(lambda x: x.to(device), v))
+                for k, v in t.items()}
+    return _restack(tree, unstack, device)
+
+
+def _pod_grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig,
+               ctx: sh.Parallelism):
+    """The compressed cross-pod gradients: each pod's
+    :func:`_microbatch_grads` on its slice of the batch, on the pod's
+    lead device under its own mesh, then the int8 mean over ``"pod"``
+    and the metrics' mean, both on the mesh's lead device."""
+    mesh = ctx.mesh
+    pods = sh.axis_sizes(mesh)["pod"]
+    per_pod = []
+    for k in range(pods):
+        sub = sh.sub_mesh(mesh, "pod", k)
+        dev = sub.lead
+        mb = {n: v.reshape((pods, v.shape[0] // pods) + tuple(v.shape[1:]))
+              [k].to(dev) for n, v in batch.items()}
+        local = opt.tree_map(lambda p: p.detach().to(dev), params)
+        with sh.parallelism(sh.make_parallelism(sub)):
+            per_pod.append(_microbatch_grads(local, mb, cfg, tcfg))
+    grads = gc.compressed_psum_mean([g for g, _ in per_pod], mesh, "pod")
+    metrics = {n: sum(m[n].to(mesh.lead) for _, m in per_pod) / pods
+               for n in per_pod[0][1]}
+    return grads, metrics
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()):
-    """Returns ``train_step(state, batch) -> (state, metrics)``."""
+    """Returns ``train_step(state, batch) -> (state, metrics)``; the mesh
+    is the calling thread's :func:`repro_torch.models.sharding.current`
+    context."""
 
     def train_step(state, batch):
-        grads, metrics = _microbatch_grads(state["params"], batch, cfg,
-                                           tcfg)
+        ctx = sh.current()
+        if (tcfg.compress_cross_pod and ctx.mesh is not None
+                and "pod" in ctx.mesh.axis_names):
+            grads, metrics = _pod_grads(state["params"], batch, cfg, tcfg,
+                                        ctx)
+        else:
+            grads, metrics = _microbatch_grads(state["params"], batch, cfg,
+                                               tcfg)
         params, opt_state, om = opt.adamw_step(
             state["params"], grads, state["opt"], state["step"],
             tcfg.optimizer)

@@ -10,6 +10,7 @@ import torch
 from repro_torch import configs as TC
 from repro_torch.core import solver as TS
 from repro_torch.launch import serve as TSV
+from repro_torch.launch import train as TTR
 from repro_torch.models import lm as TLM
 from repro_torch.serving import FCMServeEngine
 from repro_torch.training import checkpoint as TCK  # noqa: F401
@@ -47,7 +48,9 @@ def test_scan_covers_the_port():
             "ssm.py", "train_loop.py", "selective_scan.py", "distributed.py",
             "batched.py", "ref.py", "serve.py", "checkpoint.py",
             "engine.py", "deepseek_v2_236b.py", "rwkv6_1b6.py",
-            "whisper_tiny.py", "llama32_vision_90b.py"} <= names
+            "whisper_tiny.py", "llama32_vision_90b.py", "pipeline.py",
+            "grad_compress.py", "sharding.py", "elastic.py",
+            "train.py"} <= names
     assert not _forbidden("repro_torch.core")
     assert _forbidden("repro.core.solver") and _forbidden("jax.numpy")
 
@@ -60,8 +63,12 @@ def test_scan_covers_the_port():
     lambda: TT.init_state(0, TC.get_config("jamba-v0.1-52b").reduced()),
     lambda: TLM.init_cache(TC.get_config("llama3.2-1b").reduced(), 1, 8),
     lambda: TSV.main(["--arch", "llama3.2-1b", "--reduced"]),
+    lambda: TTR.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"]),
+    lambda: TTR.build(TC.get_config("llama3.2-1b").reduced(),
+                      TT.TrainConfig()),
 ], ids=["engine", "histogram_problem", "FCMProblem", "lm.init_params",
-        "train_loop.init_state", "lm.init_cache", "launch.serve.main"])
+        "train_loop.init_state", "lm.init_cache", "launch.serve.main",
+        "launch.train.main", "launch.train.build"])
 def test_entry_points_raise_without_a_card(monkeypatch, make):
     """Asked for no device on a machine without CUDA, an entry point
     raises instead of running on the CPU."""
