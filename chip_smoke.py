@@ -181,7 +181,23 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    fault drill (a pipeline fault at step 12 restarts from step 10's
    checkpoint and ends at the uninterrupted run's state), a 4-shard
    checkpoint resumed on 2 shards through ``reshard_state``, and a
-   stalled step flagged by ``StepTimer``.
+   stalled step flagged by ``StepTimer``;
+14. analysis: 14a each kernel of the table that has a kind in the JAX
+   package's analytic model (``roofline.kernel_step_costs``: rows 1-3,
+   6, 6b and 7-11), its device time from phases 3 and 5-7 folded through
+   ``roofline.kernel_cell`` with the byte widths the port's kernel reads
+   and writes, beside the row's hand-counted bound, failing above
+   FOLD_MAX of the roofline; 14b llama3.2-1b's train step at (8, 128)
+   and one iteration of ``build_sharded_fit`` on the 181-slice volume on
+   a one-card mesh, each counted by ``analysis.op_cost`` on fake tensors
+   and on real ones on the card (flops and bytes equal), the predicted
+   peak (arguments plus the fake step's live peak) within PEAK_RTOL of
+   ``max_memory_allocated``; 14c ``launch.dryrun`` for llama3.2-1b,
+   jamba-v0.1-52b and fcm-brainweb on both production meshes (memory,
+   the three terms, the bottleneck, fits_hbm, each cell's wall time);
+   14d the five FCM examples at full size on the card against a
+   ``device="cpu"`` run of each (labels up to float64-checked near-ties,
+   iterations equal, each example's own DSC bar).
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -200,10 +216,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: NVIDIA H100 SXM published peaks (data sheet): HBM3 bandwidth and
-#: float32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+from repro_torch.analysis import hw  # noqa: E402  (the H100's peaks)
 
 #: Solve tolerance against the plain version: values run 0-255 and the
 #: background center sits near 0, where rtol alone means nothing; the
@@ -244,6 +257,19 @@ SWEEP_SHAPES = ((256, 256), (512, 512), (1024, 1024))
 #: turns of each path a swept size, taken alternately
 SWEEP_TURNS = 15
 
+#: phase 14a's inputs, filled by phases 3 and 5-7: table row -> the
+#: JAX model's kind and shape (with the port's byte widths), the kernel's
+#: device time a call (profiler; None if not measured), its CUDA-event
+#: time a call and its hand-counted bound, both ms
+ROOFLINE = {}
+#: the largest roofline share a kernel may show against the model
+FOLD_MAX = 1.05
+
+
+def note_roofline(row, kind, shape, device_ms_, ms, bound):
+    ROOFLINE[row] = dict(kind=kind, shape=shape, device_ms=device_ms_,
+                         ms=ms, bound_ms=bound)
+
 
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
@@ -283,8 +309,8 @@ def time_ms(fn, reps=20, rounds=7):
 
 
 def bound_ms(n_bytes, n_ops):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / hw.HBM_BW * 1e3
+    t_ops = n_ops / hw.PEAK_FLOPS_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -330,9 +356,11 @@ def check_binning(KB, vol_u8, big_u8, dev, card):
                                    ref.astype(np.float32)),
                     f"binning kernel != np.bincount on {name}{where}")
         print(f"  bin   {name}: exact, also 3 pixels off alignment")
+    bin_dms = {}
     for name in ("64x217*181 uint8", "1x1024000 uint8", "64x217*181 int32"):
         px = torch.from_numpy(cases[name]).to(dev)
         dms, per = device_ms(lambda: KB.histogram_bin(px, 256))
+        bin_dms[name] = dms
         _one_kernel(per, f"histogram_bin {name}")
         blocks = KB.bin_blocks(px.shape[1], px.element_size())
         print(f"  bin   {name}: {blocks} blocks a lane; device "
@@ -346,6 +374,8 @@ def check_binning(KB, vol_u8, big_u8, dev, card):
     plain_ms = time_ms(lambda: KB.histogram_bin_plain(px, 256))
     lib_ms = time_ms(lambda: torch.bincount(flat, minlength=b * 256))
     bnd, by = bound_ms(b * n * 1 + b * 256 * 4, b * n)
+    note_roofline("1", "bin", dict(b=b, n_rows=n, n_bins=256, in_bytes=1),
+                  bin_dms["64x217*181 uint8"], ms, bnd)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=lib_ms)
 
@@ -445,6 +475,11 @@ def check_solve(KR, SV, hists_np, dev, card):
     # divide, square, weight, numerator 2D, denominator 1
     n_ops = int(it_np.sum()) * kk * c * (5 * d + 7)
     bnd, by = bound_ms(n_bytes, n_ops)
+    # every lane's rows a pass, memberships on chip: the lanes' rows x
+    # their iterations
+    note_roofline("2", "flat", dict(n_rows=kk, c=c, n_feat=d,
+                                    n_iters=int(it_np.sum()), u_bytes=0),
+                  dms, ms, bnd)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=None), int(it_np.max())
 
@@ -487,17 +522,23 @@ def check_labels(KD, vol_u8, centers, dev, card):
         print(f"  labels {name}: exact")
     require(KD.labels(ties_x, ties_v).cpu().tolist()[0]
             == [0, 0, 2, 0, 2, 0], "ties do not go to the lowest index")
+    b, n = px.shape
+    c = v.shape[1]
     for dt, t in dtypes.items():
         dms, per = device_ms(lambda: KD.labels(t, v))
         _one_kernel(per, f"labels 64x217*181 {dt}")
+        if dt != "float32":
+            note_roofline("3" if dt == "uint8" else "3 (int32)", "labels",
+                          dict(n_rows=b * n, c=c, n_feat=1,
+                               in_bytes=t.element_size(), out_bytes=4),
+                          dms, None, None)
         plan = KD.labels_plan(*t.shape, t.element_size())
         print(f"  labels 64x217*181 {dt}: plan {plan._asdict()}; device "
               f"{_fmt_ms(dms)} a call ({_kernel_names(per)}) [{card}]")
-    b, n = px.shape
-    c = v.shape[1]
     ms = time_ms(lambda: KD.labels(px, v))
     plain_ms = time_ms(lambda: KD.labels_plain(px, v))
     bnd, by = bound_ms(b * n * 1 + b * c * 4 + b * n * 4, 3 * b * n * c)
+    ROOFLINE["3"].update(ms=ms, bound_ms=bnd)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=None)
 
@@ -715,6 +756,9 @@ def check_fused_partials(KC, cases, card):
     plain_ms = time_ms(lambda: KC.fused_partials_plain(x, None, v, m))
     # per pixel and center: the membership's 7, then u*u, times x, two adds
     bnd, by = bound_ms(4 * (n + 3 * c), 11 * n * c)
+    dms, _ = device_ms(lambda: KC.fused_partials(x, None, v, m))
+    note_roofline("6", "flat", dict(n_rows=n, c=c, n_feat=1, n_iters=1,
+                                    w_bytes=0, u_bytes=0), dms, ms, bnd)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=None)
 
@@ -1165,6 +1209,10 @@ def check_streamed(KR, SV, cases, dev, card):
         if entry is None:
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                          library_ms=None)
+            # rows re-read every iteration, memberships on chip
+            note_roofline("7", "flat", dict(n_rows=k, c=c, n_feat=d,
+                                            n_iters=int(it_np.sum()),
+                                            u_bytes=0), dms, ms, bnd)
     return dict(max_abs_err=worst, **entry)
 
 
@@ -1239,6 +1287,9 @@ def check_slic(KS, SL, phantom, dev, card):
     # spatial terms of (subtract, square, weight, add)
     bnd, by = bound_ms(h * w * (4 * d + 4) + cen.numel() * 4,
                        9 * (3 * d + 8) * h * w)
+    note_roofline("11", "slic_assign", dict(h=h, w=w, d=d,
+                                            n_centers=gy * gx),
+                  dev_ms, ms, bnd)
     print(f"  slic_assign: kernel {ms:.4f} ms, device "
           + ("not measured" if dev_ms is None else
              f"{dev_ms:.4f} ms ({_kernel_names(per)})")
@@ -1474,7 +1525,7 @@ def check_fused_batched(KC, cases, card):
     case, twice and bit-equal, with its plan and device time (one kernel
     a call); the first case timed against its bound. Returns its
     entry."""
-    worst = 0.0
+    worst, first_dms = 0.0, []
     for name, x, w, v, m in cases:
         before = KC.fused_partials_batched.launches
         got = KC.fused_partials_batched(x, w, v, m)
@@ -1493,6 +1544,7 @@ def check_fused_batched(KC, cases, card):
         plan = KC.batched_plan(b, k, d, v.shape[1])
         dms, per = device_ms(lambda: KC.fused_partials_batched(x, w, v, m))
         _one_kernel(per, f"fused_partials_batched {name}")
+        first_dms.append(dms)
         print(f"  fused_partials_batched {name}: max abs err {err:.3g} "
               f"(relative {rel:.3g}), repeats bit for bit; plan tier "
               f"{plan.tier}, {plan.chunks} chunk(s) of {plan.dch} "
@@ -1509,6 +1561,9 @@ def check_fused_batched(KC, cases, card):
     # u*u, the weight, D numerator terms and adds, the denominator add
     bnd, by = bound_ms(4 * (b * k * d + b * k + 2 * b * c * d + b * c),
                        b * k * c * (5 * d + 8))
+    note_roofline("6b", "flat", dict(n_rows=b * k, c=c, n_feat=d,
+                                     n_iters=1, u_bytes=0),
+                  first_dms[0], ms, bnd)
     print(f"  fused_partials_batched {name}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}) [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
@@ -1760,6 +1815,10 @@ def check_spatial_steps(KSP, cases, card):
             e["bound_ms"], e["bound_by"] = bound_ms(4 * (n + 3 * c),
                                                     _step_ops(n, c, nb))
             e["library_ms"] = None
+            note_roofline("10" if key == "3d" else "9", "stencil", dict(
+                h=n // x.shape[-1], w=x.shape[-1], c=c, neighbors=nb,
+                n_iters=1, u_bytes=0), e["device_ms"], e["ms"],
+                e["bound_ms"])
             line += (f"; kernel {e['ms']:.4f} ms, device "
                      + _fmt_ms(e["device_ms"])
                      + f" ({_kernel_names(per)}), plain "
@@ -1843,6 +1902,9 @@ def check_stencil(KST, SV, noisy_imgs, phantom, dev, card):
                                                      plan.form)
             entry = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=bnd, bound_by=by, library_ms=None)
+            note_roofline("8", "stencil", dict(
+                h=1, w=n, c=c, neighbors=nb, n_iters=int(it_np.sum()),
+                u_bytes=0), dev_ms, ms, bnd)
             line += (f"; {active} clusters active at once for {b} lanes; "
                      f"kernel {ms:.4f} ms, device "
                      + ("not measured" if dev_ms is None else
@@ -4604,9 +4666,10 @@ def fault_drill(TC, TD, TO, TT, TTR, TE, TP, dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
     timer = TE.StepTimer()
-    for _ in range(8):
+    for _ in range(8):                      # steady 5 ms steps
         timer.start()
         torch.cuda.synchronize()
+        time.sleep(0.005)
         timer.stop()
     timer.start()
     time.sleep(0.05)
@@ -4651,6 +4714,371 @@ def train_path(counters, dev, card):
         run()
         print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
     return out
+
+# --------------------------------------------------------------------------
+# 14. the analysis layer and the dry-run planner on the card
+# --------------------------------------------------------------------------
+
+#: 14b's predicted peak against the card's max_memory_allocated
+PEAK_RTOL = 0.10
+#: 14c: the archs the dry-run plans on the card, on both production meshes
+DRYRUN_ARCHS = ("llama3.2-1b", "jamba-v0.1-52b", "fcm-brainweb")
+#: 14b: phase 13a's train shape (the launcher's defaults)
+DRYRUN_TRAIN = (8, 128)
+
+
+def roofline_folds(card):
+    """14a: each table row with a kind in the JAX package's model, its
+    device time from phases 3 and 5-7 folded through
+    ``roofline.kernel_cell`` with the port's byte widths, beside the
+    row's hand-counted bound. Fails on a share above FOLD_MAX."""
+    from repro_torch.analysis import roofline as RF
+    shares = {}
+    for row, r in ROOFLINE.items():
+        t_ms = r["device_ms"] if r["device_ms"] is not None else r["ms"]
+        src = "device" if r["device_ms"] is not None else "CUDA events"
+        costs = RF.kernel_step_costs(r["kind"], **r["shape"])
+        cell = RF.kernel_cell(r["kind"], "cuda", "gpu", r["shape"],
+                              costs["flops"], costs["bytes"], t_ms / 1e3)
+        hand = ("-" if r["bound_ms"] is None
+                else f"{r['bound_ms'] * 1e3:.2f} us")
+        print(f"  row {row} ({r['kind']}, {r['shape']}): flops "
+              f"{cell.flops:.4g}, bytes {cell.bytes:.4g}, t_roofline "
+              f"{cell.t_roofline * 1e6:.2f} us ({cell.bound}), {src} "
+              f"{t_ms * 1e3:.2f} us a call, frac_of_roofline "
+              f"{cell.frac_of_roofline:.3f}; hand-counted bound {hand} "
+              f"[{card}]")
+        require(cell.frac_of_roofline <= FOLD_MAX,
+                f"row {row}: {cell.frac_of_roofline:.3f} of the model's "
+                f"roofline, above {FOLD_MAX}")
+        shares[row] = cell.frac_of_roofline
+    require({"1", "2", "3", "6", "6b", "7", "8", "9", "10", "11"}
+            <= set(shares), f"14a folded only rows {sorted(shares)}")
+    return shares
+
+
+def _op_diff(fake, real):
+    """The aten ops whose counts differ between two counters."""
+    names = set(fake.costs.by_op) | set(real.costs.by_op)
+    return {n: (fake.costs.by_op.get(n), real.costs.by_op.get(n))
+            for n in sorted(names)
+            if fake.costs.by_op.get(n) != real.costs.by_op.get(n)}
+
+
+def _hold_count(what, fake, real, args, measured, card):
+    """Fake and real counts equal, the predicted peak (arguments plus the
+    fake step's live peak) within PEAK_RTOL of the card's."""
+    predicted = args + fake.peak
+    print(f"  {what}: flops {fake.costs.flops:.6g} (fake) / "
+          f"{real.costs.flops:.6g} (card), bytes {fake.costs.bytes:.6g} / "
+          f"{real.costs.bytes:.6g}, {fake.costs.n_ops} / "
+          f"{real.costs.n_ops} ops; peak predicted {predicted / 2**30:.3f} "
+          f"GiB, max_memory_allocated {measured / 2**30:.3f} GiB "
+          f"({predicted / measured - 1:+.2%}) [{card}]")
+    require(fake.costs.flops == real.costs.flops
+            and fake.costs.bytes == real.costs.bytes,
+            f"14b {what}: fake and card counts differ: "
+            f"{_op_diff(fake, real)}")
+    require(abs(predicted - measured) <= PEAK_RTOL * measured,
+            f"14b {what}: predicted peak {predicted} B, the card's "
+            f"{measured} B")
+    return predicted, measured
+
+
+def _measured(fn, args_real):
+    """(counter, the card's peak of ``fn()`` over what it was given):
+    ``max_memory_allocated`` less what was allocated before that is not
+    ``fn``'s arguments (``args_real`` bytes)."""
+    from repro_torch.analysis import op_cost
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with op_cost.CostCounter() as counter:
+        out = fn()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - (before - args_real)
+    del out
+    return counter, peak
+
+
+def dryrun_vs_card(imgs, dev, card):
+    """14b: llama3.2-1b's train step at 13a's shape and one iteration of
+    ``build_sharded_fit`` on the 181-slice volume (one-card mesh), each
+    counted on fake tensors and on real ones on the card."""
+    import gc
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs as TC
+    from repro_torch.analysis import op_cost
+    from repro_torch.core import distributed as TD
+    from repro_torch.core.fcm import FCMConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import train_loop as TT
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = TC.get_config(TRAIN_ARCH)
+    tcfg = TT.TrainConfig()
+    b, s = DRYRUN_TRAIN
+    shape = TC.ShapeConfig("train_8x128", "train", s, b)
+    step = TT.make_train_step(cfg, tcfg)
+    one = sh.Parallelism()
+    with FakeTensorMode():
+        state = DR._fake_like(TT.abstract_state(cfg, tcfg), dev)
+        batch = DR._batch(cfg, shape, dev)
+        args = (DR.arg_bytes(state, TT.state_specs(cfg), one)
+                + DR.arg_bytes(batch, TT.batch_specs(cfg), one))
+        with op_cost.CostCounter() as fake:
+            out = step(state, batch)
+        del out, state, batch
+    state = TT.init_state(0, cfg, tcfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "labels": tokens[:, 1:].contiguous()}
+    warm = step(state, batch)               # cuBLAS workspaces, caches
+    del warm
+    real, peak = _measured(lambda: step(state, batch),
+                           op_cost.nbytes_of(state) + op_cost.nbytes_of(batch))
+    require(args == op_cost.nbytes_of(state) + op_cost.nbytes_of(batch),
+            f"14b: the spec trees' {args} B of arguments against the "
+            f"card's {op_cost.nbytes_of(state) + op_cost.nbytes_of(batch)}")
+    out = {"llama": _hold_count(f"{TRAIN_ARCH} train step {b}x{s}", fake,
+                                real, args, peak, card)}
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    vol = np.stack(imgs).reshape(-1).astype(np.float32)
+    n = vol.size
+    mesh = TD.make_mesh((1,), ("data",), devices=[dev])
+    fit = TD.build_sharded_fit(mesh, FCMConfig(), loop=TD.one_iteration)
+    with FakeTensorMode():
+        xf = torch.zeros((n,), dtype=torch.float32, device=dev)
+        wf = torch.ones_like(xf)
+        with op_cost.CostCounter() as fake:
+            res = fit(xf, wf)
+        del res, xf, wf
+    x = torch.from_numpy(vol).to(dev)
+    w = torch.ones_like(x)
+    fit(x, w)                                # the kernels' counters
+    real, peak = _measured(lambda: fit(x, w), 2 * n * 4)
+    require(real.costs.n_kernels == fake.costs.n_kernels == 2,
+            f"14b: {real.costs.n_kernels} kernel calls on the card, "
+            f"{fake.costs.n_kernels} on fake tensors (want the fused "
+            f"partials and the labels)")
+    out["fcm"] = _hold_count(f"build_sharded_fit, one iteration, {n} "
+                             f"voxels", fake, real, 2 * n * 4, peak, card)
+    return out
+
+
+def dryrun_cells(dev, card):
+    """14c: the dry-run of DRYRUN_ARCHS on both production meshes, one
+    ``python -m repro_torch.launch.dryrun`` process an (arch, mesh), all
+    started together and each waited for; each cell's memory, terms,
+    bottleneck, fits_hbm and wall time."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")
+               + (os.pathsep + os.environ["PYTHONPATH"]
+                  if os.environ.get("PYTHONPATH") else ""))
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    procs = []
+    for arch in DRYRUN_ARCHS:
+        for mesh in ("single", "multi"):
+            out = os.path.join(tmp, f"{arch}-{mesh}.jsonl")
+            procs.append((arch, mesh, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--mesh", mesh, "--device", str(dev), "--out", out,
+                 "--force"], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    recs = []
+    for arch, mesh, out, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        require(proc.returncode == 0, f"14c dry-run of {arch} on the "
+                f"{mesh} mesh failed:\n{text[-3000:]}")
+        with open(out) as f:
+            recs += [json.loads(line) for line in f]
+    for rec in recs:
+        print(f"  {rec['arch']} x {rec['shape']} x {rec['mesh']}: args "
+              f"{rec['mem_args_gb']:.3f} GiB, temp "
+              f"{rec['mem_temp_gb']:.3f} GiB, out "
+              f"{rec['mem_out_gb']:.3f} GiB a device, fits_hbm "
+              f"{rec['fits_hbm']}; compute {rec['t_compute']:.4g} s, "
+              f"memory {rec['t_memory']:.4g} s, collective "
+              f"{rec['t_collective']:.4g} s -> {rec['bottleneck']}; "
+              f"{rec['n_ops']} ops, {rec['wall_s']} s a cell"
+              + (", Mamba through row 12" if rec["mamba_kernel"] else ""))
+        require(rec["flops_per_dev"] > 0 and rec["bytes_per_dev"] > 0,
+                f"14c {rec['arch']} x {rec['shape']}: nothing counted")
+    require(len(recs) == 16, f"14c: {len(recs)} cells, not 16")
+    print(f"  {len(recs)} cells in {len(procs)} processes at once; analytic "
+          f"on H100 SXM data-sheet peaks: {sum(r['fits_hbm'] for r in recs)}"
+          f" fit 80 GB [{card}]")
+    return recs
+
+
+def _example(name):
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _vector_near_ties(got, want, feats, centers, what):
+    """Pixels where two vector label maps differ, each a float64 near-tie
+    of the pixel's feature row between its two labels' centers, at most
+    TIE_SHARE of them."""
+    got, want = np.asarray(got).reshape(-1), np.asarray(want).reshape(-1)
+    idx = np.flatnonzero(got != want)
+    if idx.size:
+        f = np.asarray(feats, np.float64).reshape(got.size, -1)[idx]
+        v = np.asarray(centers, np.float64).reshape(-1, f.shape[1])
+        a = ((f - v[got[idx]]) ** 2).sum(axis=1)
+        b = ((f - v[want[idx]]) ** 2).sum(axis=1)
+        bad = np.abs(a - b) > SPATIAL_TIE_RTOL * np.maximum(a, b)
+        require(not bad.any(), f"{what}: {int(bad.sum())} labels differ by "
+                f"more than a near-tie")
+    require(idx.size <= TIE_SHARE * got.size,
+            f"{what}: {idx.size} near-ties of {got.size} pixels")
+    return int(idx.size)
+
+
+def examples_on_card(counters, dev, card):
+    """14d: the five FCM examples at full size on the card against a
+    ``device="cpu"`` run of each (labels up to float64-checked near-ties,
+    iterations equal); each example asserts its own DSC bar. Returns the
+    kernels the card runs launched, by name."""
+    import contextlib
+    import io
+    import tempfile
+    job = None
+    out_dir = tempfile.mkdtemp(prefix="torch_examples_")
+    launched = {}
+    scfg = None
+    for name in ("quickstart", "segment_noisy", "segment_volume",
+                 "segment_color", "serve_segmentation"):
+        mod = _example(name)
+        extra = [] if name == "serve_segmentation" else ["--out", out_dir]
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = mod.main(extra)
+        wall = time.perf_counter() - t0
+        for k, n in _counts(counters).items():
+            if n:
+                launched[k] = launched.get(k, 0) + n
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = mod.main(extra + ["--device", "cpu"])
+        ties = 0
+        if name == "quickstart":
+            for tag in ("staged", "fused"):
+                g, w = got["results"][tag], want["results"][tag]
+                require(g["n_iters"] == w["n_iters"], f"14d {name} {tag}")
+                ties += _scalar_near_ties(g["labels"], w["labels"],
+                                          got["image"], g["centers"],
+                                          f"14d {name} {tag}")
+        elif name == "segment_noisy":
+            if scfg is None:
+                from repro_torch.configs.fcm_brainweb import make_config
+                job = make_config()
+                scfg = job.spatial
+            g, w = (got["results"]["plain-histogram"],
+                    want["results"]["plain-histogram"])
+            require(g["n_iters"] == w["n_iters"], f"14d {name} histogram")
+            ties += _scalar_near_ties(g["labels"], w["labels"], got["image"],
+                                      g["centers"], f"14d {name} histogram")
+            g, w = (got["results"]["spatial-fcm_s"],
+                    want["results"]["spatial-fcm_s"])
+            require(g["n_iters"] == w["n_iters"], f"14d {name} spatial")
+            ties += _spatial_near_ties(g["labels"], w["labels"],
+                                       got["image"].astype(np.float32),
+                                       g["centers"], scfg.neighbors,
+                                       scfg.alpha, f"14d {name} spatial")
+        elif name == "segment_volume":
+            require(got["n_iters"] == want["n_iters"], f"14d {name}")
+            ties += _scalar_near_ties(got["labels"], want["labels"],
+                                      got["volume"], got["centers"],
+                                      f"14d {name}")
+            g, w = got["restart"], want["restart"]
+            require(g["n_iters"] == w["n_iters"], f"14d {name} restart")
+            ties += _scalar_near_ties(g["labels"], w["labels"],
+                                      got["volume"], g["centers"],
+                                      f"14d {name} restart")
+        elif name == "segment_color":
+            for work in ("rgb", "t1t2pd"):
+                for tag in ("superpixel", "pixel"):
+                    g, w = got[work][tag], want[work][tag]
+                    require(g["n_iters"] == w["n_iters"],
+                            f"14d {name} {work} {tag}")
+                    if tag == "pixel":
+                        ties += _vector_near_ties(
+                            g["labels"], w["labels"], got[work]["image"],
+                            g["centers"], f"14d {name} {work} {tag}")
+                    else:
+                        require(np.array_equal(g["labels"], w["labels"]),
+                                f"14d {name} {work} superpixel labels "
+                                f"differ from the CPU's")
+        else:
+            for i, (g, w) in enumerate(zip(got["results"],
+                                           want["results"])):
+                require(g.n_iters == w.n_iters, f"14d {name} request {i}")
+                ties += _scalar_near_ties(g.labels, w.labels,
+                                          got["images"][i], g.centers,
+                                          f"14d {name} request {i}")
+            if scfg is None:
+                from repro_torch.configs.fcm_brainweb import make_config
+                scfg = make_config().spatial
+            for i, (g, w) in enumerate(zip(got["spatial"],
+                                           want["spatial"])):
+                require(g.n_iters == w.n_iters,
+                        f"14d {name} spatial request {i}")
+                ties += _spatial_near_ties(
+                    g.labels, w.labels,
+                    got["noisy"][i].astype(np.float32), g.centers,
+                    scfg.neighbors, scfg.alpha,
+                    f"14d {name} spatial request {i}")
+        print(f"  {name}: the card's labels = the CPU's but {ties} "
+              f"float64-checked near-ties, iterations equal, its DSC bar "
+              f"held; {wall:.2f} s on the card [{card}]")
+    print(f"  kernels the examples launched: {launched}")
+    need = {"histogram_bin", "fcm_resident_solve", "labels",
+            "fcm_membership", "fcm_center_partials", "fcm_fused_partials",
+            "fcm_streamed_solve", "fcm_stencil_solve", "slic_assign"}
+    require(need <= set(launched), f"14d: the examples launched no "
+            f"{sorted(need - set(launched))}")
+    return launched
+
+
+def analysis_path(counters, imgs, dev, card):
+    """Phase 14; returns what it measured."""
+    out = {}
+    steps = (
+        ("14a", "kernel rooflines from the JAX model, port widths",
+         lambda: out.__setitem__("folds", roofline_folds(card))),
+        ("14b", "the dry-run's counts and peak against the card",
+         lambda: out.__setitem__("held", dryrun_vs_card(imgs, dev, card))),
+        ("14c", f"the dry-run of {', '.join(DRYRUN_ARCHS)}",
+         lambda: out.__setitem__("cells", dryrun_cells(dev, card))),
+        ("14d", "the five FCM examples, card against CPU",
+         lambda: out.__setitem__("examples", examples_on_card(
+             counters, dev, card))),
+    )
+    for tag, what, run in steps:
+        print(f"[analysis] {what} ({tag})")
+        t0 = time.perf_counter()
+        run()
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
 
 def main(dev=None):
     if not torch.cuda.is_available():
@@ -4948,6 +5376,11 @@ def main(dev=None):
     t13 = time.perf_counter()
     trained = train_path(counters, dev, card)
     print(f"[train] {time.perf_counter() - t13:.1f} s")
+
+    # -- 14. the analysis layer, the dry-run planner and the examples -------
+    t14 = time.perf_counter()
+    analysis_path(counters, imgs, dev, card)
+    print(f"[analysis] {time.perf_counter() - t14:.1f} s")
 
     kernels = [
         dict(name="histogram_bin", route="cuda",

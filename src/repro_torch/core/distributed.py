@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import _device as DV
+from ..analysis import op_cost
 from ..kernels import _build
 from ..kernels import fcm_centers as KC
 from ..kernels import ops as kops
@@ -154,7 +155,9 @@ def shard_map(f: Callable, *, mesh: Mesh) -> Callable:
 
 def _sum_on(dev: torch.device, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The shards' partials summed on ``dev`` in shard order (the JAX
-    package's ``psum``)."""
+    package's ``psum``, reported to a cost counter as its all-reduce)."""
+    op_cost.collective("all-reduce", parts[0].numel()
+                       * parts[0].element_size(), len(parts))
     total = parts[0].to(dev)
     for p in parts[1:]:
         total = total + p.to(dev)
@@ -189,6 +192,15 @@ def masked_center_step(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                              m)
 
 
+def _extreme_on(dev: torch.device, parts: Sequence[torch.Tensor],
+                reduce) -> torch.Tensor:
+    """The shards' scalar minima or maxima (``reduce`` ``torch.min`` or
+    ``torch.max``) combined on ``dev`` (the JAX package's ``pmin`` /
+    ``pmax``, reported as an all-reduce)."""
+    op_cost.collective("all-reduce", parts[0].element_size(), len(parts))
+    return reduce(torch.stack([p.to(dev) for p in parts]))
+
+
 def _init_from_range(lo, hi, c: int, eps: float):
     """The JAX module's linspace init and center tolerance from the data
     range: ``(v0 (c,), eps * max(hi - lo, 1) * 0.1)``."""
@@ -206,23 +218,36 @@ def _labels(mesh: Mesh, xs, v) -> torch.Tensor:
     return torch.cat([p.to(mesh.lead) for p in parts])
 
 
-def build_sharded_fit(mesh: Mesh, cfg: F.FCMConfig = F.FCMConfig()):
+def one_iteration(step, v0, tol, max_iters):
+    """A loop for :func:`build_sharded_fit` that runs ``step`` once, with
+    no convergence test: one iteration's work, as the JAX dry-run's
+    ``while_override=1`` counts it (a test on fake tensors cannot be
+    decided)."""
+    v = step(v0)
+    return v, (v - v0).abs().max(), 1
+
+
+def build_sharded_fit(mesh: Mesh, cfg: F.FCMConfig = F.FCMConfig(),
+                      loop=None):
     """Returns ``fn(x_padded, w) -> (centers (c,), labels (N',), delta,
     n_iters)``, the outputs on the mesh's lead device. ``x_padded`` and
     ``w`` (pixels and validity weights, :func:`pad_to_devices`) split
     over every mesh axis; each iteration is one fused-partials launch a
-    shard, then a sum of 2c floats on the lead device."""
+    shard, then a sum of 2c floats on the lead device. ``loop`` (default
+    :func:`repro_torch.core.solver.while_centers`) runs the iterations;
+    :func:`one_iteration` runs one."""
     c, m, max_iters, eps = cfg.n_clusters, cfg.m, cfg.max_iters, cfg.eps
     lead = mesh.lead
+    loop = SV.while_centers if loop is None else loop
 
     def fit(x, w):
         xs, ws = split(mesh, x), split(mesh, w)
-        lo = torch.stack([p.to(lead) for p in run_shards(
+        lo = _extreme_on(lead, run_shards(
             mesh, lambda xk, wk: torch.where(wk > 0, xk, _BIG).min(),
-            xs, ws)]).min()
-        hi = torch.stack([p.to(lead) for p in run_shards(
+            xs, ws), torch.min)
+        hi = _extreme_on(lead, run_shards(
             mesh, lambda xk, wk: torch.where(wk > 0, xk, -_BIG).max(),
-            xs, ws)]).max()
+            xs, ws), torch.max)
         v0, tol = _init_from_range(lo, hi, c, eps)
 
         def step(v):
@@ -232,7 +257,7 @@ def build_sharded_fit(mesh: Mesh, cfg: F.FCMConfig = F.FCMConfig()):
             den = _sum_on(lead, [p[1] for p in parts])
             return num / torch.clamp(den, min=1e-12)
 
-        v, delta, it = SV.while_centers(step, v0, tol, max_iters)
+        v, delta, it = loop(step, v0, tol, max_iters)
         return v, _labels(mesh, xs, v), delta, it
 
     return fit

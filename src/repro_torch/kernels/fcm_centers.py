@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import op_cost
 from . import _build
 from .fcm_membership import MAX_C, exponent
 
@@ -259,6 +260,8 @@ def fused_partials(x: torch.Tensor, w: Optional[torch.Tensor],
         return _zeros(x, c)
     plan = scalar_plan(n, c, w is not None, m)
     _, part, num, den = _outputs(x, c, plan.blocks)
+    if op_cost.kernel_io((x, w, v), (num, den)):
+        return num, den             # fake tensors: nothing to launch
     with _build.on_device(x):
         _build.check(_build.library().fcm_fused_partials(
             x.data_ptr(), None if w is None else w.data_ptr(), n,

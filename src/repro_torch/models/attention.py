@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..analysis import op_cost
 from . import layers as L
 
 _NEG_INF = -1e30
@@ -61,16 +62,13 @@ def _flash_attention(q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
                          f"Skv={skv}")
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
-    outs = []
-    for qi in range(sq // q_chunk):
-        q_blk = q[:, :, :, qi * q_chunk:(qi + 1) * q_chunk]
-        m = torch.full((b, kh, g, q_chunk), _NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, kh, g, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kh, g, q_chunk, hd_v), dtype=torch.float32,
-                          device=dev)
+    # every (q chunk, kv chunk) pair costs the same: a dry-run counts one
+    q_loop = op_cost.repeat(sq // q_chunk)
+    kv_loop = op_cost.repeat(skv // kv_chunk)
+
+    def kv_steps(trips, q_blk, k, v, m, l, acc, qi):
         # causal: later kv chunks contribute nothing but are still walked
-        for kj in range(skv // kv_chunk):
+        for kj in range(trips):
             kb = k[:, :, kj * kv_chunk:(kj + 1) * kv_chunk]
             vb = v[:, :, kj * kv_chunk:(kj + 1) * kv_chunk]
             s = torch.einsum("bkgqh,bkth->bkgqt", q_blk, kb)
@@ -86,8 +84,25 @@ def _flash_attention(q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
             acc = acc * alpha[..., None] + torch.einsum(
                 "bkgqt,bkth->bkgqh", p.to(vb.dtype), vb).to(torch.float32)
             m = m_new
-        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
-    return torch.cat(outs, dim=3).to(q.dtype)
+        return l, acc
+
+    def q_steps(trips, q, k, v):
+        outs = []
+        for qi in range(trips):
+            q_blk = q[:, :, :, qi * q_chunk:(qi + 1) * q_chunk]
+            m = torch.full((b, kh, g, q_chunk), _NEG_INF,
+                           dtype=torch.float32, device=dev)
+            l = torch.zeros((b, kh, g, q_chunk), dtype=torch.float32,
+                            device=dev)
+            acc = torch.zeros((b, kh, g, q_chunk, hd_v), dtype=torch.float32,
+                              device=dev)
+            l, acc = kv_loop.run(lambda n, *xs: kv_steps(n, *xs, qi), q_blk,
+                                 k, v, m, l, acc)
+            outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+        return (torch.cat(outs, dim=3),)
+
+    out, = q_loop.run(q_steps, q, k, v)
+    return q_loop.fill(out, 3, sq // q_chunk).to(q.dtype)
 
 
 def grouped_attention(q, k, v, causal: bool, q_offset: int = 0,

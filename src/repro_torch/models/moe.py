@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
+from ..analysis import op_cost
 from . import layers as L
 from . import sharding as sh
 
@@ -134,19 +135,29 @@ def _expert_parallel_ffn(p, xf, idx, gates, cfg, ctx: sh.Parallelism):
     shards = sh.dp_shards(ctx, xf.shape[0])
     capacity = _capacity(e, xf.shape[0] // len(shards))
     lead = xf.device
-    outs = []
-    for rows, coords in shards:
-        total = None
-        for r in range(tp):
-            dev = sh.device_at(ctx.mesh, {**coords, ctx.tp_axis: r})
-            sl = slice(r * e_loc, (r + 1) * e_loc)
-            part = _local_expert_ffn(
-                xf[rows].to(dev), idx[rows].to(dev), gates[rows].to(dev),
-                *(w[sl].to(dev) for w in ws), r * e_loc, capacity,
-                cfg.dtype).to(lead)
-            total = part if total is None else total + part
-        outs.append(total)
-    return torch.cat(outs)
+    # every (shard, rank) costs the same: a dry-run counts one
+    loop = op_cost.repeat(len(shards) * tp)
+
+    def dispatch(trips, xf, gates, *ws):
+        outs = []
+        for rows, coords in shards[:max(1, trips // tp)]:
+            total = None
+            for r in range(min(tp, trips)):
+                dev = sh.device_at(ctx.mesh, {**coords, ctx.tp_axis: r})
+                sl = slice(r * e_loc, (r + 1) * e_loc)
+                part = _local_expert_ffn(
+                    xf[rows].to(dev), idx[rows].to(dev), gates[rows].to(dev),
+                    *(w[sl].to(dev) for w in ws), r * e_loc, capacity,
+                    cfg.dtype).to(lead)
+                total = part if total is None else total + part
+            outs.append(total)
+        return (torch.cat(outs),)
+
+    out, = loop.run(dispatch, xf, gates, *ws)
+    for rows, _ in shards:          # each shard's psum over the tp ranks
+        op_cost.collective("all-reduce", (rows.stop - rows.start)
+                           * out.shape[1] * out.element_size(), tp)
+    return loop.fill(out, 0, len(shards))
 
 
 def moe_ffn(p, x, cfg):

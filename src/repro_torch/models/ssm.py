@@ -46,6 +46,7 @@ import math
 import torch
 import torch.nn.functional as Fn
 
+from ..analysis import op_cost
 from ..kernels import ops as kops
 from ..kernels import selective_scan as KSS
 from . import layers as L
@@ -148,14 +149,21 @@ def _wkv_scan(r, k, v, logw, u, s0):
     decay = torch.exp(logw.to(torch.float32))[..., None]   # (B,S,nh,hd,1)
     u = u.to(torch.float32)[None, :, :, None]
     s = s0.to(torch.float32)
-    ys = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # rank-1 update
-        # addcmul: one kernel, and one rounding as XLA's fused multiply-add
-        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                               torch.addcmul(s, u, kv)))
-        s = torch.addcmul(kv, decay[:, t], s)
-    return torch.stack(ys, dim=1), s
+
+    def steps(trips, r, k, v, decay, u, s):
+        ys = []
+        for t in range(trips):
+            kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # rank-1 update
+            # addcmul: one kernel, and one rounding as XLA's fused
+            # multiply-add
+            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                   torch.addcmul(s, u, kv)))
+            s = torch.addcmul(kv, decay[:, t], s)
+        return torch.stack(ys, dim=1), s
+
+    loop = op_cost.repeat(r.shape[1])   # a dry-run counts one step
+    y, s = loop.run(steps, r, k, v, decay, u, s)
+    return loop.fill(y, 1), s
 
 
 def rwkv6_forward(p, x, cfg, state=None, return_state: bool = False):
@@ -290,13 +298,20 @@ def _ssm_scan(u, dt, bmat, cmat, a, d_skip, h0):
     h0 (B,di,ds). Returns y (B,S,di), h_final."""
     u, dt, bmat, cmat = (t.to(torch.float32) for t in (u, dt, bmat, cmat))
     h = h0.to(torch.float32)
-    ys = []
-    for t in range(u.shape[1]):
-        u_t, dt_t = u[:, t], dt[:, t]
-        da = torch.exp(dt_t[..., None] * a[None])          # (B,di,ds)
-        h = da * h + (dt_t * u_t)[..., None] * bmat[:, t, None, :]
-        ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]) + d_skip * u_t)
-    return torch.stack(ys, dim=1), h
+
+    def steps(trips, u, dt, bmat, cmat, a, d_skip, h):
+        ys = []
+        for t in range(trips):
+            u_t, dt_t = u[:, t], dt[:, t]
+            da = torch.exp(dt_t[..., None] * a[None])      # (B,di,ds)
+            h = da * h + (dt_t * u_t)[..., None] * bmat[:, t, None, :]
+            ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t])
+                      + d_skip * u_t)
+        return torch.stack(ys, dim=1), h
+
+    loop = op_cost.repeat(u.shape[1])   # a dry-run counts one step
+    y, h = loop.run(steps, u, dt, bmat, cmat, a, d_skip, h)
+    return loop.fill(y, 1), h
 
 
 class SelectiveScan(torch.autograd.Function):
@@ -331,13 +346,19 @@ def _sharded_scan(u, dt, bmat, cmat, a):
     shards = sh.dp_shards(ctx, u.shape[0])
     if len(shards) == 1:
         return SelectiveScan.apply(u, dt, bmat, cmat, a)
-    outs = []
-    for rows, coords in shards:
-        dev = sh.device_at(ctx.mesh, coords)
-        outs.append(SelectiveScan.apply(
-            *(t[rows].to(dev) for t in (u, dt, bmat, cmat)),
-            a.to(dev)).to(u.device))
-    return torch.cat(outs)
+    loop = op_cost.repeat(len(shards))  # equal shards: a dry-run counts one
+
+    def per_shard(trips, u, dt, bmat, cmat, a):
+        outs = []
+        for rows, coords in shards[:trips]:
+            dev = sh.device_at(ctx.mesh, coords)
+            outs.append(SelectiveScan.apply(
+                *(t[rows].to(dev) for t in (u, dt, bmat, cmat)),
+                a.to(dev)).to(u.device))
+        return (torch.cat(outs),)
+
+    y, = loop.run(per_shard, u, dt, bmat, cmat, a)
+    return loop.fill(y, 0, len(shards))
 
 def _scan_with_state(u, dt, bmat, cmat, a):
     """(y, h_final) of the zero-state recurrence from the selected

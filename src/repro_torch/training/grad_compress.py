@@ -21,6 +21,7 @@ from typing import Sequence
 
 import torch
 
+from ..analysis import op_cost
 from ..core.distributed import Mesh
 from . import optimizer as opt
 
@@ -55,7 +56,9 @@ def compressed_psum_mean(trees: Sequence, mesh: Mesh, axis: str):
     leaf: the max |x| over the shards, one shared scale, each shard
     quantized on its device, an int32 sum on ``mesh.lead`` in shard
     order, then dequantized, divided by the axis size and cast back to
-    the leaf's dtype. Returns one tree on the lead device."""
+    the leaf's dtype. Returns one tree on the lead device. A cost counter
+    sees two all-reduces a leaf: the float32 max and the int8 payload
+    (the JAX package sums the payload as int32)."""
     n = _axis_size(mesh, axis)
     if len(trees) != n:
         raise ValueError(f"axis {axis!r} has {n} positions, got "
@@ -63,6 +66,9 @@ def compressed_psum_mean(trees: Sequence, mesh: Mesh, axis: str):
     lead = mesh.lead
 
     def one(*xs):
+        # on the wire: one float32 max a leaf, then its int8 payload
+        op_cost.collective("all-reduce", 4, n)
+        op_cost.collective("all-reduce", xs[0].numel(), n)
         amax = torch.stack([torch.max(torch.abs(x.to(torch.float32))).to(lead)
                             for x in xs]).max()
         scale = _scale_of(amax)

@@ -38,6 +38,7 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..analysis import op_cost
 from ..configs.base import ModelConfig
 from ..models import layers as L
 from ..models import lm
@@ -125,13 +126,17 @@ def _microbatch_grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
     if nmb <= 1:
         return _value_and_grad(params, batch, cfg, tcfg.aux_loss_weight)
     grads = metrics = None
-    for i in range(nmb):
-        mb = {k: v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])[i]
-              for k, v in batch.items()}
-        g, m = _value_and_grad(params, mb, cfg, tcfg.aux_loss_weight)
-        grads = g if grads is None else opt.tree_map(torch.add, grads, g)
-        metrics = m if metrics is None else {k: metrics[k] + m[k]
-                                             for k in m}
+    # each microbatch's forward and backward cost the same: a dry-run
+    # counts one
+    loop = op_cost.repeat(nmb)
+    with loop.weighted():
+        for i in range(loop.trips):
+            mb = {k: v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])[i]
+                  for k, v in batch.items()}
+            g, m = _value_and_grad(params, mb, cfg, tcfg.aux_loss_weight)
+            grads = g if grads is None else opt.tree_map(torch.add, grads, g)
+            metrics = m if metrics is None else {k: metrics[k] + m[k]
+                                                 for k in m}
     return (opt.tree_map(lambda g: g / nmb, grads),
             {k: v / nmb for k, v in metrics.items()})
 

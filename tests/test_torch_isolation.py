@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points
-never land on the CPU unless asked to."""
+"""The PyTorch port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py``, ``kernel_ab.py`` nor an ``examples/torch_*.py`` imports
+JAX or the JAX package, and its entry points never land on the CPU
+unless asked to."""
 import ast
 import pathlib
 
@@ -9,6 +10,8 @@ import torch
 
 from repro_torch import configs as TC
 from repro_torch.core import solver as TS
+from repro_torch.launch import dryrun as TDR
+from repro_torch.launch import mesh as TM
 from repro_torch.launch import serve as TSV
 from repro_torch.launch import train as TTR
 from repro_torch.models import lm as TLM
@@ -17,8 +20,9 @@ from repro_torch.training import checkpoint as TCK  # noqa: F401
 from repro_torch.training import train_loop as TT
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py"))
+              + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"])
 
 
 def _forbidden(name: str) -> bool:
@@ -50,7 +54,10 @@ def test_scan_covers_the_port():
             "engine.py", "deepseek_v2_236b.py", "rwkv6_1b6.py",
             "whisper_tiny.py", "llama32_vision_90b.py", "pipeline.py",
             "grad_compress.py", "sharding.py", "elastic.py",
-            "train.py"} <= names
+            "train.py", "hw.py", "roofline.py", "op_cost.py", "mesh.py",
+            "dryrun.py", "kernel_ab.py", "torch_quickstart.py",
+            "torch_segment_noisy.py", "torch_segment_volume.py",
+            "torch_segment_color.py", "torch_serve_segmentation.py"} <= names
     assert not _forbidden("repro_torch.core")
     assert _forbidden("repro.core.solver") and _forbidden("jax.numpy")
 
@@ -66,9 +73,12 @@ def test_scan_covers_the_port():
     lambda: TTR.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"]),
     lambda: TTR.build(TC.get_config("llama3.2-1b").reduced(),
                       TT.TrainConfig()),
+    lambda: TM.make_production_mesh(),
+    lambda: TDR.run_cell("fcm-brainweb", TDR.FCM_SHAPE, False),
 ], ids=["engine", "histogram_problem", "FCMProblem", "lm.init_params",
         "train_loop.init_state", "lm.init_cache", "launch.serve.main",
-        "launch.train.main", "launch.train.build"])
+        "launch.train.main", "launch.train.build",
+        "launch.mesh.make_production_mesh", "launch.dryrun.run_cell"])
 def test_entry_points_raise_without_a_card(monkeypatch, make):
     """Asked for no device on a machine without CUDA, an entry point
     raises instead of running on the CPU."""
