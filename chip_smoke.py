@@ -197,7 +197,16 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    the three terms, the bottleneck, fits_hbm, each cell's wall time);
    14d the five FCM examples at full size on the card against a
    ``device="cpu"`` run of each (labels up to float64-checked near-ties,
-   iterations equal, each example's own DSC bar).
+   iterations equal, each example's own DSC bar);
+15. placed: the train state stored split across a ("data", "model")
+   (2, 2) mesh naming the card 4 times: 15a full-width Jamba block 0 x 4
+   (float32, (2, 512), row 12 once a dp shard), 3 steps placed against 3
+   with the lead-device state, each slot's stored bytes equal to the
+   dry-run's per-device state arguments, no gathered leaf alive after a
+   step; 15b the whole llama3.2-1b through ``launch.train.train`` placed
+   against one device, 5 steps; 15c the drill: a placed checkpoint
+   byte-equal to the same state saved whole, loaded on (4, 1) and on no
+   mesh bit-equal, resumed on both to the uninterrupted run's state.
 
 The line before the last is a JSON object listing every kernel of the
 path; the last line is ``{"ok": true, "device": {...}}``.
@@ -4287,19 +4296,32 @@ DRILL = (20, 5, 12)
 PARAM_ATOL = 1e-6
 
 
-def _params_within(TO, got, want, what):
+def _params_within(TO, got, want, what, dev=None):
     """Every leaf of ``got`` within TRAIN_RTOL of its max |want| plus
-    PARAM_ATOL; returns the largest error against a leaf's max."""
-    worst = 0.0
+    PARAM_ATOL, leaf by leaf on ``dev`` (default each ``want`` leaf's
+    device; a placed leaf gathered there); (the largest error against a
+    leaf's max, the leaves not bit-equal)."""
+    from repro_torch.models import sharding as sh
+    worst, differ = 0.0, 0
     for i, (a, b) in enumerate(zip(TO.tree_leaves(got),
                                    TO.tree_leaves(want))):
-        d = float((a.cpu().float() - b.float()).abs().max())
+        where = dev or sh.lead_device(b)
+        a, b = sh.whole(a, where), sh.whole(b, where)
+        d = float((a.float() - b.float()).abs().max())
         top = float(b.float().abs().max())
         require(d <= TRAIN_RTOL * top + PARAM_ATOL,
-                f"{what}: parameter leaf {i} lies {d:.3g} from the cpu "
-                f"mesh's, its max |value| {top:.3g}")
+                f"{what}: leaf {i} lies {d:.3g} from the reference's, its "
+                f"max |value| {top:.3g}")
         worst = max(worst, d / max(top, 1e-30))
-    return worst
+        differ += not torch.equal(a, b)
+    return worst, differ
+
+
+def _whole_state(TO, state):
+    """A state with each leaf placed across a mesh gathered whole on the
+    CPU (plain leaves copied there)."""
+    from repro_torch.models import sharding as sh
+    return TO.tree_map(lambda x: sh.whole(x, "cpu"), state)
 
 
 def _max_leaf_err(TO, got, want):
@@ -4378,10 +4400,7 @@ def train_jamba_wide(TC, TO, TT, TTR, counters, dev, card):
     with ``mamba_pallas``, then step 0 with the plain loop from the same
     draw. Returns the scan's launches in the 4 steps."""
     b, s, steps = JAMBA_TRAIN
-    base = TC.get_config(ARCH)
-    cfg = dataclasses.replace(base, group_layout=base.group_layout[:1],
-                              n_layers=4, mamba_pallas=True,
-                              dtype=torch.float32)
+    cfg = _jamba_block0(TC)
     shape = TC.ShapeConfig("train", "train", s, b)
     quiet = lambda *_: None  # noqa: E731
     for fn in counters.values():
@@ -4497,8 +4516,8 @@ def train_meshes(TC, TD, TLM, TO, TT, TP, sh, counters, dev, card):
                         <= TRAIN_RTOL * abs(c[k]),
                         f"13c {tag} step {i} {k}: {a[k]!r} on the card, "
                         f"{c[k]!r} on the cpu mesh")
-        p_err = _params_within(TO, got["params"], want["params"],
-                               f"13c {tag}")
+        p_err, _ = _params_within(TO, got["params"], want["params"],
+                                  f"13c {tag}")
         notes = [f"parameters within {p_err:.3g} of their max (+ "
                  f"{PARAM_ATOL:g})"]
         if compress:
@@ -4653,7 +4672,8 @@ def fault_drill(TC, TD, TO, TT, TTR, TE, TP, dev, card):
                             ckpt_dir=os.path.join(tmp, "on4"), log=quiet)
         moved = TTR.train(cfg, shape, tcfg, 6, mesh=m2,
                           ckpt_dir=os.path.join(tmp, "on2"), log=quiet)
-        r_err = _max_leaf_err(TO, moved.state, through.state)
+        r_err = _max_leaf_err(TO, _whole_state(TO, moved.state),
+                              _whole_state(TO, through.state))
         require(sorted(moved.losses) == [4, 5] and r_err <= TRAIN_RTOL,
                 f"13d: resumed on 2 shards the state lies {r_err:.3g} from "
                 f"the 4-shard run's (steps {sorted(moved.losses)})")
@@ -5080,6 +5100,308 @@ def analysis_path(counters, imgs, dev, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# 15. the train state stored split across the mesh (FSDP / TP storage)
+# --------------------------------------------------------------------------
+
+#: 15a-15b: the ("data", "model") mesh naming the card 4 times
+PLACED_MESH = ((2, 2), ("data", "model"))
+#: 15a: train steps of full-width Jamba block 0 x 4 at JAMBA_TRAIN's shape
+PLACED_STEPS = 3
+#: 15b: llama3.2-1b whole through launch.train.train: (batch, seq, steps)
+PLACED_LLAMA = (8, 128, 5)
+
+
+def _jamba_block0(TC):
+    """13b's and 15a's config: jamba-v0.1-52b at every published width,
+    depth cut to block 0 (Mamba, SwiGLU) x 4, float32 compute, the
+    selective-scan kernel."""
+    base = TC.get_config(ARCH)
+    return dataclasses.replace(base, group_layout=base.group_layout[:1],
+                               n_layers=4, mamba_pallas=True,
+                               dtype=torch.float32)
+
+
+def placed_jamba(TC, TD, TO, TP, TT, DR, sh, counters, dev, card):
+    """15a: full-width Jamba block 0 x 4, float32, PLACED_STEPS steps at
+    JAMBA_TRAIN's (batch, seq) with the state placed across a (2, 2) mesh
+    of the card, then the same steps with the lead-device state (the
+    placed state freed first): losses and gradient norms within
+    TRAIN_RTOL, every leaf within TRAIN_RTOL x max + PARAM_ATOL, row 12
+    once a dp shard; each slot's stored bytes equal to the dry-run's
+    per-device state arguments; no gathered leaf alive after a step.
+    Returns the scan's launches in the placed steps."""
+    import gc
+    b, s, _ = JAMBA_TRAIN
+    cfg = _jamba_block0(TC)
+    tcfg = TT.TrainConfig()
+    shape = TC.ShapeConfig("train", "train", s, b)
+    (mshape, axes) = PLACED_MESH
+    mesh = TD.make_mesh(mshape, axes, devices=[dev] * int(np.prod(mshape)))
+    ctx = sh.make_parallelism(mesh)
+    step = TT.make_train_step(cfg, tcfg)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in TP.make_batch(
+        cfg, shape, i).items()} for i in range(PLACED_STEPS)]
+
+    def run(state, what):
+        """PLACED_STEPS timed steps: (state, metrics, step ms)."""
+        ms, metrics = [], []
+        with sh.parallelism(ctx):
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                metrics.append({k: float(m[k]) for k in ("loss",
+                                                         "grad_norm")})
+                ms.append((time.perf_counter() - t0) * 1e3)
+                require(sh.live_gathers() == 0, f"15a {what} step {i}: "
+                        f"{sh.live_gathers()} gathered tensors outlived "
+                        f"their group")
+        return state, metrics, ms
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = TT.init_state(0, cfg, tcfg, device=dev, ctx=ctx)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    want = DR.arg_bytes(TT.abstract_state(cfg, tcfg), TT.state_specs(cfg),
+                        ctx)
+    stored = [sh.stored_bytes(state, k) for k in range(mesh.size)]
+    require(all(x == want for x in stored), f"15a: slots store {stored} "
+            f"bytes, the dry-run's per-device state arguments {want}")
+    n = sum(t.numel() for t in TO.tree_leaves(state["params"]))
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    state, pm, pms = run(state, "placed")
+    peak_placed = torch.cuda.max_memory_allocated() - base
+    retries = [torch.cuda.memory_stats().get("num_alloc_retries", 0)
+               - retries0]
+    launches = _counts(counters)
+    scan = launches["selective_scan"]
+    dp = dict(zip(axes, mshape))["data"]
+    steps = PLACED_STEPS
+    require(scan >= cfg.n_layers * dp * steps and scan % dp == 0
+            and sum(launches.values()) == scan,
+            f"15a: launched {launches}: expected the scan alone, once a dp "
+            f"shard, at least {cfg.n_layers} layers x {dp} shards x "
+            f"{steps} steps")
+    require(all(sh.is_placed(x) for x in TO.tree_leaves(state)),
+            "15a: a leaf of the stepped state is not placed")
+    host = _whole_state(TO, {"params": state["params"], "opt": state["opt"]})
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lead = TT.init_state(0, cfg, tcfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    lead, lm_, lms = run(lead, "lead-device")
+    peak_lead = torch.cuda.max_memory_allocated() - base
+    retries.append(torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                   - retries0)
+    for i, (a, c) in enumerate(zip(pm, lm_)):
+        for k in ("loss", "grad_norm"):
+            require(np.isfinite(a[k]) and abs(a[k] - c[k])
+                    <= TRAIN_RTOL * abs(c[k]), f"15a step {i} {k}: "
+                    f"{a[k]!r} placed, {c[k]!r} on the lead device")
+    worst, differ = _params_within(
+        TO, host, {"params": lead["params"], "opt": lead["opt"]}, "15a")
+    del lead, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  15a {ARCH} at its widths, block 0 x 4 ({n / 1e9:.4f} B "
+          f"parameters, float32), ({b}, {s}), {steps} steps on "
+          f"{dict(zip(axes, mshape))} naming the card {mesh.size} times: "
+          f"losses {[round(m['loss'], 6) for m in pm]} (lead-device "
+          f"{[round(m['loss'], 6) for m in lm_]}); step ms placed "
+          f"{[round(v, 1) for v in pms]}, lead-device "
+          f"{[round(v, 1) for v in lms]}; peak allocated placed "
+          f"{peak_placed / 2**30:.2f} GiB, lead-device "
+          f"{peak_lead / 2**30:.2f} GiB; allocator retries placed "
+          f"{retries[0]}, lead-device {retries[1]}; each slot stores {stored[0]} B = "
+          f"the dry-run's per-device state arguments {int(want)} B (the "
+          f"card holds {held / 2**30:.2f} GiB for the 4 slots: one card "
+          f"named 4 times cannot show the per-device split); leaves within "
+          f"{worst:.3g} of their max, {differ} not bit-equal; "
+          f"selective_scan {scan} launches ({scan // steps} a step,"
+          f" {dp} dp shards) [{card}]")
+    return scan
+
+
+def placed_llama(TC, TD, TO, TT, TTR, sh, counters, dev, card):
+    """15b: the whole llama3.2-1b through ``launch.train.train`` on a
+    (2, 2) mesh of the card (the launcher places the state),
+    PLACED_LLAMA's steps, against the same run on one device (the state
+    whole; the placed run's state stays on the card meanwhile, and each
+    peak is read above what was allocated before its run): losses and
+    gradient norms within TRAIN_RTOL, every leaf within TRAIN_RTOL x max
+    + PARAM_ATOL."""
+    import gc
+    b, s, steps = PLACED_LLAMA
+    cfg = TC.get_config(TRAIN_ARCH)
+    shape = TC.ShapeConfig("train", "train", s, b)
+    tcfg = TT.TrainConfig()
+    (mshape, axes) = PLACED_MESH
+    mesh = TD.make_mesh(mshape, axes, devices=[dev] * int(np.prod(mshape)))
+    quiet = lambda *_: None  # noqa: E731
+    runs, states, peaks = {}, {}, {}
+    for tag, m in (("placed", mesh), ("one device", None)):
+        for fn in counters.values():
+            fn.launches = 0
+        held = torch.cuda.memory_allocated()    # the other run's state
+        torch.cuda.reset_peak_memory_stats()
+        run = TTR.train(cfg, shape, tcfg, steps, mesh=m, device=dev,
+                        log=quiet)
+        peaks[tag] = torch.cuda.max_memory_allocated() - held
+        require(sum(_counts(counters).values()) == 0,
+                f"15b {tag}: the dense model launched {_counts(counters)}")
+        if m is not None:
+            require(all(sh.is_placed(x) for x in TO.tree_leaves(run.state)),
+                    "15b: the launcher's meshed state is not placed")
+            require(sh.live_gathers() == 0, "15b: gathered tensors "
+                    "outlived their group")
+        states[tag] = run.state
+        runs[tag] = (TTR.summary(run, shape), dict(run.losses),
+                     dict(run.grad_norms))
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ps, pl, pg), (os_, ol, og) = runs["placed"], runs["one device"]
+    for i in range(steps):
+        for what, a, c in (("loss", pl[i], ol[i]), ("grad_norm", pg[i],
+                                                     og[i])):
+            require(np.isfinite(a) and abs(a - c) <= TRAIN_RTOL * abs(c),
+                    f"15b step {i} {what}: {a!r} placed, {c!r} on one "
+                    f"device")
+    worst, differ = _params_within(TO, states["placed"],
+                                   states["one device"], "15b", dev)
+    n = sum(t.numel() for t in TO.tree_leaves(states["one device"]["params"]))
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  15b {TRAIN_ARCH} whole ({n / 1e9:.4f} B float32 masters, "
+          f"bf16 compute), ({b}, {s}), {steps} steps through "
+          f"launch.train.train on {dict(zip(axes, mshape))} naming the card "
+          f"{mesh.size} times: losses {[round(pl[i], 6) for i in range(steps)]}"
+          f" (one device {[round(ol[i], 6) for i in range(steps)]}); step "
+          f"{ps['step_ms_median']:.1f} ms placed, {os_['step_ms_median']:.1f}"
+          f" ms on one device (medians past step 0); peak "
+          f"{peaks['placed'] / 2**30:.2f} GiB placed, "
+          f"{peaks['one device'] / 2**30:.2f} GiB on one device (each "
+          f"above what was allocated before its run); "
+          f"leaves within {worst:.3g} of their max, {differ} not bit-equal "
+          f"[{card}]")
+
+
+def placed_drill(TC, TD, TO, TT, TTR, TCK, sh, dev, card):
+    """15c: the drill on a placed state at reduced llama3.2-1b: 4 steps on
+    (2, 2) saving every 2; the placed step-2 checkpoint byte-equal to the
+    same state saved whole; it loads with ``shardings`` on (4, 1) and
+    without a mesh bit-equal to the saved leaves; resumed on (4, 1) and on
+    no mesh, steps 2-3 end at the uninterrupted run's state (13d's rule:
+    within TRAIN_RTOL of each leaf's max where not bit-equal)."""
+    import filecmp
+    import shutil
+    import tempfile
+    cfg = TC.get_config(TRAIN_ARCH).reduced()
+    b, s = TRAIN_SHAPE
+    shape = TC.ShapeConfig("train", "train", s, b)
+    tcfg = TT.TrainConfig()
+    quiet = lambda *_: None  # noqa: E731
+    m22 = TD.make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    m41 = TD.make_mesh((4, 1), ("data", "model"), devices=[dev] * 4)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_placed_")
+    try:
+        base = os.path.join(tmp, "base")
+        through = TTR.train(cfg, shape, tcfg, 4, mesh=m22, ckpt_dir=base,
+                            ckpt_every=2, log=quiet)
+        mid = os.path.join(tmp, "mid")
+        os.makedirs(mid)
+        shutil.copytree(os.path.join(base, "step_00000002"),
+                        os.path.join(mid, "step_00000002"))
+        with open(os.path.join(mid, "LATEST"), "w") as f:
+            f.write("step_00000002")
+        like = TT.to_stacked(TT.abstract_state(cfg, tcfg), "meta")
+        saved, _ = TCK.load_checkpoint(mid, like, device="cpu")
+        # the placed save against the same state saved whole
+        TCK.save_checkpoint(os.path.join(tmp, "whole"), saved, 2)
+        same_files = all(filecmp.cmp(
+            os.path.join(mid, "step_00000002", f),
+            os.path.join(tmp, "whole", "step_00000002", f), shallow=False)
+            for f in ("arrays.npz", "manifest.json"))
+        require(same_files, "15c: the placed checkpoint's files differ "
+                "from the same state's saved whole")
+        for tag, mesh in (("(4, 1)", m41), ("no mesh", None)):
+            ctx = sh.make_parallelism(mesh)
+            shd = (None if mesh is None else sh.to_named_shardings(
+                like, TT.stacked_specs(cfg), ctx))
+            tree, _ = TCK.load_checkpoint(mid, like, device=dev,
+                                          shardings=shd)
+            for a, w in zip(TO.tree_leaves(tree), TO.tree_leaves(saved)):
+                require(sh.is_placed(a) == (mesh is not None)
+                        and torch.equal(sh.whole(a, "cpu"), w),
+                        f"15c: a leaf loaded on {tag} differs from the "
+                        f"saved one")
+        ends = {}
+        for tag, mesh in (("(4, 1)", m41), ("no mesh", None)):
+            d = os.path.join(tmp, tag.replace(" ", "_").strip("()"))
+            shutil.copytree(mid, d)
+            run = TTR.train(cfg, shape, tcfg, 4, mesh=mesh, device=dev,
+                            ckpt_dir=d, log=quiet)
+            require(sorted(run.losses) == [2, 3], f"15c: the run resumed "
+                    f"on {tag} took steps {sorted(run.losses)}")
+            got, want = (_whole_state(TO, r.state) for r in (run, through))
+            differ = sum(not torch.equal(a, w) for a, w in
+                         zip(TO.tree_leaves(got), TO.tree_leaves(want)))
+            err = _max_leaf_err(TO, got, want)
+            require(err <= TRAIN_RTOL, f"15c: resumed on {tag}, the state "
+                    f"lies {err:.3g} from the uninterrupted run's")
+            ends[tag] = (differ, err)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  15c reduced {TRAIN_ARCH}: a (2, 2) placed step-2 checkpoint, "
+          f"its files byte-equal to the same state saved whole; loaded on "
+          f"(4, 1) and on no mesh bit-equal to the saved leaves; resumed "
+          + "; ".join(f"on {t}: steps 2-3 end "
+                      + ("bit-equal to" if d == 0 else
+                         f"with {d} leaves within {e:.3g} of")
+                      + " the uninterrupted run's state"
+                      for t, (d, e) in ends.items()) + f" [{card}]")
+
+
+def placed_path(counters, dev, card):
+    """Phase 15; returns the selective scan's launches in 15a."""
+    from repro_torch import configs as TC
+    from repro_torch.core import distributed as TD
+    from repro_torch.data import pipeline as TP
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as TTR
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import checkpoint as TCK
+    from repro_torch.training import optimizer as TO
+    from repro_torch.training import train_loop as TT
+    out = {}
+    steps = (
+        ("15a", f"{ARCH} at its widths, block 0 x 4, the state placed on "
+         f"(2, 2)", lambda: out.__setitem__("scan", placed_jamba(
+             TC, TD, TO, TP, TT, DR, sh, counters, dev, card))),
+        ("15b", f"{TRAIN_ARCH} whole through launch.train.train on (2, 2)",
+         lambda: placed_llama(TC, TD, TO, TT, TTR, sh, counters, dev,
+                              card)),
+        ("15c", "the drill on a placed state",
+         lambda: placed_drill(TC, TD, TO, TT, TTR, TCK, sh, dev, card)),
+    )
+    for tag, what, run in steps:
+        print(f"[placed] {what} ({tag})")
+        t0 = time.perf_counter()
+        run()
+        print(f"  {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+
 def main(dev=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -5382,6 +5704,11 @@ def main(dev=None):
     analysis_path(counters, imgs, dev, card)
     print(f"[analysis] {time.perf_counter() - t14:.1f} s")
 
+    # -- 15. the train state stored split across the mesh -------------------
+    t15 = time.perf_counter()
+    placed = placed_path(counters, dev, card)
+    print(f"[placed] {time.perf_counter() - t15:.1f} s")
+
     kernels = [
         dict(name="histogram_bin", route="cuda",
              source="src/repro_torch/csrc/histogram_bin.cu",
@@ -5436,7 +5763,8 @@ def main(dev=None):
              replaces="src/repro/kernels/selective_scan.py:57",
              prefill_launches=served["jamba"]["launches"],
              train_launches=trained["wide"],
-             mesh_train_launches=trained["mesh"], **k_scan),
+             mesh_train_launches=trained["mesh"],
+             placed_train_launches=placed["scan"], **k_scan),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

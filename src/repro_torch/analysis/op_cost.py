@@ -28,9 +28,14 @@ allocates, and their peak (``temp`` and ``out`` of a memory analysis).
 **Loops.** The JAX walker multiplies a scan body by its trip count. A
 loop of trips that cost the same takes a :func:`repeat`: under a counter
 made with ``scale_loops=True`` it runs one trip with the counts weighted
-by the trip count (its gradient too), and :meth:`Repeat.fill` stands the
-one trip's output in for all of them, uncounted. Elsewhere it runs every
+by the trip count (its gradient too, with the eager backward's
+accumulation of each trip's gradient of an input every trip reads), and
+:meth:`Repeat.fill` stands the one trip's output in for all of them,
+uncounted. Elsewhere it runs every
 trip and changes nothing. A scaled loop's live memory is one trip's.
+:func:`each` is the form for calls whose results all outlive them (a
+placed leaf's blocks): one call stands for all, counted as many times,
+and what it leaves alive is charged to live memory as many times.
 """
 from __future__ import annotations
 
@@ -160,6 +165,7 @@ class CostCounter(TorchDispatchMode):
         self.peak = 0
         self._paused = 0
         self._storages: Dict[int, tuple] = {}
+        self._made: Optional[list] = None   # keys tracked in standing_for
         self._lock = threading.RLock()
 
     def __enter__(self):
@@ -196,15 +202,40 @@ class CostCounter(TorchDispatchMode):
             seen.add(key)
             nb = st.nbytes()
 
-            def freed(_ref, key=key, nb=nb, counter=self):
+            def freed(_ref, key=key, counter=self):
                 with counter._lock:
-                    if counter._storages.pop(key, None) is not None:
-                        counter.live -= nb
+                    entry = counter._storages.pop(key, None)
+                    if entry is not None:
+                        counter.live -= entry[0]
 
             with self._lock:
                 self._storages[key] = (nb, weakref.ref(st, freed))
+                if self._made is not None:
+                    self._made.append(key)
                 self.live += nb
                 self.peak = max(self.peak, self.live)
+
+    @contextlib.contextmanager
+    def standing_for(self, factor: float):
+        """The block's ops stand for ``factor`` copies of themselves:
+        counted ``factor`` times, and the storages they allocate that
+        outlive the block charged ``factor`` times to live memory."""
+        outer, self._made = self._made, []
+        self.weight *= factor
+        try:
+            yield
+        finally:
+            self.weight /= factor
+            with self._lock:
+                made, self._made = self._made, outer
+                for key in set(made):
+                    entry = self._storages.get(key)
+                    if entry is not None:
+                        self._storages[key] = (entry[0] * factor, entry[1])
+                        self.live += entry[0] * (factor - 1)
+                self.peak = max(self.peak, self.live)
+                if outer is not None:
+                    outer.extend(made)
 
     # -- dispatch -------------------------------------------------------
 
@@ -247,6 +278,15 @@ class CostCounter(TorchDispatchMode):
         self.costs.kernel_bytes += self.weight * nb
         self.costs.n_kernels += 1
 
+    def add_bytes(self, name: str, nb: float):
+        """Bytes of ops the run performs but the counter does not see,
+        charged to aten op ``name`` at the current weight."""
+        if self._paused or not nb:
+            return
+        nb *= self.weight
+        self.costs.bytes += nb
+        self.costs.by_op.setdefault(name, [0, 0.0, 0.0])[1] += nb
+
     def add_collective(self, kind: str, nbytes: float, n: int):
         if self._paused:
             return
@@ -287,11 +327,22 @@ class _ScaledLoop(torch.autograd.Function):
     counts its gradient ``factor`` times. The weight is set around each
     pass explicitly, so the count does not depend on the order the
     autograd engine runs nodes in, nor on a recompute under
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint``.
+
+    The eager loop's backward also adds each trip's gradient of an input
+    that every trip reads (a walked input's ``x[:, t]`` gives a gradient
+    of ``x``'s full size a trip) into one gradient: ``factor - 1``
+    full-size adds of read, read, write, which one trip never performs.
+    The backward charges them for each such input that needs a gradient
+    (``reads - 1`` adds for an input only ``reads`` of the trips read).
+    The last ``carries`` inputs are the loop's carries, read by the first
+    trip only; every later trip takes their gradient, so the recomputed
+    trip does too, whether or not the loop's input needs it."""
 
     @staticmethod
-    def forward(ctx, body, factor, *xs):
-        ctx.body, ctx.factor = body, factor
+    def forward(ctx, body, factor, carries, reads, *xs):
+        ctx.body, ctx.factor, ctx.carries = body, factor, carries
+        ctx.reads = reads
         ctx.save_for_backward(*xs)
         c = active()
         c.weight *= factor
@@ -303,15 +354,22 @@ class _ScaledLoop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         xs = ctx.saved_tensors
-        need = ctx.needs_input_grad[2:]
-        live = [x.detach().requires_grad_(bool(n)) for x, n in zip(xs, need)]
+        need = ctx.needs_input_grad[4:]
+        read = len(xs) - ctx.carries
+        # every trip but the first takes the gradient of its carries
+        grad_of = [bool(n) or i >= read for i, n in enumerate(need)]
+        live = [x.detach().requires_grad_(g) if x.is_floating_point()
+                else x for x, g in zip(xs, grad_of)]
         c = active()
+        c.add_bytes("add", 3.0 * sum(
+            (r - 1) * _nbytes(x) for x, n, r in zip(xs[:read], need[:read],
+                                                    ctx.reads) if n))
         with torch.enable_grad():
             with c.paused():
                 outs = tuple(ctx.body(*live))
             pairs = [(o, g) for o, g in zip(outs, grads)
                      if o.requires_grad and g is not None]
-            wanted = [x for x, n in zip(live, need) if n]
+            wanted = [x for x in live if x.requires_grad]
             c.weight *= ctx.factor
             try:
                 got = torch.autograd.grad([o for o, _ in pairs],
@@ -319,8 +377,10 @@ class _ScaledLoop(torch.autograd.Function):
                                           allow_unused=True)
             finally:
                 c.weight /= ctx.factor
+        by_id = {id(x): g for x, g in zip(wanted, got)}
+        got = [by_id[id(x)] for x, n in zip(live, need) if n]
         it = iter(got)
-        return (None, None) + tuple(next(it) if n else None for n in need)
+        return (None,) * 4 + tuple(next(it) if n else None for n in need)
 
 
 class Repeat:
@@ -328,8 +388,13 @@ class Repeat:
     docstring). Use::
 
         r = op_cost.repeat(n)
-        y, h = r.run(body, u, h)      # body(trips, u, h) -> (y, h)
+        y, h = r.run(body, u, h, carries=1)   # body(trips, u, h) -> (y, h)
         y = r.fill(y, dim)            # one trip's output stood in n times
+
+    ``carries`` counts the trailing inputs that are carries (read by the
+    first trip, each trip returning their update); every other input is
+    read by every trip, or by ``reads[i]`` of them where given (see
+    :class:`_ScaledLoop`).
 
     or, for a loop with no gradient through it, ``with r.weighted(): for
     i in range(r.trips): ...``."""
@@ -341,11 +406,13 @@ class Repeat:
                              and n > 1) else None
         self.trips = 1 if self.counter else n
 
-    def run(self, body, *xs):
+    def run(self, body, *xs, carries: int = 0,
+            reads: Optional[Sequence[float]] = None):
         if self.counter is None:
             return body(self.n, *xs)
+        reads = tuple(reads or (self.n,) * (len(xs) - carries))
         return _ScaledLoop.apply(lambda *a: body(1, *a), float(self.n),
-                                 *xs)
+                                 carries, reads, *xs)
 
     @contextlib.contextmanager
     def weighted(self):
@@ -371,6 +438,22 @@ class Repeat:
 
 def repeat(n: int) -> Repeat:
     return Repeat(int(n))
+
+
+def each(n: int, fn, counted: Optional[float] = None) -> list:
+    """``[fn(0), ..., fn(n - 1)]``: ``n`` calls that cost the same, with
+    no gradient through them, which a counter counts as ``counted``
+    (default ``n``) such calls, the storages they leave alive too (a fake
+    block standing for several counts more calls than it makes). Under a
+    counter made with ``scale_loops`` one call stands for all, its
+    result returned for every ``i``."""
+    trips = repeat(n).trips
+    c = active()
+    factor = (n if counted is None else counted) / trips
+    with (c.standing_for(factor) if c is not None and factor != 1
+          else contextlib.nullcontext()):
+        out = [fn(i) for i in range(trips)]
+    return out + out[:1] * (n - len(out))
 
 
 def count(fn, *args, scale_loops: bool = False, **kwargs):

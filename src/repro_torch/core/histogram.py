@@ -42,6 +42,13 @@ def intensity_histogram(x: torch.Tensor, n_bins: int = 256,
     return kops.histogram_counts(x.reshape(-1), n_bins)
 
 
+def weighted_membership(vals: torch.Tensor, v: torch.Tensor,
+                        m: float) -> torch.Tensor:
+    """Eq. 4 memberships (c, K) of the histogram's values from centers
+    ``v``; the counts weigh only the center step."""
+    return F.update_membership(vals, v, m)
+
+
 def weighted_center_step(vals: torch.Tensor, w: torch.Tensor,
                          v: torch.Tensor, m: float) -> torch.Tensor:
     """Fused v -> v' step over (value, weight) pairs — the scalar face of

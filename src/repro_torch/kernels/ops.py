@@ -138,6 +138,18 @@ def spatial_partials(x: torch.Tensor, v: torch.Tensor, m: float = 2.0,
     return KSP.spatial_partials_3d(_f32(x), _f32(v), m, alpha)
 
 
+def spatial_step(img: torch.Tensor, v: torch.Tensor, m: float = 2.0,
+                 alpha: float = 1.0, neighbors: int = 4) -> torch.Tensor:
+    """One fused FCM_S ``v -> v'`` iteration over a 2-D image (H, W)
+    (4 or 8 neighbors) or a 3-D volume (D, H, W) (6) from centers ``v``
+    (c,): the step kernels (``spatial_partials_pallas_2d`` / ``_3d``'s
+    counterparts) on the card, their plain versions on the CPU. The JAX
+    package's ``block_rows`` and ``interpret`` are its TPU tiling and
+    have no counterpart."""
+    num, den = spatial_partials(img[None], v[None], m, alpha, neighbors)
+    return (num / torch.clamp((1.0 + alpha) * den, min=_D2_FLOOR))[0]
+
+
 def slic_assign(img: torch.Tensor, centers: torch.Tensor, gy: int, gx: int,
                 sw: float) -> torch.Tensor:
     """SLIC assignment: ``img`` (H, W, D), ``centers`` (gy * gx, D + 2)

@@ -9,10 +9,15 @@ walks its HLO, the port runs the *global* step once under
 ``FakeTensorMode`` (no memory behind a tensor, any size) inside an
 :class:`~repro_torch.analysis.op_cost.CostCounter`:
 
+- the state (the parameters of a serving cell) is placed across the
+  mesh by its specs (``sharding.place``), as the launcher places it, so
+  the step gathers each group's parameters and reduce-scatters their
+  gradients;
 - argument bytes a device come from the spec trees (``lm.param_specs``,
   ``train_loop.state_specs`` / ``batch_specs``, ``lm.cache_specs``,
   pruned by ``sharding.prune_spec``): each leaf's bytes over the sizes
-  of the axes that split it, as ``memory_analysis()`` reports them;
+  of the axes that split it, as ``memory_analysis()`` reports them and
+  as ``place`` stores them in each slot;
 - temporaries and outputs are the step's peak and final live bytes, and
   flops, bytes and wire the counter's totals, each over the mesh's size;
 - loops of equal trips (microbatches, flash-attention chunks, the expert
@@ -22,13 +27,16 @@ walks its HLO, the port runs the *global* step once under
 - ``fcm-brainweb`` costs one iteration of ``build_sharded_fit`` (the JAX
   dry-run's ``while_override=1``).
 
-**Scope.** The wire is what the port's own mesh operations move (the
-pixel fit's psums, the expert dispatch's rank sums, the int8 cross-pod
-mean). The parameter gathers and gradient reductions XLA's partitioner
-inserts under the specs have no counterpart: a mesh's state lives whole
-on its lead device (FSDP / TP storage is not ported). Each record says so
-under ``scope``. Numbers are analytic on data-sheet constants
-(:mod:`repro_torch.analysis.hw`), not measurements.
+**Scope.** The wire is what the port's own mesh operations move: the
+parameter all-gathers and gradient reduce-scatters of the placed state
+(each gather of a leaf split over n slots one all-gather of a block a
+participant for each replica group, a recompute under remat gathering
+again), the pixel fit's psums, the expert dispatch's rank sums and the
+int8 cross-pod mean. Activation resharding that XLA's partitioner would
+insert has no counterpart: the port's activations live on the lead
+device. Each record says so under ``scope``. Numbers are analytic on
+data-sheet constants (:mod:`repro_torch.analysis.hw`), not
+measurements.
 
 Usage::
 
@@ -73,12 +81,12 @@ MICROBATCH_OVERRIDE = {"deepseek-v2-236b": 16, "mistral-large-123b": 16,
 
 FCM_SHAPE = configs.ShapeConfig("fcm_1g", "fcm", 1 << 30, 1)
 
-SCOPE = ("wire: the port's own mesh operations (psums of the FCM fit, "
-         "the expert dispatch's rank sums, the int8 cross-pod mean); no "
-         "FSDP / TP parameter gathers or gradient reductions (a mesh's "
-         "state lives on its lead device); temp and out: the global "
-         "step's live bytes over the mesh's size; analytic, H100 SXM "
-         "data-sheet constants")
+SCOPE = ("wire: the port's own mesh operations (the placed state's "
+         "parameter all-gathers and gradient reduce-scatters, psums of the "
+         "FCM fit, the expert dispatch's rank sums, the int8 cross-pod "
+         "mean); no activation resharding (activations live on the lead "
+         "device); temp and out: the global step's live bytes over the "
+         "mesh's size; analytic, H100 SXM data-sheet constants")
 
 
 def _fake_like(tree, dev):
@@ -132,7 +140,8 @@ def cost_lm(cfg, shape, ctx: sh.Parallelism, dev):
     fake tensors (call under ``FakeTensorMode``)."""
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
-        state = _fake_like(tl.abstract_state(cfg, TRAIN_CFG), dev)
+        state = sh.place(_fake_like(tl.abstract_state(cfg, TRAIN_CFG), dev),
+                         tl.state_specs(cfg), ctx)
         batch = _batch(cfg, shape, dev)
         args = (arg_bytes(state, tl.state_specs(cfg), ctx)
                 + arg_bytes(batch, tl.batch_specs(cfg), ctx))
@@ -140,7 +149,8 @@ def cost_lm(cfg, shape, ctx: sh.Parallelism, dev):
         with op_cost.CostCounter(scale_loops=True) as counter:
             out = step(state, batch)
         return counter, args, out
-    params = _fake_like(lm.abstract_params(cfg), dev)
+    params = sh.place(_fake_like(lm.abstract_params(cfg), dev),
+                      lm.param_specs(cfg), ctx)
     cache = lm.init_cache(cfg, b, s, device=dev)
     args = (arg_bytes(params, lm.param_specs(cfg), ctx)
             + arg_bytes(cache, lm.cache_specs(cfg), ctx))

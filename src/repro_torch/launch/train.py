@@ -1,7 +1,8 @@
 """The training launcher of the port.
 
 Wires the substrate together: arch config and shape -> mesh (planned
-from the visible card count) -> train state on the mesh's lead device
+from the visible card count) -> train state placed across the mesh by
+its specs (one block of each leaf a mesh slot, on the slot's device)
 -> the deterministic data pipeline -> the train step -> asynchronous
 checkpoints, the straggler watchdog and a crash-restart loop.
 
@@ -57,19 +58,38 @@ def build(cfg: ModelConfig, tcfg: tl.TrainConfig, mesh: Optional[Mesh] = None,
           resume_dir: Optional[str] = None, device=None):
     """``(state, step_fn, ctx, start)``: the state restored from the
     latest checkpoint under ``resume_dir`` (``start`` its step), else
-    drawn from seed 0 (``start`` 0), on the mesh's lead device, or on
-    ``device`` without a mesh (``None`` = the card)."""
+    drawn from seed 0 (``start`` 0). With a mesh it is placed across the
+    mesh by :func:`~repro_torch.training.train_loop.state_specs` (a
+    checkpoint's leaves placed as they are read); without one it lies
+    whole on ``device`` (``None`` = the card)."""
     dev = mesh.lead if mesh is not None else DV.resolve_device(device)
+    ctx = sh.make_parallelism(mesh)
     if resume_dir and ckpt.latest_step(resume_dir) is not None:
         like = tl.to_stacked(tl.abstract_state(cfg, tcfg), "meta")
-        tree, manifest = ckpt.load_checkpoint(resume_dir, like, device="cpu")
+        shardings = (sh.to_named_shardings(like, tl.stacked_specs(cfg), ctx)
+                     if mesh is not None else None)
+        tree, manifest = ckpt.load_checkpoint(
+            resume_dir, like, device=None if mesh is not None else "cpu",
+            shardings=shardings)
         state = tl.from_stacked(tree, dev)
         start = int(manifest["step"])
     else:
-        state = tl.init_state(0, cfg, tcfg, device=dev)
+        state = tl.init_state(0, cfg, tcfg, device=dev, ctx=ctx)
         start = 0
     state, ctx = elastic.reshard_state(state, tl.state_specs(cfg), mesh)
+    if mesh is not None:
+        require_placed(state)
     return state, tl.make_train_step(cfg, tcfg), ctx, start
+
+
+def require_placed(state):
+    """Raise unless every leaf of ``state`` is placed across a mesh: a
+    meshed run never falls back to a whole state on its lead device."""
+    whole = [i for i, x in enumerate(opt.tree_leaves(state))
+             if not sh.is_placed(x)]
+    if whole:
+        raise RuntimeError(f"{len(whole)} leaves of a meshed train state "
+                           f"are whole tensors, not placed on the mesh")
 
 
 @dataclasses.dataclass
@@ -108,7 +128,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: tl.TrainConfig,
         try:
             state, step_fn, ctx, start = build(cfg, tcfg, mesh, ckpt_dir,
                                                device)
-            dev = state["step"].device
+            dev = sh.lead_device(state["step"])
             saver = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
             timer = elastic.StepTimer()
             with sh.parallelism(ctx):
@@ -118,6 +138,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: tl.TrainConfig,
                         break
                     timer.start()
                     state, metrics = step_fn(state, _to_device(batch, dev))
+                    if mesh is not None:
+                        require_placed(state)
                     losses[step] = float(metrics["loss"])
                     slow = timer.stop()
                     step_ms[step] = timer.durations[-1] * 1e3
@@ -130,7 +152,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, tcfg: tl.TrainConfig,
                         saver.save(tl.to_stacked(state), step + 1)
             flagged += timer.total_flagged
             if saver:
-                saver.save(tl.to_stacked(state), int(state["step"]))
+                saver.save(tl.to_stacked(state), int(sh.whole(
+                    state["step"])))
                 saver.wait()
                 if saver.last_error is not None:
                     raise saver.last_error
@@ -154,7 +177,7 @@ def summary(run: TrainRun, shape: ShapeConfig) -> dict:
     steps = sorted(run.losses)
     later = [run.step_ms[s] for s in steps[1:]] or [run.step_ms[steps[0]]]
     ms = statistics.median(later)
-    dev = run.state["step"].device
+    dev = sh.lead_device(run.state["step"])
     return {"steps": len(steps), "loss_first": run.losses[steps[0]],
             "loss_last": run.losses[steps[-1]], "step_ms_median": ms,
             "tokens_per_s": shape.global_batch * shape.seq_len / ms * 1e3,

@@ -97,7 +97,7 @@ def _flash_attention(q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
             acc = torch.zeros((b, kh, g, q_chunk, hd_v), dtype=torch.float32,
                               device=dev)
             l, acc = kv_loop.run(lambda n, *xs: kv_steps(n, *xs, qi), q_blk,
-                                 k, v, m, l, acc)
+                                 k, v, m, l, acc, carries=3)
             outs.append(acc / torch.clamp(l[..., None], min=1e-30))
         return (torch.cat(outs, dim=3),)
 

@@ -21,6 +21,12 @@ Cross-attention reads ``memory`` (B, M, D): an encoder-decoder model
 makes it from ``frames`` (B, n_frames, D) with :func:`encode`; a vision
 model takes the image embeddings as ``memory``. A model without cross
 blocks ignores memory, as in the JAX package.
+
+Every entry point takes a plain tree or one placed across a mesh
+(:func:`repro_torch.models.sharding.place`): a group's parameters are
+gathered onto the activations' device at the start of the group's body
+(again in a recompute), and the embedding table and the norms where
+they are used, so no gathered group outlives its use.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from .. import _device as DV
 from ..configs.base import BlockDesc, ModelConfig
 from . import blocks as B
 from . import layers as L
+from . import moe as M
 from . import sharding as sh
 
 #: the encoder's block: bidirectional GQA and the GELU MLP
@@ -103,6 +110,25 @@ def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
     with _OnMeta():
         return init_params(0, cfg, device="cpu")
 
+def gathered(tree, device):
+    """``tree`` with each placed leaf gathered whole on ``device``
+    (:func:`repro_torch.models.sharding.gather`); plain leaves as they
+    are. Under expert parallelism (tp > 1) an MoE's expert stacks stay
+    placed: each tp rank gathers its own experts
+    (:func:`repro_torch.models.moe.moe_ffn`)."""
+    ep = sh.current().tp_size > 1
+
+    def walk(node):
+        if isinstance(node, dict):
+            keep = M.EXPERT_STACKS if ep and "router" in node else ()
+            return {k: v if k in keep else walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return sh.gather(node, device)
+
+    return walk(tree)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig):
     """The encoder (whisper): frame embeddings (B, n_frames, D) through
     ``cfg.enc_layers`` bidirectional blocks and the encoder norm; each
@@ -112,13 +138,14 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig):
                              device=x.device)[None]
 
     def body(x, gp):
+        gp = gathered(gp, x.device)
         return B.block_forward(gp["b0"], x, cfg, ENC_DESC,
                                positions=positions, causal=False)[0]
 
     remat = cfg.remat and torch.is_grad_enabled()
     for gp in params["enc_groups"]:
         x = _ckpt(body, x, gp) if remat else body(x, gp)
-    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(gathered(params["enc_norm"], x.device), x, cfg.norm_eps)
 
 
 def _memory(params, cfg: ModelConfig, memory, frames):
@@ -147,11 +174,19 @@ def _ckpt(fn, *args):
                       context_fn=sh.checkpoint_context_fn())
 
 
-def _scan_groups_remat(body, carry, groups, n_groups: int, remat: bool):
-    """Loop ``carry = body(carry, group)`` over the groups. With
-    ``remat`` under autograd, the JAX package's O(sqrt(L)) activation
-    plan: each group recomputed in the backward, inside an outer
-    recompute over super-groups of about sqrt(n_groups) groups."""
+def _scan_groups_remat(body, carry, groups, n_groups: int, remat: bool,
+                       device=None):
+    """Loop ``carry = body(carry, group)`` over the groups, each group's
+    placed parameters gathered on ``device`` at the start of its body
+    (:func:`gathered`). With ``remat`` under autograd, the JAX package's
+    O(sqrt(L)) activation plan: each group recomputed in the backward,
+    gathers included, inside an outer recompute over super-groups of
+    about sqrt(n_groups) groups."""
+    inner_body = body
+
+    def body(c, gp):
+        return inner_body(c, gathered(gp, device))
+
     if not remat or not torch.is_grad_enabled():
         for gp in groups:
             carry = body(carry, gp)
@@ -183,7 +218,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     for an encoder-decoder model, ``memory`` (B, M, D) for a vision
     model."""
     memory = _memory(params, cfg, memory, frames)
-    x = L.embed(params["embed"], tokens, cfg.dtype)
+    x = L.embed(gathered(params["embed"], tokens.device), tokens, cfg.dtype)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)[None]
 
@@ -197,11 +232,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
     aux0 = torch.zeros((), dtype=torch.float32, device=tokens.device)
     x, aux = _scan_groups_remat(body, (x, aux0), params["groups"],
-                                cfg.n_groups, cfg.remat)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+                                cfg.n_groups, cfg.remat, tokens.device)
+    x = L.rmsnorm(gathered(params["final_norm"], x.device), x, cfg.norm_eps)
     if return_features:
         return x, aux
-    return L.unembed(params["embed"], x, cfg.dtype), aux
+    return L.unembed(gathered(params["embed"], x.device), x, cfg.dtype), aux
 
 
 # ---------------------------------------------------------------------------
@@ -246,19 +281,22 @@ def prefill(params, tokens: torch.Tensor, cache, cfg: ModelConfig,
     cross block's ``cross_kv`` becomes the memory's K/V, of the memory's
     length. ``memory`` and ``frames`` as in :func:`forward`."""
     memory = _memory(params, cfg, memory, frames)
-    x = L.embed(params["embed"], tokens, cfg.dtype)
+    dev = tokens.device
+    x = L.embed(gathered(params["embed"], dev), tokens, cfg.dtype)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)[None]
+                             device=dev)[None]
     new_cache = []
     for gp, gc in zip(params["groups"], cache, strict=True):
+        gp = gathered(gp, dev)
         new_gc = {}
         for i, desc in enumerate(cfg.group_layout):
             x, new_gc[f"b{i}"] = B.block_prefill(
                 gp[f"b{i}"], x, cfg, desc, gc[f"b{i}"], positions=positions,
                 memory=memory)
         new_cache.append(new_gc)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.dtype), new_cache
+    x = L.rmsnorm(gathered(params["final_norm"], dev), x[:, -1:],
+                  cfg.norm_eps)
+    return L.unembed(gathered(params["embed"], dev), x, cfg.dtype), new_cache
 
 
 @torch.no_grad()
@@ -267,13 +305,15 @@ def decode_step(params, token: torch.Tensor, cache, pos: int,
     """One new token (B, 1) given the cache at position ``pos``. Returns
     (logits (B, 1, V) float32, cache); the attention caches are written
     in place."""
-    x = L.embed(params["embed"], token, cfg.dtype)
+    dev = token.device
+    x = L.embed(gathered(params["embed"], dev), token, cfg.dtype)
     new_cache = []
     for gp, gc in zip(params["groups"], cache, strict=True):
+        gp = gathered(gp, dev)
         new_gc = {}
         for i, desc in enumerate(cfg.group_layout):
             x, new_gc[f"b{i}"] = B.block_decode(gp[f"b{i}"], x, cfg, desc,
                                                 gc[f"b{i}"], pos=pos)
         new_cache.append(new_gc)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.dtype), new_cache
+    x = L.rmsnorm(gathered(params["final_norm"], dev), x, cfg.norm_eps)
+    return L.unembed(gathered(params["embed"], dev), x, cfg.dtype), new_cache

@@ -17,7 +17,10 @@ tp rank) runs :func:`_local_expert_ffn` on its experts on its device,
 and the ranks' outputs are summed on the lead device in rank order (the
 JAX package's ``psum`` over tp). Routing, and so the aux loss, stays
 global. Per-shard capacity makes the result differ from ``tp == 1`` by
-design wherever capacity binds.
+design wherever capacity binds. With the expert stacks placed across
+the mesh (:func:`repro_torch.models.sharding.place`), rank r takes its
+experts from the blocks of the slots at tp index r, gathered over the
+fsdp axes only; no whole stack exists anywhere.
 """
 from __future__ import annotations
 
@@ -27,6 +30,10 @@ import torch.nn.functional as Fn
 from ..analysis import op_cost
 from . import layers as L
 from . import sharding as sh
+
+
+#: the expert stacks, split over "tp" by :func:`spec_moe`
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 
 
 def init_moe(gen: torch.Generator, cfg):
@@ -72,11 +79,20 @@ def _route(xf, router_w, cfg):
     gates, idx = torch.topk(probs, e.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux loss
-    density = torch.mean(Fn.one_hot(idx[:, 0], e.n_experts).to(
-        torch.float32), dim=0)
+    density = torch.mean(_one_hot(idx[:, 0], e.n_experts, torch.float32),
+                         dim=0)
     mean_prob = torch.mean(probs, dim=0)
     aux = e.n_experts * torch.sum(density * mean_prob)
     return idx, gates.to(xf.dtype), aux
+
+
+def _one_hot(x: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``x``'s one-hot rows over classes ``0 .. n - 1`` in ``dtype`` (a
+    row of zeros past them), as an ``eq`` against the class ids: the
+    same ops on real and fake tensors (``one_hot`` checks its range on
+    real ones, a host sync on the card), so a dry-run counts what the
+    card runs."""
+    return (x[..., None] == torch.arange(n, device=x.device)).to(dtype)
 
 
 def _local_expert_ffn(xf, idx, gates, wg, wu, wd, e_start: int,
@@ -91,8 +107,8 @@ def _local_expert_ffn(xf, idx, gates, wg, wu, wd, e_start: int,
     local = (le >= 0) & (le < e_loc)
     le_c = torch.where(local, le, e_loc)                     # overflow bucket
     # running rank within each expert (first-come capacity policy); the
-    # overflow bucket's column is dropped, as jax.nn.one_hot drops it
-    onehot = Fn.one_hot(le_c, e_loc + 1)[:, :e_loc].to(torch.int32)
+    # overflow bucket has no column, as jax.nn.one_hot drops it
+    onehot = _one_hot(le_c, e_loc, torch.int32)
     rank = torch.cumsum(onehot, dim=0) - onehot              # entries before
     pos = torch.sum(rank * onehot, dim=-1)                   # (T*K,)
     keep = local & (pos < capacity)
@@ -119,6 +135,26 @@ def _capacity(e, t_local: int) -> int:
     return int(max(e.top_k * t_local / e.n_experts * e.capacity_factor, 4))
 
 
+def _rank_experts(w, r: int, e_loc: int, dev, ctx: sh.Parallelism,
+                  share: float):
+    """Rank ``r``'s ``e_loc`` experts of the stack ``w`` on ``dev``,
+    padded with dead (zero) experts past the stack's end. A placed stack
+    is gathered from the slots at tp index r over the fsdp axes; where
+    its spec could not split the experts over tp (E not a multiple of
+    tp) those slots hold every expert, and the rank's are cut from
+    them."""
+    if sh.is_placed(w):
+        split = w.spec[0] is not None
+        w = sh.gather(w, dev, keep={ctx.tp_axis: r}, share=share)
+        if split:
+            return w
+    part = w[r * e_loc:(r + 1) * e_loc].to(dev)
+    if part.shape[0] < e_loc:
+        part = torch.cat([part, part.new_zeros(
+            (e_loc - part.shape[0],) + tuple(part.shape[1:]))])
+    return part
+
+
 def _expert_parallel_ffn(p, xf, idx, gates, cfg, ctx: sh.Parallelism):
     """The expert-parallel dispatch: each (dp shard, tp rank) runs
     :func:`_local_expert_ffn` over its tokens and its experts on its
@@ -127,33 +163,45 @@ def _expert_parallel_ffn(p, xf, idx, gates, cfg, ctx: sh.Parallelism):
     e = cfg.moe
     tp = ctx.tp_size
     e_pad = -(-e.n_experts // tp) * tp
-    ws = [p["w_gate"], p["w_up"], p["w_down"]]
-    if e_pad != e.n_experts:
-        ws = [torch.cat([w, w.new_zeros((e_pad - e.n_experts,)
-                                        + tuple(w.shape[1:]))]) for w in ws]
     e_loc = e_pad // tp
+    stacks = [p[k] for k in EXPERT_STACKS]
+    # the stacks' tensors (a placed stack's blocks) go into the loop as
+    # its inputs, so that a dry-run's one trip carries their gradients
+    counts = [len(sh.tensors_of(w)) for w in stacks]
+    flat = [t for w in stacks for t in sh.tensors_of(w)]
     shards = sh.dp_shards(ctx, xf.shape[0])
     capacity = _capacity(e, xf.shape[0] // len(shards))
     lead = xf.device
     # every (shard, rank) costs the same: a dry-run counts one
     loop = op_cost.repeat(len(shards) * tp)
 
-    def dispatch(trips, xf, gates, *ws):
+    def dispatch(trips, xf, gates, *ts):
+        ws, i = [], 0
+        for w, n in zip(stacks, counts):
+            ws.append(w.with_tensors(ts[i:i + n]) if sh.is_placed(w)
+                      else ts[i])
+            i += n
         outs = []
         for rows, coords in shards[:max(1, trips // tp)]:
             total = None
             for r in range(min(tp, trips)):
                 dev = sh.device_at(ctx.mesh, {**coords, ctx.tp_axis: r})
-                sl = slice(r * e_loc, (r + 1) * e_loc)
                 part = _local_expert_ffn(
                     xf[rows].to(dev), idx[rows].to(dev), gates[rows].to(dev),
-                    *(w[sl].to(dev) for w in ws), r * e_loc, capacity,
-                    cfg.dtype).to(lead)
+                    *(_rank_experts(w, r, e_loc, dev, ctx, 1 / len(shards))
+                      for w in ws), r * e_loc, capacity, cfg.dtype).to(lead)
                 total = part if total is None else total + part
             outs.append(total)
         return (torch.cat(outs),)
 
-    out, = loop.run(dispatch, xf, gates, *ws)
+    # a placed stack's block is read by its tp rank's trips alone (a
+    # fake tensor's reads stand for those of the blocks it stands for), a
+    # whole stack by every trip
+    reads = [len(shards) * tp] * 2 + [
+        1 + w.stands_for() * (len(shards) - 1) if sh.is_placed(w)
+        else len(shards) * tp
+        for w, n in zip(stacks, counts) for _ in range(n)]
+    out, = loop.run(dispatch, xf, gates, *flat, reads=reads)
     for rows, _ in shards:          # each shard's psum over the tp ranks
         op_cost.collective("all-reduce", (rows.stop - rows.start)
                            * out.shape[1] * out.element_size(), tp)

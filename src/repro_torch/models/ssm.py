@@ -162,7 +162,7 @@ def _wkv_scan(r, k, v, logw, u, s0):
         return torch.stack(ys, dim=1), s
 
     loop = op_cost.repeat(r.shape[1])   # a dry-run counts one step
-    y, s = loop.run(steps, r, k, v, decay, u, s)
+    y, s = loop.run(steps, r, k, v, decay, u, s, carries=1)
     return loop.fill(y, 1), s
 
 
@@ -310,7 +310,7 @@ def _ssm_scan(u, dt, bmat, cmat, a, d_skip, h0):
         return torch.stack(ys, dim=1), h
 
     loop = op_cost.repeat(u.shape[1])   # a dry-run counts one step
-    y, h = loop.run(steps, u, dt, bmat, cmat, a, d_skip, h)
+    y, h = loop.run(steps, u, dt, bmat, cmat, a, d_skip, h, carries=1)
     return loop.fill(y, 1), h
 
 

@@ -15,7 +15,10 @@ loads in the other):
 Writes go to ``<name>.tmp`` and are committed with an atomic rename, so
 a job killed mid-save never corrupts the previous checkpoint. Trees are
 nested dicts (keys in sorted order), lists and tuples of tensors; a
-``None`` is an empty subtree, as in a JAX pytree.
+``None`` is an empty subtree, as in a JAX pytree. A leaf placed across a
+mesh (:class:`repro_torch.models.sharding.Placed`) is gathered whole to
+the host as it is written, so the files are those a whole state writes;
+:func:`load_checkpoint`'s ``shardings`` places each leaf as it is read.
 """
 from __future__ import annotations
 
@@ -28,14 +31,18 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models import sharding as sh
 
-def _flatten_with_paths(tree) -> Tuple[List[str], List[Any]]:
+
+def _flatten_with_paths(tree, keep_none: bool = False
+                        ) -> Tuple[List[str], List[Any]]:
     """(key paths, leaves) in the JAX package's order: dict keys sorted,
-    sequences by index, paths joined with "/"."""
+    sequences by index, paths joined with "/"; ``keep_none`` keeps a
+    ``None`` as a leaf (a shardings tree's unplaced entry)."""
     keys, leaves = [], []
 
     def walk(node, path):
-        if node is None:
+        if node is None and not keep_none:
             return
         if isinstance(node, dict):
             for k in sorted(node):
@@ -71,6 +78,8 @@ def _unflatten(like, leaves):
 def _to_numpy(leaf) -> Tuple[np.ndarray, bool]:
     """A leaf as a host numpy array, and whether it was bfloat16 (then
     the array is its bits as uint16)."""
+    if sh.is_placed(leaf):
+        leaf = sh.whole(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -82,6 +91,8 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, bool]:
 def _to_host(leaf):
     """A snapshot of a leaf that later writes to the original cannot
     touch."""
+    if sh.is_placed(leaf):
+        return sh.whole(leaf, "cpu")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
@@ -128,12 +139,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def load_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
-                    device=None) -> Tuple[Any, Dict[str, Any]]:
+                    device=None, shardings=None) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``like`` (a tree of tensors, meta
     tensors included). Each leaf takes the file's dtype and lands on
     ``device`` when given, else on the device of ``like``'s leaf at that
-    path (the CPU where that leaf is not a tensor). Returns (tree,
-    manifest)."""
+    path (the CPU where that leaf is not a tensor). ``shardings``, a tree
+    like ``like`` of :class:`repro_torch.models.sharding.NamedSharding`
+    (``None`` entries read as above), places each leaf as it is read (the
+    JAX package's ``shardings``): no whole copy of it outlives the read.
+    Returns (tree, manifest)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -142,9 +156,14 @@ def load_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     keys, leaves = _flatten_with_paths(like)
+    places = ([None] * len(keys) if shardings is None
+              else _flatten_with_paths(shardings, keep_none=True)[1])
+    if len(places) != len(keys):
+        raise ValueError(f"shardings has {len(places)} leaves, the "
+                         f"template {len(keys)}")
     out = []
     with np.load(os.path.join(d, "arrays.npz")) as data:
-        for k, leaf in zip(keys, leaves):
+        for k, leaf, where in zip(keys, leaves, places):
             if k in data:
                 t = torch.from_numpy(data[k])
             elif k + "::bf16" in data:
@@ -156,6 +175,9 @@ def load_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
                 raise ValueError(f"checkpoint leaf {k} has shape "
                                  f"{tuple(t.shape)}, the template "
                                  f"{tuple(leaf.shape)}")
+            if where is not None:
+                out.append(sh.put(t, where))
+                continue
             dev = (torch.device(device) if device is not None
                    else leaf.device if isinstance(leaf, torch.Tensor)
                    else torch.device("cpu"))

@@ -7,8 +7,8 @@ restores the latest checkpoint and moves it onto the new mesh
 :func:`plan_mesh` picks the largest usable (pod, data, model)
 factorization for a device count, preferring tp = 16 as the JAX package
 does (one TPU v5e tray; an H100 node's NVLink domain is 8 cards, and the
-policy is kept as it is). :func:`reshard_state` moves a restored state
-onto a new mesh. :class:`StepTimer` is the straggler watchdog: step
+policy is kept as it is). :func:`reshard_state` places a restored
+state on a new mesh by its specs. :class:`StepTimer` is the straggler watchdog: step
 durations, outlier flagging (> threshold x the rolling median) and a
 hook the launcher can use to checkpoint and rebalance.
 """
@@ -20,7 +20,6 @@ from typing import Callable, Optional, Sequence, Tuple
 
 from ..core import distributed as D
 from ..models import sharding as sh
-from . import optimizer as opt
 
 
 def plan_mesh(n_devices: int, model_parallel: Optional[int] = None,
@@ -50,16 +49,16 @@ def plan_mesh(n_devices: int, model_parallel: Optional[int] = None,
 
 def reshard_state(state, specs, new_mesh: Optional[D.Mesh]
                   ) -> Tuple[object, sh.Parallelism]:
-    """Move a (host or device) state tree onto ``new_mesh`` per its
-    logical ``specs``. Returns ``(state, the new Parallelism)``. The
-    state lands whole on the new mesh's lead device (the port keeps a
-    mesh's state there; see :mod:`repro_torch.models.sharding`); every
+    """Place a state tree on ``new_mesh`` per its logical ``specs``
+    (:func:`repro_torch.models.sharding.place`, the JAX package's
+    ``device_put`` of each leaf by its ``NamedSharding``). The source may
+    be whole (on the host or a device) or placed on another mesh; each
+    slot's block is cut from the source's blocks that cover it. Without
+    a mesh the state comes back whole (placed leaves gathered on their
+    mesh's lead device). Returns ``(state, the new Parallelism)``; every
     leaf's spec is checked against its shape and pruned for the mesh."""
     ctx = sh.make_parallelism(new_mesh)
-    sh.to_shardings(state, specs, ctx)
-    if new_mesh is not None:
-        state = opt.tree_map(lambda x: x.to(new_mesh.lead), state)
-    return state, ctx
+    return sh.place(state, specs, ctx), ctx
 
 
 class StepTimer:

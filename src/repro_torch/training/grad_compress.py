@@ -23,6 +23,7 @@ import torch
 
 from ..analysis import op_cost
 from ..core.distributed import Mesh
+from ..models import sharding as sh
 from . import optimizer as opt
 
 
@@ -50,33 +51,50 @@ def _axis_size(mesh: Mesh, axis: str) -> int:
     return mesh.shape[mesh.axis_names.index(axis)]
 
 
-def compressed_psum_mean(trees: Sequence, mesh: Mesh, axis: str):
+def _amax(x) -> torch.Tensor:
+    """max |x| of a leaf (over a placed leaf's blocks), on its lead."""
+    parts = [torch.max(torch.abs(t.to(torch.float32))).to(sh.lead_device(x))
+             for t in sh.tensors_of(x)]
+    return parts[0] if len(parts) == 1 else torch.stack(parts).max()
+
+
+def compressed_psum_mean(trees: Sequence, mesh: Mesh, axis: str, like=None):
     """The mean of ``trees`` (one tree a position along ``axis``, in
     order, each on that shard's device) with int8 on the wire. For each
     leaf: the max |x| over the shards, one shared scale, each shard
     quantized on its device, an int32 sum on ``mesh.lead`` in shard
     order, then dequantized, divided by the axis size and cast back to
-    the leaf's dtype. Returns one tree on the lead device. A cost counter
-    sees two all-reduces a leaf: the float32 max and the int8 payload
-    (the JAX package sums the payload as int32)."""
+    the leaf's dtype. Returns one tree on the lead device; where a leaf
+    of ``like`` is placed across ``mesh`` (the shards' leaves placed on
+    their sub-meshes), the mean is formed block by block on each slot's
+    device and placed as that leaf is. A cost counter sees two
+    all-reduces a leaf: the float32 max and the int8 payload (the JAX
+    package sums the payload as int32)."""
     n = _axis_size(mesh, axis)
     if len(trees) != n:
         raise ValueError(f"axis {axis!r} has {n} positions, got "
                          f"{len(trees)} trees")
     lead = mesh.lead
 
-    def one(*xs):
+    def one(ref, *xs):
         # on the wire: one float32 max a leaf, then its int8 payload
         op_cost.collective("all-reduce", 4, n)
         op_cost.collective("all-reduce", xs[0].numel(), n)
-        amax = torch.stack([torch.max(torch.abs(x.to(torch.float32))).to(lead)
-                            for x in xs]).max()
-        scale = _scale_of(amax)
+        scale = _scale_of(torch.stack([_amax(x).to(lead) for x in xs]).max())
+        qs = [sh.blockwise(lambda t: _quantize(t, scale.to(t.device)).to(
+            torch.int8), x) for x in xs]
+        if sh.is_placed(ref):
+            # each slot's block of every shard's int8 payload, summed there
+            qs = [sh.put(q, ref.sharding) for q in qs]
+            total = sh.blockwise(lambda *b: sum(t.to(torch.int32) for t in b),
+                                 *qs)
+            return sh.blockwise(lambda t: (t.to(torch.float32) * scale.to(
+                t.device) / n).to(xs[0].dtype), total)
         total = None
-        for x in xs:
-            q = _quantize(x, scale.to(x.device)).to(torch.int8).to(lead)
+        for q in qs:
+            q = q.to(lead)
             total = (q.to(torch.int32) if total is None
                      else total + q.to(torch.int32))
         return (total.to(torch.float32) * scale / n).to(xs[0].dtype)
 
-    return opt.tree_map(one, trees[0], *trees[1:])
+    return opt.tree_map(one, trees[0] if like is None else like, *trees)

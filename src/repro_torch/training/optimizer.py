@@ -5,6 +5,16 @@ Parameters, gradients and moments are the same nested dict / list trees
 (:mod:`repro_torch.models.lm`); :func:`tree_leaves` and :func:`tree_map`
 walk them in the JAX package's order (dict keys sorted), so the
 global norm sums its leaves in the same order.
+
+A leaf may be placed across a mesh
+(:class:`repro_torch.models.sharding.Placed`): the update then runs a
+slot at a time on the slot's device and the new state stays placed; the
+global norm sums each distinct block once, so replicated copies are not
+counted twice. Each leaf's squares are summed in float64 (block by
+block for a placed leaf) and the leaf's total rounded to float32 once:
+the norm then does not depend on how a mesh cuts the leaf, so a placed
+state takes the steps a whole one takes, and a run resumed on another
+mesh the steps the first mesh would have.
 """
 from __future__ import annotations
 
@@ -13,6 +23,9 @@ import math
 from typing import Any, Dict
 
 import torch
+
+from ..analysis import op_cost
+from ..models import sharding as sh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,15 +77,30 @@ def schedule(step: torch.Tensor, cfg: OptimizerConfig) -> torch.Tensor:
 
 def init_opt_state(params, moment_dtype: str = "float32") -> Dict[str, Any]:
     dt = getattr(torch, moment_dtype)
-    return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
-            "v": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params)}
+
+    def zeros(p):
+        return sh.blockwise(lambda b: torch.zeros_like(b, dtype=dt), p)
+
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """The squares of ``x`` in float32, summed in float64."""
+    return torch.sum(torch.square(x.to(torch.float32)), dtype=torch.float64)
 
 
 def global_norm(tree) -> torch.Tensor:
     leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    lead = sh.lead_device(leaves[0])
+    total = torch.zeros((), dtype=torch.float32, device=lead)
     for leaf in leaves:
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+        if sh.is_placed(leaf):
+            blocks = list(leaf.cells().values())
+            parts = op_cost.each(len(blocks), lambda i: _sum_sq(blocks[i]))
+            part = torch.stack([p.to(lead) for p in parts]).sum()
+        else:
+            part = _sum_sq(leaf)
+        total = total + part.to(torch.float32)
     return torch.sqrt(total)
 
 
@@ -90,17 +118,20 @@ def adamw_step(params, grads, opt_state, step: torch.Tensor,
 
     def upd(p, g, m, v):
         mdt = m.dtype
-        g = g.to(torch.float32) * scale
+        dev = p.device
+        scale_, lr_, bc1_, bc2_ = (t.to(dev) for t in (scale, lr, bc1, bc2))
+        g = g.to(torch.float32) * scale_
         m = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
         v = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * g * g
-        step_ = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        step_ = (m / bc1_) / (torch.sqrt(v / bc2_) + cfg.eps)
         # decoupled weight decay on matrices only (ndim >= 2)
         wd = cfg.weight_decay if p.dim() >= 2 else 0.0
         pf = p.to(torch.float32)
-        newp = pf - lr * (step_ + wd * pf)
+        newp = pf - lr_ * (step_ + wd * pf)
         return newp.to(p.dtype), m.to(mdt), v.to(mdt)
 
-    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    out = tree_map(lambda *x: sh.blockwise(upd, *x), params, grads,
+                   opt_state["m"], opt_state["v"])
     return (_pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2)},
             {"grad_norm": gnorm, "lr": lr})
 

@@ -130,8 +130,12 @@ def test_reshard_state_moves_the_state_whole():
     state = TT.init_state(0, cfg, device="cpu")
     moved, ctx = TE.reshard_state(state, TT.state_specs(cfg), _mesh(2))
     assert ctx.mesh.shape == (2, 1) and ctx.dp_axes == ("data",)
+    # placed across the mesh by the specs, each block on its slot's
+    # device; gathered whole, every leaf is the source's bit for bit
     for a, b in zip(TO.tree_leaves(moved), TO.tree_leaves(state)):
-        assert a.device == torch.device("cpu") and torch.equal(a, b)
+        assert sh.is_placed(a) and a.mesh == ctx.mesh
+        assert all(t.device == torch.device("cpu") for t in a.blocks)
+        assert torch.equal(sh.whole(a, "cpu"), b)
     same, ctx1 = TE.reshard_state(state, TT.state_specs(cfg), None)
     assert ctx1 == sh.Parallelism() and same is state
     bad = {**TT.state_specs(cfg), "step": (None,)}
@@ -161,4 +165,4 @@ def test_resume_on_fewer_shards_continues_the_run():
     moved, ctx2 = TE.reshard_state(state, TT.state_specs(cfg), _mesh(2))
     resumed = run(moved, ctx2, range(2, 4))
     for a, b in zip(TO.tree_leaves(resumed), TO.tree_leaves(through)):
-        assert torch.equal(a, b)
+        assert torch.equal(sh.whole(a), sh.whole(b))

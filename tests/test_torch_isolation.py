@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py``, ``kernel_ab.py`` nor an ``examples/torch_*.py`` imports
-JAX or the JAX package, and its entry points never land on the CPU
-unless asked to."""
+``chip_smoke.py``, ``kernel_ab.py``, ``prefix_probe.py`` nor an
+``examples/torch_*.py`` imports JAX or the JAX package, and its entry
+points never land on the CPU unless asked to."""
 import ast
 import pathlib
 
@@ -22,7 +22,8 @@ from repro_torch.training import train_loop as TT
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
               + sorted((ROOT / "examples").glob("torch_*.py"))
-              + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"])
+              + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+                 ROOT / "prefix_probe.py"])
 
 
 def _forbidden(name: str) -> bool:
@@ -55,7 +56,8 @@ def test_scan_covers_the_port():
             "whisper_tiny.py", "llama32_vision_90b.py", "pipeline.py",
             "grad_compress.py", "sharding.py", "elastic.py",
             "train.py", "hw.py", "roofline.py", "op_cost.py", "mesh.py",
-            "dryrun.py", "kernel_ab.py", "torch_quickstart.py",
+            "dryrun.py", "kernel_ab.py", "prefix_probe.py",
+            "torch_quickstart.py",
             "torch_segment_noisy.py", "torch_segment_volume.py",
             "torch_segment_color.py", "torch_serve_segmentation.py"} <= names
     assert not _forbidden("repro_torch.core")

@@ -155,6 +155,41 @@ def test_mesh_steps_match_jax(jax_side, name):
         assert float((got - exp).abs().max()) <= RTOL * top, name
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_placed_mesh_steps_match_jax(jax_side, name):
+    """The same two steps on the state placed across the mesh (each slot
+    a block of every leaf, ``sharding.place``): the state stays placed,
+    no gathered leaf outlives the steps, and metrics and leaves match
+    the lead-device steps and the JAX package's within the bars of
+    :func:`test_mesh_steps_match_jax`."""
+    ref = jax_side["cases"][name]
+    cfg, tcfg, params, mesh = _port_case(name, jax_side)
+    ctx = sh.make_parallelism(mesh)
+    placed = sh.place(_state(params), TT.state_specs(cfg), ctx)
+    got, gm = _steps(cfg, tcfg, placed, mesh)
+    assert sh.live_gathers() == 0
+    assert all(sh.is_placed(x) for x in TO.tree_leaves(got))
+    lead, lm_ = _steps(cfg, tcfg, _state(params), mesh)
+    whole = TO.tree_map(lambda x: sh.whole(x, "cpu"), got)
+    want = _from_jax_state(ref["state"])
+    for i, m in enumerate(gm):
+        for k in ("loss", "aux_loss", "grad_norm", "lr"):
+            for exp in (ref["metrics"][i][k], lm_[i][k]):
+                np.testing.assert_allclose(float(m[k]), float(exp),
+                                           rtol=RTOL,
+                                           err_msg=f"{name} step {i} {k}")
+    assert int(whole["step"]) == STEPS
+    for other in (want, lead):
+        for a, b in zip(TO.tree_leaves(whole["params"]),
+                        TO.tree_leaves(other["params"])):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+                                       atol=1e-6)
+        for a, b in zip(TO.tree_leaves(whole["opt"]),
+                        TO.tree_leaves(other["opt"])):
+            assert float((a - b).abs().max()) <= RTOL * float(
+                b.abs().max()), name
+
+
 @pytest.mark.parametrize("name", COMPRESSED)
 def test_compressed_grads_within_one_quantization_step(jax_side, name):
     """The int8 mean of the per-pod gradients against JAX's, leaf by
