@@ -107,6 +107,17 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    again, the volume six times over so flushes overlap the submitters
    (at the default and at a 0.1 ms interpreter switch interval), against
    a synchronous flush, and the device's own events under the profiler;
+   then (9e) fault (l)'s race on the card, with a spy first-come lock in
+   place of the engine's flush lock, on BrainWeb-size slices of the
+   histogram route: a flusher blocked on the lock while a caller submits
+   leaves the caller's request to its ``flush()``, and a ``segment()``
+   whose flush queues behind the flusher's returns every image, labels
+   and n_iters equal to a ``device="cpu"`` engine's, rows 1-3 launched
+   once a bucket; and (9f) ``repro_torch.analysis.trajectory`` on records
+   built in memory from phase 4's flush and 9a's figures: ``diff`` of a
+   record against itself has no failure, one whose ``engine_s`` grows 2x
+   fails on ``engine_s_b64``, ``render_trajectory`` gives ``None`` without
+   matplotlib and a path with it;
 10. mesh: the visible cards' count and the launch guard's cost; meshes of
    1, 2 and 4 shards (the 4 as (2, 2) over ``("data", "model")``), shard
    k on card k % count, so one card is named several times where fewer
@@ -120,7 +131,8 @@ for CUDA; it imports neither JAX nor the JAX package. Phases, in order
    ``solve_batched`` on the card, one whole-solve a shard; 10c the volume
    through the histogram, pixel and spatial routes of engines at buckets
    (1, 8, 64) meshed on 2 and 4 shards, bit-equal to a single-device
-   engine through ``segment`` and ``submit_async`` + ``drain``, each
+   engine through ``segment``, ``submit_async`` + ``drain`` and
+   ``segment`` again on the one meshed engine, its flusher alive, each
    route kernel launched shards x buckets times, a bucket of 1 on the
    single-device path, ``set_mesh(None)`` and a one-device mesh bit-equal
    again; the p50 flush and its stages, meshed and single;
@@ -2605,6 +2617,7 @@ def async_path(FCMServeEngine, TE, TFI, job, counters, imgs, dev, card):
     require(run["batches"] >= 3 and run["launches"] == want,
             f"9a: launches {run['launches']} for {run['batches']} buckets")
     _print_async("9a histogram", n, run, card)
+    run9a = dict(qps=n / run["wall"], p99=run["p99"])
 
     print("[async] pixel route (9b)")
     run = _async_run(FCMServeEngine, cfg, sizes, counters, imgs,
@@ -2797,6 +2810,7 @@ def async_path(FCMServeEngine, TE, TFI, job, counters, imgs, dev, card):
             f"{set(type(r).__name__ for r in res.values())}")
     print("  shutdown(drain=False): 30 queued futures failed with "
           "EngineShutdown")
+    return run9a
 
 
 def _timed_launches(eng, dev, submitting):
@@ -2945,6 +2959,190 @@ def async_anatomy(FCMServeEngine, job, imgs, dev, card):
               f"({us / count:8.2f} us each) {key[:60]}")
 
 
+class FirstComeLock:
+    """A stand-in for the engine's flush lock, served first come first
+    served, that tells how many threads wait on it: 9e holds it as a
+    drain() in progress would and orders the flushes queued behind it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._held = False
+        self._waiting = []
+
+    def acquire(self):
+        with self._cond:
+            me = object()
+            self._waiting.append(me)
+            self._cond.notify_all()
+            self._cond.wait_for(
+                lambda: not self._held and self._waiting[0] is me)
+            self._waiting.pop(0)
+            self._held = True
+            self._cond.notify_all()
+            return True
+
+    def release(self):
+        with self._cond:
+            self._held = False
+            self._cond.notify_all()
+
+    __enter__ = acquire
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def wait_for_waiters(self, n, what):
+        with self._cond:
+            require(self._cond.wait_for(lambda: len(self._waiting) >= n,
+                                        FUTURE_WAIT),
+                    f"9e: {what} never blocked on the flush lock")
+
+
+#: 9e's slices of the volume: one async request, then one synchronous
+#: request (the flush race) or RACE_SLICES of them (the segment race)
+RACE_SLICES = 16
+
+
+def flusher_race(FCMServeEngine, job, counters, imgs, dev, card):
+    """9e: fault (l) on the card. The flusher blocks on the flush lock
+    while a caller submits; its flush must take the async request only,
+    so the caller's flush() returns its request and segment() returns
+    every image. Results: labels and n_iters equal to a device="cpu"
+    engine's, centers within RTOL/ATOL; rows 1-3 launched once a
+    bucket, the counts set to 0 just before and read just after."""
+    cfg, sizes = job.fcm, job.serving_batch_sizes
+    sel = [imgs[i] for i in np.linspace(0, len(imgs) - 1,
+                                        RACE_SLICES + 1).round().astype(int)]
+    ref = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0,
+                         device="cpu").segment(sel)
+
+    def hold(r, i, what):
+        require(not isinstance(r, Exception), f"9e {what}: {r!r}")
+        require(np.array_equal(r.labels, ref[i].labels)
+                and r.n_iters == ref[i].n_iters,
+                f"9e {what}: image {i} differs from the CPU engine's "
+                f"(n_iters {r.n_iters} vs {ref[i].n_iters})")
+        np.testing.assert_allclose(r.centers, ref[i].centers, rtol=RTOL,
+                                   atol=ATOL, err_msg=f"9e {what} image {i}")
+
+    eng = FCMServeEngine(cfg, batch_sizes=sizes, cache_size=0, device=dev,
+                         max_wait_ms=1.0)
+    spy = FirstComeLock()
+    eng._flush_lock = spy
+    try:
+        _zero(counters)
+        # the flush race: one async request, then one synchronous one
+        t0 = time.perf_counter()
+        spy.acquire()
+        try:
+            fut = eng.submit_async(sel[0])
+            spy.wait_for_waiters(1, "the flusher")
+            rid = eng.submit(sel[1])
+        finally:
+            spy.release()
+        hold(fut.result(timeout=FUTURE_WAIT), 0, "flush race, async")
+        got = eng.flush()
+        t_flush = time.perf_counter() - t0
+        require([r.request_id for r in got] == [rid],
+                f"9e: the caller's flush() returned "
+                f"{[r.request_id for r in got]}, not its request {rid}")
+        hold(got[0], 1, "flush race, sync")
+        # the segment race: segment()'s flush queues behind the flusher's
+        out = {}
+
+        def caller():
+            try:
+                out["res"] = eng.segment(sel[1:])
+            except Exception as e:  # noqa: BLE001 - the fault's KeyError
+                out["err"] = e
+
+        t0 = time.perf_counter()
+        spy.acquire()
+        th = threading.Thread(target=caller)
+        try:
+            fut = eng.submit_async(sel[0])
+            spy.wait_for_waiters(1, "the flusher")
+            th.start()
+            spy.wait_for_waiters(2, "segment()")
+        finally:
+            spy.release()
+        th.join(timeout=FUTURE_WAIT)
+        require(not th.is_alive(), "9e: segment() hung")
+        require("err" not in out, f"9e: segment() raised {out.get('err')!r}")
+        hold(fut.result(timeout=FUTURE_WAIT), 0, "segment race, async")
+        require(len(out["res"]) == RACE_SLICES,
+                f"9e: segment() returned {len(out['res'])} of "
+                f"{RACE_SLICES} images")
+        for i, r in enumerate(out["res"], start=1):
+            hold(r, i, "segment race")
+        t_seg = time.perf_counter() - t0
+        launches = _counts(counters)
+        batches = eng.stats()["batches"]
+        want = {k: (batches if k in ("histogram_bin", "fcm_resident_solve",
+                                     "labels") else 0) for k in counters}
+        require(batches == 4 and launches == want,
+                f"9e: launches {launches} for {batches} buckets")
+        require(eng.queue_depth == 0
+                and eng.stats()["pending_futures"] == 0,
+                "9e: requests left queued")
+    finally:
+        eng.shutdown()
+    h, w = sel[0].shape
+    print(f"  flush race ({h}x{w} slices): the flusher's flush took the "
+          f"async request only, the caller's flush() returned its request "
+          f"({t_flush * 1e3:.2f} ms in all); segment race: segment() of "
+          f"{RACE_SLICES} slices queued behind the flusher returned every "
+          f"image ({t_seg * 1e3:.2f} ms); labels and n_iters equal to the "
+          f"CPU engine's; {batches} buckets, launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+
+
+def trajectory_check(TJ, engine_s, mean_iters, run9a, card):
+    """9f: the port's trajectory module on the card's machine, on records
+    built in memory from phase 4's p50 flush and mean iterations and
+    9a's images/s and p99: a record against itself has no failure, one
+    whose engine_s doubles fails on engine_s_b64 only, and
+    render_trajectory returns None without matplotlib, a path with it."""
+    import tempfile
+
+    def record(pr, engine_s_):
+        return {"pr": pr, "backend": "cuda", "device": card,
+                "batched_throughput": {"histogram": {
+                    "64": {"engine_s": engine_s_},
+                    "convergence": {"mean_iters": mean_iters}}},
+                "load_gen": {"sustained": {
+                    "achieved_qps": run9a["qps"], "p99_s": run9a["p99"]}}}
+
+    base, slow = record(31, engine_s), record(32, 2.0 * engine_s)
+    same = TJ.diff(base, base)
+    require(same.ok and not same.failures,
+            f"9f: a record against itself fails: {same.report()}")
+    worse = TJ.diff(base, slow)
+    require([v.metric for v in worse.failures] == ["engine_s_b64"],
+            f"9f: engine_s 2x fails on "
+            f"{[v.metric for v in worse.failures]}: {worse.report()}")
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    with tempfile.TemporaryDirectory() as d:
+        out = TJ.render_trajectory([(31, base), (32, slow)],
+                                   os.path.join(d, "trajectory.png"))
+        require((out is None) == (not has_mpl)
+                and (out is None or os.path.isfile(out)),
+                f"9f: render_trajectory gave {out!r} with matplotlib "
+                f"{'present' if has_mpl else 'absent'}")
+    verdicts = {v.metric: v.status for v in worse.verdicts
+                if v.status != "absent"}
+    print(f"  trajectory: engine_s {engine_s * 1e3:.2f} ms (phase 4 p50 "
+          f"flush), 9a {run9a['qps']:.1f} images/s, p99 "
+          f"{run9a['p99'] * 1e3:.2f} ms, mean iterations {mean_iters:.3f}; "
+          f"diff against itself ok, engine_s 2x: {verdicts}; "
+          f"render_trajectory {'wrote a figure' if out else 'None'} "
+          f"(matplotlib {'present' if has_mpl else 'absent'}) [{card}]")
+
+
 # ---------------------------------------------------------------------------
 # Phase 10: the mesh (one process, shards on the visible cards)
 # ---------------------------------------------------------------------------
@@ -3089,9 +3287,10 @@ def _timed_flushes(eng, imgs, route):
 def mesh_engine(TD, FCMServeEngine, job, counters, imgs, dev, card):
     """10c: the volume through the histogram, pixel and spatial routes of
     engines meshed on 2 and 4 shards, against a single-device engine on
-    the card: bit-equal through segment and submit_async + drain, after
-    set_mesh(None) and with a one-device mesh; the kernels launched once
-    a shard a bucket, and a bucket of 1 on the single-device path."""
+    the card: bit-equal through segment, submit_async + drain and segment
+    again on the one engine, after set_mesh(None) and with a one-device
+    mesh; the kernels launched once a shard a bucket, and a bucket of 1
+    on the single-device path."""
     def engine(mesh=None):
         return FCMServeEngine(job.fcm, batch_sizes=MESH_BUCKETS,
                               cache_size=0, spatial_cfg=job.spatial,
@@ -3118,18 +3317,18 @@ def mesh_engine(TD, FCMServeEngine, job, counters, imgs, dev, card):
                     f"{size} a bucket of each of {kernels}")
             _bit_equal_all(res, ref[route], tag)
             lat, stages = _timed_flushes(eng, imgs, route)
-            # async on an engine of its own, shut down (its flusher
-            # joined) before the next synchronous flush: a flusher that
-            # wakes as drain() ends may take requests another caller
-            # queues for its own flush
-            aeng = engine(mesh)
-            futs = [aeng.submit_async(im, method=route) for im in imgs]
-            aeng.drain()
-            aeng.shutdown()
+            # async and sync on the one engine: its flusher stays alive
+            # and takes async requests only, so the segment() after the
+            # drain gets every image it submitted
+            futs = [eng.submit_async(im, method=route) for im in imgs]
+            eng.drain()
             _bit_equal_all([f.result(timeout=FUTURE_WAIT) for f in futs],
                            ref[route], f"{tag}, async")
-            print(f"  {tag}: bit-equal to the single-device engine (segment "
-                  f"and submit_async), launches "
+            _bit_equal_all(eng.segment(imgs, method=route), ref[route],
+                           f"{tag}, segment after the drain")
+            print(f"  {tag}: bit-equal to the single-device engine (segment, "
+                  f"submit_async + drain, segment again on one engine), "
+                  f"launches "
                   f"{ {k: v for k, v in used.items() if v} }; p50 flush "
                   f"{lat * 1e3:.2f} ms meshed, {timed[route][0] * 1e3:.2f} "
                   f"ms single, over {MESH_FLUSHES} flushes; ms a flush by "
@@ -5415,6 +5614,7 @@ def main(dev=None):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    from repro_torch.analysis import trajectory as TJ
     from repro_torch.configs import fcm_brainweb
     from repro_torch.core import fcm as F
     from repro_torch.core import batched as TB
@@ -5673,9 +5873,15 @@ def main(dev=None):
 
     # -- 9. async serving and chaos on the card -----------------------------
     t9 = time.perf_counter()
-    async_path(FCMServeEngine, TE, TFI, job, counters, imgs, dev, card)
+    run9a = async_path(FCMServeEngine, TE, TFI, job, counters, imgs, dev,
+                       card)
     print("[async] where an async flush's time goes (9d)")
     async_anatomy(FCMServeEngine, job, imgs, dev, card)
+    print("[async] fault (l): the flusher leaves synchronous requests (9e)")
+    flusher_race(FCMServeEngine, job, counters, imgs, dev, card)
+    print("[async] the trajectory module on records of this run (9f)")
+    trajectory_check(TJ, p50, float(np.mean([r.n_iters for r in res])),
+                     run9a, card)
     print(f"[async] {time.perf_counter() - t9:.1f} s")
 
     # -- 10. the mesh: sharded fits and the meshed engine -------------------

@@ -51,10 +51,12 @@ chunk) and a materializer; the fault-tolerance ladder runs them on the
 plain solver. **Async admission**: ``submit_async`` queues through the
 same per-route queues and returns a
 :class:`~repro_torch.serving.admission.SegmentationFuture`; a lazy,
-supervised background flusher thread forms batches (a bucket group at
-the target shape ``batch_sizes[-1]``, or the oldest async request older
-than ``max_wait_ms``), admits by deadline and sheds the least urgent
-request past ``max_queue_depth``. ``drain`` flushes synchronously and
+supervised background flusher thread forms batches of async requests
+only (a bucket group of them at the target shape ``batch_sizes[-1]``, or
+the oldest older than ``max_wait_ms``), admits by deadline and sheds the
+least urgent request past ``max_queue_depth``. A synchronous request is
+left to the first ``flush()`` its caller makes after ``submit()``,
+whatever the flusher does. ``drain`` flushes synchronously and
 ``shutdown`` drains or fails what is queued. **The ladder** acts on the
 one transient failure the port has, an injected
 :class:`~repro_torch.faults.InjectedFault`: such a launch failure is
@@ -1083,12 +1085,11 @@ class FCMServeEngine:
             self._ensure_flusher()
             # Wake the flusher only when this submit can change its
             # schedule: the route's first queued async request starts a
-            # max_wait window, and a multiple of the target shape may
-            # complete a bucket group.
+            # max_wait window, and a multiple of the target shape of
+            # async requests may complete a bucket group.
             n_async = self._async_n.get(method, 0) + 1
             self._async_n[method] = n_async
-            if (n_async == 1 or len(self._queues[method])
-                    % self.batch_sizes[-1] == 0):
+            if n_async == 1 or n_async % self.batch_sizes[-1] == 0:
                 self._cond.notify_all()
         return fut
 
@@ -1137,20 +1138,23 @@ class FCMServeEngine:
         Leaves one root trace per flush in ``tracer``'s ring.
 
         Thread-safe: the queue swap is atomic under the admission lock
-        and flush bodies are serialized, so no request runs twice. A
-        route whose batch raises fails that route's unresolved futures
-        with the error; with ``raise_errors`` (the synchronous default)
-        the first error then propagates, while the background flusher
-        passes ``False`` so one failing route never kills the thread
-        serving the others."""
+        and flush bodies are serialized, so no request runs twice. The
+        background flusher takes only requests that carry a future, so a
+        synchronous request is returned by the first ``flush()`` its
+        caller makes after ``submit()``. A route whose batch raises fails
+        that route's unresolved futures with the error; with
+        ``raise_errors`` (the synchronous default) the first error then
+        propagates, while the background flusher passes ``False`` so one
+        failing route never kills the thread serving the others."""
+        return self._flush(raise_errors)
+
+    def _flush(self, raise_errors: bool = True,
+               async_only: bool = False) -> List[SegmentationResult]:
         results: Dict[int, SegmentationResult] = {}
         first_err: Optional[BaseException] = None
         with self._flush_lock, self._on_card():
             with self._lock:
-                drained = self._queues
-                self._queues = {name: [] for name in drained}
-                self._async_n = {}
-                self._set_queue_gauges()
+                drained = self._take_queued(async_only)
             n_queued = sum(len(v) for v in drained.values())
             with self.tracer.span("flush", queued=n_queued):
                 for route in ROUTES.values():
@@ -1169,6 +1173,23 @@ class FCMServeEngine:
         if first_err is not None and raise_errors:
             raise first_err
         return [results[rid] for rid in sorted(results)]
+
+    def _take_queued(self, async_only: bool) -> Dict[str, List[Any]]:
+        """Swap queued requests out for a flush (caller holds ``_lock``):
+        every one, or with ``async_only`` (the flusher's flushes) those
+        that carry a future, leaving synchronous ones queued in order
+        for their caller's flush."""
+        taken: Dict[str, List[Any]] = {}
+        for name, q in self._queues.items():
+            if async_only:
+                taken[name] = [p for p in q if p.request_id in self._futures]
+                self._queues[name] = [p for p in q
+                                      if p.request_id not in self._futures]
+            else:
+                taken[name], self._queues[name] = q, []
+        self._async_n = {}      # either way every queued async request left
+        self._set_queue_gauges()
+        return taken
 
     def _admit_order(self, route: RouteSpec, pend: List[Any]) -> List[Any]:
         """Deadline admission on a drained route queue: overdue async
@@ -1257,9 +1278,11 @@ class FCMServeEngine:
 
     def _flush_due(self) -> Optional[float]:
         """Batch-formation policy (caller holds ``_lock``): seconds until
-        the next flush is due; ``0.0`` when some bucket group reached the
-        target shape or the oldest async request exceeded
-        ``max_wait_ms``, ``None`` when no async request waits."""
+        the next flush is due; ``0.0`` when the async requests of some
+        bucket group reached the target shape or the oldest async request
+        exceeded ``max_wait_ms``, ``None`` when no async request waits.
+        Synchronous requests belong to their caller's flush and count
+        toward no group."""
         now = time.perf_counter()
         oldest: Optional[float] = None
         target = self.batch_sizes[-1]
@@ -1268,18 +1291,15 @@ class FCMServeEngine:
             if route is None or not q:
                 continue
             group_sizes: Dict[Hashable, int] = {}
-            async_here = False
             for p in q:
+                fut = self._futures.get(p.request_id)
+                if fut is None:
+                    continue
                 k = route.bucket_key(self, p)
                 group_sizes[k] = group_sizes.get(k, 0) + 1
-                fut = self._futures.get(p.request_id)
-                if fut is not None:
-                    async_here = True
-                    if oldest is None or fut.submit_t < oldest:
-                        oldest = fut.submit_t
-            # Pure synchronous queues belong to their caller's flush.
-            if async_here and any(n >= target
-                                  for n in group_sizes.values()):
+                if oldest is None or fut.submit_t < oldest:
+                    oldest = fut.submit_t
+            if any(n >= target for n in group_sizes.values()):
                 return 0.0
         if oldest is None:
             return None
@@ -1311,8 +1331,9 @@ class FCMServeEngine:
                             break
                         self._cond.wait(timeout=wait)
                 # Outside the lock: per-route errors land in the affected
-                # futures (raise_errors=False).
-                self.flush(raise_errors=False)
+                # futures (raise_errors=False); synchronous requests stay
+                # queued for their caller's flush.
+                self._flush(raise_errors=False, async_only=True)
             except FI.FlusherKilled:
                 with self._lock:
                     self._flusher_kills += 1
